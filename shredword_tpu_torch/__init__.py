@@ -1,0 +1,15 @@
+"""shredword_tpu_torch — the BPE trainer of shredword_tpu on PyTorch and
+CUDA (NVIDIA Hopper).
+
+``BPETrainer`` keeps the JAX package's API and gives byte-identical
+``.model``/``.vocab`` files; its merge loop runs as a hand-written CUDA
+kernel (``csrc/hist_fused.cu``) on a CUDA device, or as that kernel's
+plain PyTorch version on the CPU.  The host layer (native corpus loader,
+serialization, checkpoints) is shared with ``shredword_tpu``, which
+imports no JAX at module level.  This package never imports JAX.
+"""
+
+from .config import BPEConfig
+from .models.bpe import BPETrainer
+
+__all__ = ["BPETrainer", "BPEConfig"]

@@ -1,0 +1,244 @@
+"""Hand-written CUDA kernels of the port: build, load and wrappers.
+
+The sources under ``shredword_tpu_torch/csrc`` are compiled at first use
+with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface, named by a content hash of the sources and flags (as
+``shredword_tpu/runtime/build.py`` names the native runtime), and loaded
+with ctypes.  Importing this module builds nothing.
+
+Every wrapper takes its plain PyTorch version for tensors on the CPU and
+launches its kernel for CUDA tensors; it never falls back from one to
+the other.  Each wrapper counts its kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+PAD = -3
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+SOURCES = ["hist_fused.cu"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+build_seconds: float | None = None   # wall time of this process's build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def lib_path() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libshred_cuda-{h.hexdigest()[:16]}.so")
+
+
+def build(extra_flags: tuple[str, ...] = ()) -> tuple[str, str]:
+    """Compile the kernel library unless it is already built.  Returns
+    (path, compiler output); extra_flags (e.g. ``-Xptxas -v``) force a
+    rebuild so their output is shown."""
+    global build_seconds
+    out = lib_path()
+    if os.path.exists(out) and not extra_flags:
+        return out, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
+           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA kernel build failed:\n{' '.join(cmd)}"
+                               f"\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+    return out, proc.stdout + proc.stderr
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        L = ctypes.CDLL(build()[0])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        L.shred_hist_fused_train.argtypes = [p] * 8 + [i] * 9 + [p]
+        L.shred_hist_fused_train.restype = i
+        L.shred_cuda_error_string.argtypes = [i]
+        L.shred_cuda_error_string.restype = ctypes.c_char_p
+        _lib = L
+    return _lib
+
+
+def _check(rc: int) -> None:
+    if rc != 0:
+        msg = lib().shred_cuda_error_string(rc).decode()
+        raise RuntimeError(f"CUDA launch failed: {msg} ({rc})")
+
+
+# ---------------------------------------------------------------------
+# fused hist-engine merge loop
+# ---------------------------------------------------------------------
+
+def hist_fused_train(tw: torch.Tensor, wcount: torch.Tensor,
+                     hist: torch.Tensor, *, unk: int, min_freq: int,
+                     n_done: int, init_done: int, allowed: int,
+                     steps: int) -> torch.Tensor:
+    """``steps`` greedy merges of the hist engine, in place.
+
+    Replaces ``shredword_tpu.ops.bpe_hist._fused_kernel`` and
+    ``_fused_kernel_big`` (one launch each, same semantics): tw int16
+    [L, W] (one word per column, PAD after it), wcount int32 [W],
+    hist int32 [v, v].  The scalars are the TPU kernel's ``scal``
+    (unk_id, min_pair_freq, n_done, init_done, allowed); merge step i
+    creates id 256 + n_done + i.  Returns int32 [steps, 4] records
+    (a, b, freq, did) on tw's device; did == 0 from the first step that
+    could not merge on (the done flag is sticky).
+
+    CPU tensors run :func:`hist_fused_train_plain`; CUDA tensors run
+    ``csrc/hist_fused.cu`` (bound by launch latency per merge, see its
+    header)."""
+    L, W = tw.shape
+    v = hist.shape[0]
+    if tw.dtype != torch.int16 or wcount.dtype != torch.int32 \
+            or hist.dtype != torch.int32:
+        raise TypeError("tw must be int16, wcount and hist int32")
+    if wcount.shape != (W,) or hist.shape != (v, v):
+        raise ValueError(f"shape mismatch: tw {tuple(tw.shape)}, wcount "
+                         f"{tuple(wcount.shape)}, hist {tuple(hist.shape)}")
+    if not (tw.is_contiguous() and wcount.is_contiguous()
+            and hist.is_contiguous()):
+        raise ValueError("tw, wcount and hist must be contiguous")
+    if L not in (16, 32, 64):
+        raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
+    if 256 + n_done + min(steps, allowed) > v:
+        raise ValueError("merge ids would exceed the table size v")
+    if not (tw.device == wcount.device == hist.device):
+        raise ValueError("tw, wcount and hist must share one device")
+    if tw.device.type == "cpu":
+        return hist_fused_train_plain(
+            tw, wcount, hist, unk=unk, min_freq=min_freq, n_done=n_done,
+            init_done=init_done, allowed=allowed, steps=steps)
+    if tw.device.type != "cuda":
+        raise ValueError(f"unsupported device {tw.device}")
+    dev = tw.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    rowmax = torch.empty(v, **i32)
+    dl = torch.empty(v, **i32)
+    dr = torch.empty(v, **i32)
+    state = torch.zeros(8, **i32)
+    records = torch.empty((steps, 4), **i32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().shred_hist_fused_train(
+            tw.data_ptr(), wcount.data_ptr(), hist.data_ptr(),
+            rowmax.data_ptr(), dl.data_ptr(), dr.data_ptr(),
+            state.data_ptr(), records.data_ptr(), L, W, v, steps, unk,
+            min_freq, n_done, init_done, allowed, stream)
+    _check(rc)
+    hist_fused_train.launches += 1
+    return records
+
+
+hist_fused_train.launches = 0
+
+
+def hist_fused_train_plain(tw, wcount, hist, *, unk, min_freq, n_done,
+                           init_done, allowed, steps) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_fused_train`: the closed-form
+    select/compact/delta pass over the whole [L, W] corpus and the
+    apply_hist_updates table update, one merge at a time."""
+    v = hist.shape[0]
+    records = torch.zeros((steps, 4), dtype=torch.int32, device=tw.device)
+    done = bool(init_done)
+    for i in range(steps):
+        rm = hist.amax(1)
+        rm = torch.where(rm >= min_freq, rm, 0)
+        m = int(rm.max())
+        do = m > 0 and not done and i < allowed
+        if not do:
+            # nothing changes any more: every later step picks the same
+            records[i:, 2] = m
+            break
+        a = int((rm == m).nonzero()[0, 0])          # smallest row
+        b = int((hist[a] == m).nonzero()[0, 0])     # then smallest column
+        new = 256 + n_done + i
+        records[i] = torch.tensor([a, b, m, 1], dtype=torch.int32)
+        dl, dr = merge_pass_plain(tw, wcount, a, b, new, unk, v)
+        hist[:, a] -= dl
+        hist[:, new] += dl
+        hist[b, :] -= dr
+        hist[new, :] += dr
+        hist[a, b] = 0
+    return records
+
+
+def _shift_down(x: torch.Tensor, k: int, fill) -> torch.Tensor:
+    """x[r - k] (rows), ``fill`` for r < k."""
+    return torch.cat([torch.full_like(x[:k], fill), x[:-k]])
+
+
+def _shift_up(x: torch.Tensor, k: int, fill) -> torch.Tensor:
+    """x[r + k] (rows), ``fill`` past the end."""
+    return torch.cat([x[k:], torch.full_like(x[:k], fill)])
+
+
+def merge_pass_plain(tw, wcount, a, b, new, unk, v):
+    """Merge (a, b) -> new over the [L, W] corpus in place; returns the
+    int32 [v] left/right neighbour weight vectors (dl, dr)
+    (bpe_hist._select_and_apply + _slot_delta_accum semantics)."""
+    L, W = tw.shape
+    t = tw.to(torch.int32)
+    m = (t == a) & (_shift_up(t, 1, PAD) == b)
+    dl = torch.zeros(v, dtype=torch.int32, device=tw.device)
+    dr = torch.zeros_like(dl)
+    if not bool(m.any()):
+        return dl, dr
+    # greedy left-to-right: every other match of a run, from its head
+    row = torch.arange(L, device=tw.device)[:, None]
+    last_nm = torch.where(m, -1, row).cummax(0).values
+    sel = m & (((row - last_nm) & 1) == 1)
+    # merge, then compact each column over the holes left by b
+    hole = _shift_down(sel, 1, False)
+    keep = ~hole
+    pos = torch.where(keep, keep.cumsum(0) - 1, L)
+    out = torch.full((L + 1, W), PAD, dtype=torch.int32, device=tw.device)
+    out.scatter_(0, pos, torch.where(sel, new, t))
+    tw.copy_(out[:L])
+    # neighbour weights: left is the token emitted before (new when the
+    # previous pair merged), right the pre-merge t[r + 2]
+    lval = torch.where(_shift_down(sel, 2, False), new,
+                       _shift_down(t, 1, PAD))
+    rval = _shift_up(t, 2, PAD)
+    w = wcount.expand(L, W)
+    for vals, d in ((lval, dl), (rval, dr)):
+        ok = sel & (vals >= 0) & (vals != unk)
+        d.index_add_(0, vals[ok].long(), w[ok])
+    return dl, dr

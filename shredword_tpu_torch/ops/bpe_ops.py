@@ -1,0 +1,118 @@
+"""Flat-stream BPE engine in plain PyTorch (port of
+``shredword_tpu/ops/bpe_ops.py`` up to ``train_loop``).
+
+  tokens  : int32 [N]  token ids of all unique words, concatenated
+  word_id : int32 [N]  owning word index per position
+  wcount  : int32 [N]  occurrence count of the owning word
+
+A pair lives at position i: (tokens[i], tokens[i+1]) when both are in
+one word and neither is unk.  Counting is exact (sorted unique pair keys
+plus an integer segment sum), the best pair breaks ties to the
+lexicographically smallest (a, b), and merging applies the reference's
+greedy left-to-right overlap rule (bpe.cpp:472-482).  PyTorch runs
+eagerly, so every merge compacts the stream to its exact length: the
+JAX engine's capacity buckets and re-compaction have nothing to do.
+
+It is the auto route for corpora whose words exceed the hist layout, and
+the independent cross-check of the hist engine.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class CorpusState(NamedTuple):
+    tokens: torch.Tensor    # int32 [N]
+    word_id: torch.Tensor   # int32 [N]
+    wcount: torch.Tensor    # int32 [N]
+
+
+class TrainState(NamedTuple):
+    corpus: CorpusState
+    merges: np.ndarray       # int32 [M_max, 2]
+    merge_freqs: np.ndarray  # int32 [M_max]
+    n_merges: int            # including the n_prev resumed merges
+    done: bool
+
+
+def make_state(tokens, word_id, wcount, device="cpu") -> CorpusState:
+    dev = torch.device(device)
+
+    def as_t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+
+    return CorpusState(as_t(tokens), as_t(word_id), as_t(wcount))
+
+
+def best_pair(state: CorpusState, unk_id: int,
+              min_pair_freq: int) -> tuple[int, int, int]:
+    """(a, b, count) of the highest-count eligible pair, ties to the
+    smallest (a, b); count == 0 if no pair reaches min_pair_freq."""
+    t, wid = state.tokens, state.word_id
+    valid = ((wid[:-1] == wid[1:]) & (t[:-1] != unk_id)
+             & (t[1:] != unk_id))
+    key = (t[:-1][valid].long() << 32) | t[1:][valid].long()
+    if key.numel() == 0:
+        return 0, 0, 0
+    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
+    cnt = torch.zeros(len(uniq), dtype=torch.int64, device=t.device)
+    cnt.index_add_(0, inv, state.wcount[:-1][valid].long())
+    cnt = torch.where(cnt >= min_pair_freq, cnt, 0)
+    best = int(cnt.argmax())            # first maximum: smallest key
+    k = int(uniq[best])
+    return k >> 32, k & 0xFFFFFFFF, int(cnt[best])
+
+
+def select_matches(state: CorpusState, a: int, b: int) -> torch.Tensor:
+    """Greedy left-to-right non-overlapping occurrences of (a, b) within
+    words (no unk exclusion: the reference merge scan matches raw ids,
+    bpe.cpp:441-443).  In a run of consecutive matches (a == b) every
+    other one from the run head is taken (bpe.cpp:480-482)."""
+    t, wid = state.tokens, state.word_id
+    match = torch.zeros_like(t, dtype=torch.bool)
+    match[:-1] = (wid[:-1] == wid[1:]) & (t[:-1] == a) & (t[1:] == b)
+    if a == b:
+        idx = torch.arange(len(t), device=t.device)
+        last_nm = torch.where(match, -1, idx).cummax(0).values
+        match &= (idx - last_nm - 1) % 2 == 0
+    return match
+
+
+def apply_merge(state: CorpusState, a: int, b: int,
+                new_id: int) -> CorpusState:
+    """Merge every selected (a, b) into new_id and compact the stream."""
+    sel = select_matches(state, a, b)
+    t = torch.where(sel, new_id, state.tokens)
+    keep = torch.ones_like(sel)
+    keep[1:] = ~sel[:-1]                # drop the right half of each match
+    return CorpusState(t[keep], state.word_id[keep], state.wcount[keep])
+
+
+def train_init(corpus: CorpusState, max_merges: int,
+               n_prev_merges: int = 0) -> TrainState:
+    return TrainState(corpus=corpus,
+                      merges=np.zeros((max(max_merges, 1), 2), np.int32),
+                      merge_freqs=np.zeros(max(max_merges, 1), np.int32),
+                      n_merges=n_prev_merges, done=False)
+
+
+def train_loop(ts: TrainState, unk_id: int, min_pair_freq: int, *,
+               target_merges: int, max_steps: int) -> TrainState:
+    """Up to max_steps greedy merges; merge k creates id 256 + k."""
+    corpus, n, done = ts.corpus, ts.n_merges, ts.done
+    for _ in range(max_steps):
+        if done or n >= target_merges:
+            break
+        a, b, cnt = best_pair(corpus, unk_id, min_pair_freq)
+        if cnt == 0:
+            done = True
+            break
+        corpus = apply_merge(corpus, a, b, 256 + n)
+        ts.merges[n] = (a, b)
+        ts.merge_freqs[n] = cnt
+        n += 1
+    return ts._replace(corpus=corpus, n_merges=n, done=done)

@@ -1,0 +1,103 @@
+"""The port's CUDA kernel against its plain PyTorch version.
+
+These tests import no JAX, so they also run where only PyTorch is
+installed.  The ``cuda`` ones need a card and skip without one; run them
+there with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from shredword_tpu_torch import BPETrainer
+from shredword_tpu_torch.ops import _kernels, bpe_hist
+
+
+def _corpus(seed, n_words=400, alpha=6, max_len=12, unk=None):
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, max_len + 1, n_words)
+    lens[:10] = max_len                                 # 'aaaa...' runs
+    word_id = np.repeat(np.arange(n_words, dtype=np.int32), lens)
+    tokens = rng.randint(97, 97 + alpha, len(word_id)).astype(np.int32)
+    tokens[word_id < 10] = 97
+    if unk is not None:
+        tokens[rng.rand(len(tokens)) < 0.05] = unk
+    wc_word = rng.randint(1, 60, n_words).astype(np.int32)
+    return tokens, word_id, wc_word
+
+
+# name: (corpus arguments, hist_train keyword arguments)
+CASES = {
+    "plain": (dict(seed=0), dict(target_merges=60)),
+    "unk_byte": (dict(seed=1, unk=98), dict(target_merges=40, unk_id=98)),
+    "chunked": (dict(seed=2), dict(target_merges=50, max_steps_per_call=7)),
+    "min_freq_stop": (dict(seed=3), dict(target_merges=80,
+                                         min_pair_freq=300,
+                                         max_steps_per_call=16)),
+    "rows32": (dict(seed=4, max_len=30, alpha=4), dict(target_merges=40)),
+    "rows64": (dict(seed=5, max_len=60, alpha=3), dict(target_merges=40)),
+    "n_prev": (dict(seed=6), dict(target_merges=50, n_prev_merges=13)),
+    "vocab4096": (dict(seed=7, n_words=3000, alpha=12),
+                  dict(target_merges=3840, max_steps_per_call=256)),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain(case, cuda):
+    corpus_kw, kw = CASES[case]
+    tokens, word_id, wc_word = _corpus(**corpus_kw)
+    kw = {"unk_id": -1, "min_pair_freq": 2, **kw}
+    want = bpe_hist.hist_train(tokens, word_id, wc_word, device="cpu", **kw)
+    n0 = _kernels.hist_fused_train.launches
+    got = bpe_hist.hist_train(tokens, word_id, wc_word, device=cuda, **kw)
+    assert _kernels.hist_fused_train.launches > n0
+    assert len(got[0]) > 0
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_trainer_on_cuda_matches_cpu(cuda, tmp_path):
+    text = b"".join(b"%s hello world abracadabra %d\n" % (b"ab" * (i % 7), i)
+                    for i in range(400))
+    out = {}
+    for dev in ("cpu", cuda):
+        for engine in ("hist", "flat"):
+            t = BPETrainer(target_vocab_size=330, unk_id=-1,
+                           character_coverage=0.9995, min_pair_freq=2,
+                           engine=engine, device=dev)
+            t.load_corpus_bytes(text)
+            t.train()
+            mp, vp = tmp_path / "m", tmp_path / "v"
+            t.save(str(mp), str(vp))
+            out[str(dev), engine] = (mp.read_bytes(), vp.read_bytes())
+    assert len(set(out.values())) == 1
+
+
+def test_wrapper_rejects_bad_input():
+    tw = torch.full((16, 512), bpe_hist.PAD, dtype=torch.int16)
+    wc = torch.zeros(512, dtype=torch.int32)
+    hist = torch.zeros((384, 384), dtype=torch.int32)
+    kw = dict(unk=-1, min_freq=2, n_done=0, init_done=0, allowed=8,
+              steps=8)
+    with pytest.raises(TypeError):
+        _kernels.hist_fused_train(tw.int(), wc, hist, **kw)
+    with pytest.raises(ValueError, match="L must be"):
+        _kernels.hist_fused_train(tw[:12].contiguous(), wc, hist, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        _kernels.hist_fused_train(tw, wc[:100], hist, **kw)
+    with pytest.raises(ValueError, match="exceed"):
+        _kernels.hist_fused_train(tw, wc, hist, **{**kw, "n_done": 127,
+                                                   "allowed": 2})
+    recs = _kernels.hist_fused_train(tw, wc, hist, **kw)
+    assert recs.shape == (8, 4) and not recs[:, 3].any()

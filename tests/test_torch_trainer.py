@@ -1,0 +1,197 @@
+"""The port's BPETrainer (shredword_tpu_torch) against the JAX package's
+trainer: byte-identical .model/.vocab files on the golden corpora,
+checkpoints that cross from one package to the other, routing, device
+handling, and a JAX-free import."""
+
+import logging
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from golden.corpus_gen import GOLDEN_CONFIGS
+from shredword_tpu import checkpoint as ckpt
+from shredword_tpu.errors import ConfigError, TrainingError
+from shredword_tpu.models.bpe import BPETrainer as JaxTrainer
+from shredword_tpu_torch import BPEConfig, BPETrainer
+from shredword_tpu_torch.ops import _kernels
+
+CONFIGS = [(name, i) for name, cfgs in GOLDEN_CONFIGS.items()
+           for i, cfg in enumerate(cfgs) if cfg[0] <= 4096]
+
+
+def _save(trainer, tmp_path, tag):
+    mp, vp = tmp_path / f"{tag}.model", tmp_path / f"{tag}.vocab"
+    trainer.save(str(mp), str(vp))
+    return mp.read_bytes(), vp.read_bytes()
+
+
+def _port(cfg, **kw):
+    v, unk, cov, mpf = cfg
+    return BPETrainer(v, unk, cov, mpf, backend="cuda", device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_flat_files():
+    return {}
+
+
+@pytest.mark.parametrize("engine", ["hist", "flat"])
+@pytest.mark.parametrize("name,i", CONFIGS)
+def test_model_bytes_match_jax_flat(name, i, engine, request, tmp_path,
+                                    jax_flat_files):
+    cfg = GOLDEN_CONFIGS[name][i]
+    path = request.getfixturevalue(f"{name}_corpus_file")
+    if (name, i) not in jax_flat_files:
+        j = JaxTrainer(*cfg, backend="tpu", engine="flat")
+        j.load_corpus(path)
+        j.train()
+        jax_flat_files[name, i] = _save(j, tmp_path, "jax")
+    t = _port(cfg, engine=engine)
+    t.load_corpus(path)
+    t.train()
+    assert _save(t, tmp_path, "port") == jax_flat_files[name, i]
+
+
+def test_cpu_backend_matches_jax_cpu_backend(small_corpus_file, tmp_path):
+    cfg = GOLDEN_CONFIGS["small"][2]
+    j = JaxTrainer(*cfg, backend="cpu")
+    j.load_corpus(small_corpus_file)
+    j.train()
+    t = BPETrainer(*cfg, backend="cpu")
+    t.load_corpus(small_corpus_file)
+    t.train()
+    assert _save(t, tmp_path, "port") == _save(j, tmp_path, "jax")
+
+
+@pytest.mark.parametrize("engine", ["hist", "flat"])
+def test_jax_checkpoint_resumes_in_port(engine, zipf_corpus_file, tmp_path):
+    cfg = (600, -1, 0.995, 10)
+    full = JaxTrainer(*cfg, backend="tpu", engine="flat")
+    full.load_corpus(zipf_corpus_file)
+    n = full.train()
+    assert n > 40
+    half = JaxTrainer(*cfg, backend="tpu", engine="flat")
+    half.load_corpus(zipf_corpus_file)
+    assert half.train(max_merges=25) == 25
+    cp = str(tmp_path / "jax.ckpt")
+    half.save_checkpoint(cp)
+
+    auto_cp = str(tmp_path / "port.ckpt")
+    t = _port(cfg, engine=engine, checkpoint_path=auto_cp,
+              checkpoint_every=8, merges_per_device_call=8)
+    t.load_corpus(zipf_corpus_file)
+    assert t.load_checkpoint(cp) == 25
+    assert t.train() == n - 25
+    np.testing.assert_array_equal(t.merges, full.merges)
+    np.testing.assert_array_equal(t.merge_freqs, full.merge_freqs)
+    np.testing.assert_array_equal(t.token_frequencies(),
+                                  full.token_frequencies())
+    # the port's own checkpoint carries the replayed prefix
+    _, merges, _ = ckpt.load_checkpoint(auto_cp)
+    assert len(merges) > 25
+    np.testing.assert_array_equal(merges, full.merges[:len(merges)])
+
+
+def test_incremental_train_matches_one_call(small_corpus_file):
+    cfg = GOLDEN_CONFIGS["small"][0]
+    one = _port(cfg)
+    one.load_corpus(small_corpus_file)
+    one.train()
+    two = _port(cfg)
+    two.load_corpus(small_corpus_file)
+    assert two.train(max_merges=10) == 10
+    two.train()
+    np.testing.assert_array_equal(two.merges, one.merges)
+    np.testing.assert_array_equal(two.token_frequencies(),
+                                  one.token_frequencies())
+
+
+def test_cuda_backend_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA"):
+        BPETrainer(300, -1, backend="cuda")
+    BPETrainer(300, -1, backend="cuda", device="cpu")
+    BPETrainer(300, -1, backend="cpu")
+
+
+def test_config_validation():
+    with pytest.raises(ConfigError):
+        BPEConfig(backend="tpu").validate()
+    with pytest.raises(ConfigError):
+        BPEConfig(engine="sparse").validate()
+    cfg = BPEConfig(target_vocab_size=300, min_pair_freq=0,
+                    character_coverage=1.0).validate()
+    assert (cfg.min_pair_freq, cfg.character_coverage) == (2000, 0.995)
+    assert cfg.target_merges == 44 and cfg.backend == "cuda"
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(target_vocab_size=5000), "giant"),
+    (dict(target_vocab_size=400, engine="giant"), "giant"),
+    (dict(target_vocab_size=400, shards=2), "sharded"),
+])
+def test_unported_routes_raise(kw, match):
+    t = BPETrainer(unk_id=-1, min_pair_freq=2, device="cpu", **kw)
+    t.load_corpus_bytes(b"the quick brown fox jumps over the lazy dog\n" * 20)
+    with pytest.raises(TrainingError, match=match):
+        t.train()
+
+
+def test_auto_falls_back_to_flat_for_long_words(tmp_path):
+    data = (b"x" * 100 + b" the quick brown fox\n") * 20
+    auto = BPETrainer(300, -1, 0.9999, 2, device="cpu")
+    auto.load_corpus_bytes(data)
+    logged = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: logged.append(record.getMessage())
+    logger = logging.getLogger("shredword_tpu")
+    logger.addHandler(handler)
+    try:
+        n = auto.train()
+    finally:
+        logger.removeHandler(handler)
+    assert any("using the flat engine" in m for m in logged)
+    flat = BPETrainer(300, -1, 0.9999, 2, device="cpu", engine="flat")
+    flat.load_corpus_bytes(data)
+    assert flat.train() == n > 0
+    assert _save(auto, tmp_path, "a") == _save(flat, tmp_path, "f")
+    hist = BPETrainer(300, -1, 0.9999, 2, device="cpu", engine="hist")
+    hist.load_corpus_bytes(data)
+    with pytest.raises(TrainingError, match="longer"):
+        hist.train()
+
+
+def test_launch_counter_stays_zero_on_cpu(small_corpus_file):
+    before = _kernels.hist_fused_train.launches
+    t = _port(GOLDEN_CONFIGS["small"][0], engine="hist")
+    t.load_corpus(small_corpus_file)
+    assert t.train() > 0
+    assert _kernels.hist_fused_train.launches == before == 0
+
+
+def test_import_and_train_without_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+
+        class BlockJax:
+            def find_spec(self, name, path=None, target=None):
+                if name == "jax" or name.startswith("jax."):
+                    raise ImportError("jax is blocked")
+
+        sys.meta_path.insert(0, BlockJax())
+        from shredword_tpu_torch import BPETrainer
+        t = BPETrainer(300, -1, 0.995, 2, device="cpu")
+        t.load_corpus_bytes(b"hello world, hello there\\n" * 30)
+        t.train()
+        t.save({str(tmp_path / 'm.model')!r}, {str(tmp_path / 'm.vocab')!r})
+        assert not [m for m in sys.modules if m.split(".")[0] == "jax"]
+        print("merges", t.num_merges)
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "merges" in r.stdout and (tmp_path / "m.vocab").exists()
