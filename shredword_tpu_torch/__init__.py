@@ -3,8 +3,9 @@ CUDA (NVIDIA Hopper).
 
 ``BPETrainer`` keeps the JAX package's API and gives byte-identical
 ``.model``/``.vocab`` files; its merge loop runs as a hand-written CUDA
-kernel (``csrc/hist_fused.cu``) on a CUDA device, or as that kernel's
-plain PyTorch version on the CPU.  The host layer (native corpus loader,
+kernel on a CUDA device (``csrc/hist_fused.cu`` up to vocab 4096,
+``csrc/giant.cu`` up to 32768), or as that kernel's plain PyTorch version
+on the CPU.  The host layer (native corpus loader,
 serialization, checkpoints) is shared with ``shredword_tpu``, which
 imports no JAX at module level.  This package never imports JAX.
 """

@@ -3,8 +3,8 @@
 The fields, defaults and defaulting rules are those of
 ``shredword_tpu.config.BPEConfig`` (reference bpe.h:43-48 and
 create_trainer, bpe.cpp:124-130).  Only the backends differ: ``"cuda"``
-runs the device engines (hist kernel or flat stream) on the trainer's
-torch device, ``"cpu"`` the shared native faithful engine.
+runs the device engines (hist or giant kernel, or flat stream) on the
+trainer's torch device, ``"cpu"`` the shared native faithful engine.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ class BPEConfig:
     tie_break: str = "lex"              # "lex" | "faithful" (CPU selector)
     backend: str = "cuda"               # "cuda" | "cpu"
     engine: str = "auto"                # "auto" | "hist" | "giant" | "flat"
-                                        # (giant is not ported yet)
     checkpoint_path: str | None = None  # mid-training checkpoint file
     checkpoint_every: int = 0           # merges between checkpoints (0=off)
     shards: int = 0                     # data-parallel shards (not ported)

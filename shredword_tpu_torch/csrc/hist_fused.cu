@@ -34,53 +34,19 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "block_reduce.cuh"
+#include "merge_column.cuh"
+
 namespace {
 
-constexpr int PAD = -3;
+using namespace shred;
+
 constexpr int CORPUS_THREADS = 256;
 constexpr int UPDATE_THREADS = 256;
 constexpr int PICK_THREADS = 1024;
 
 // per-merge device state, written by pick and read by corpus/update
 enum { S_A = 0, S_B, S_NEW, S_DO, S_DONE, S_LEN };
-
-__device__ int block_max(int x) {
-  __shared__ int warp_val[32];
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) warp_val[warp] = x;
-  __syncthreads();
-  const int nw = (blockDim.x + 31) >> 5;
-  x = threadIdx.x < nw ? warp_val[threadIdx.x] : INT_MIN;
-  if (warp == 0)
-    for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;  // valid in thread 0
-}
-
-__device__ unsigned long long block_max_u64(unsigned long long x) {
-  __shared__ unsigned long long warp_val[32];
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = y > x ? y : x;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) warp_val[warp] = x;
-  __syncthreads();
-  const int nw = (blockDim.x + 31) >> 5;
-  x = threadIdx.x < nw ? warp_val[threadIdx.x] : 0ull;
-  if (warp == 0)
-    for (int o = 16; o > 0; o >>= 1) {
-      unsigned long long y = __shfl_xor_sync(0xffffffffu, x, o);
-      x = y > x ? y : x;
-    }
-  return x;  // valid in thread 0
-}
-
-__device__ int block_min(int x) {
-  return -block_max(-x);  // callers pass values in [0, INT_MAX]
-}
 
 // rowmax[r] = max_c hist[r, c], once per call (bpe_hist.py:502)
 __global__ void rowmax_kernel(const int* __restrict__ hist, int v,
@@ -100,22 +66,19 @@ __global__ void pick_kernel(const int* __restrict__ hist,
                             int* __restrict__ records, int* __restrict__ dl,
                             int* __restrict__ dr) {
   __shared__ int s_a, s_m, s_do;
-  // key orders by thresholded row max, then by the smaller row index
+  // smallest row of the largest thresholded row max
   unsigned long long best = 0ull;
   for (int r = threadIdx.x; r < v; r += blockDim.x) {
     const int rm = rowmax[r];
-    const int val = rm >= min_freq ? rm : 0;
-    const unsigned long long key =
-        ((unsigned long long)((unsigned)val ^ 0x80000000u) << 32) |
-        (unsigned)(v - 1 - r);
+    const unsigned long long key = max_key(rm >= min_freq ? rm : 0, r, v);
     best = key > best ? key : best;
   }
   best = block_max_u64(best);
   if (threadIdx.x == 0) {
-    const int m = (int)((unsigned)(best >> 32) ^ 0x80000000u);
+    const int m = key_val(best);
     const int done = i == 0 ? init_done : state[S_DONE];
     const int d = (m > 0) && !done && (i < allowed);
-    s_a = d ? v - 1 - (int)(best & 0xffffffffu) : 0;
+    s_a = d ? key_idx(best, v) : 0;
     s_m = m;
     s_do = d;
   }
@@ -146,10 +109,8 @@ __global__ void pick_kernel(const int* __restrict__ hist,
   }
 }
 
-// _select_and_apply + _slot_delta_accum (bpe_hist.py:141-248), one
-// column per thread, as the sequential greedy scan they are closed forms
-// of.  Tokens live in registers; loads and stores of one row are
-// coalesced across the warp.
+// _select_and_apply + _slot_delta_accum (bpe_hist.py:141-248): one
+// column per thread (merge_column.cuh).
 template <int L>
 __global__ void corpus_kernel(int16_t* __restrict__ tw,
                               const int* __restrict__ wcount, int W,
@@ -159,38 +120,8 @@ __global__ void corpus_kernel(int16_t* __restrict__ tw,
   if (!state[S_DO]) return;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= W) return;
-  const int a = state[S_A], b = state[S_B], nw = state[S_NEW];
-  int t[L];
-#pragma unroll
-  for (int r = 0; r < L; ++r) t[r] = tw[(size_t)r * W + col];
-  bool any = false;
-#pragma unroll
-  for (int r = 0; r + 1 < L; ++r) any |= (t[r] == a) & (t[r + 1] == b);
-  if (!any) return;
-  const int w = wcount[col];
-  int o = 0;          // next output row
-  int last = PAD;     // last token emitted (the post-merge left neighbour)
-  bool skip = false;  // this row is the consumed right half of a merge
-#pragma unroll
-  for (int r = 0; r < L; ++r) {
-    if (skip) {
-      skip = false;
-      continue;
-    }
-    const int nxt = r + 1 < L ? t[r + 1] : PAD;
-    int x = t[r];
-    if (t[r] == a && nxt == b) {
-      const int rv = r + 2 < L ? t[r + 2] : PAD;  // pre-merge right neighbour
-      if (last >= 0 && last != unk) atomicAdd(&dl[last], w);
-      if (rv >= 0 && rv != unk) atomicAdd(&dr[rv], w);
-      x = nw;
-      skip = true;
-    }
-    tw[(size_t)o * W + col] = (int16_t)x;
-    ++o;
-    last = x;
-  }
-  for (; o < L; ++o) tw[(size_t)o * W + col] = (int16_t)PAD;
+  merge_column<L>(tw, W, col, state[S_A], state[S_B], state[S_NEW], unk,
+                  wcount, dl, dr);
 }
 
 // apply_hist_updates (bpe_hist.py:251-259) and the row-max refresh

@@ -10,13 +10,15 @@ class replaces the device part:
 
   backend "cuda"  device engines on ``device`` (default "cuda"):
                   engine "auto"/"hist" -> the fused hist kernel for
-                  vocab <= 4096 (auto falls to flat when a word is
-                  longer than the layout takes); "flat" -> the sort-based
-                  stream engine.  Giant vocabularies and sharded
-                  training are not ported yet and raise.
+                  vocab <= 4096 and the giant kernel above it, up to
+                  32768 (auto falls to flat when the table engines
+                  decline the corpus); "giant" -> the giant kernel at
+                  any vocab; "flat" -> the sort-based stream engine.
+                  Sharded training is not ported yet and raises.
   backend "cpu"   the native faithful engine, as in the JAX package.
 
-On a CPU device the hist engine runs its kernel's plain PyTorch version.
+On a CPU device the table engines run their kernels' plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from shredword_tpu.models import bpe as _host
 from shredword_tpu.utils import logging as log
 
 from ..config import BPEConfig
-from ..ops import bpe_hist, bpe_ops
+from ..ops import bpe_giant, bpe_hist, bpe_ops
 
 
 class BPETrainer(_host.BPETrainer):
@@ -96,48 +98,58 @@ class BPETrainer(_host.BPETrainer):
             raise TrainingError(
                 "sharded training is not ported to shredword_tpu_torch "
                 "yet (see ROADMAP.md); train on one device")
-        v = -(-(256 + target) // 128) * 128
-        if cfg.engine == "giant" or (cfg.engine in ("auto", "hist")
-                                     and v > bpe_hist.MAX_V):
-            raise TrainingError(
-                f"vocab {256 + target} needs the giant engine, which is "
-                f"not ported to shredword_tpu_torch yet (the hist engine "
-                f"serves vocab <= {bpe_hist.MAX_V}; see ROADMAP.md)")
         tokens, word_id, wcount, n_prev = self._replay_for_resume(
             tokens, word_id, wcount)
 
+        if cfg.engine == "giant":
+            out = self._train_table("giant", tokens, word_id, target, n_prev)
+            if out is None:
+                raise TrainingError(
+                    "giant engine requested but the corpus/vocab is "
+                    "outside its envelope (vocab > 32768, a word > 64 "
+                    "tokens, or unk_id >= 256)")
+            return out
         if cfg.engine in ("auto", "hist"):
-            out = self._train_hist(tokens, word_id, target, n_prev)
+            out = self._train_table("hist", tokens, word_id, target, n_prev)
             if out is not None:
                 return out
             if cfg.engine == "hist":
                 raise TrainingError(
-                    "hist engine requested but a word is longer than its "
-                    "layout takes (64 tokens)")
-            log.info("hist engine: a word is longer than its layout takes "
-                     "(64 tokens); using the flat engine")
+                    "hist engine requested but the corpus/vocab does not "
+                    "fit its layout (a word longer than 64 tokens; above "
+                    "vocab 4096, vocab > 32768 or unk_id >= 256)")
+            log.info("table engines: a word is longer than their layout "
+                     "takes (64 tokens), or above vocab 4096 the vocab or "
+                     "unk_id is outside the giant engine's envelope; using "
+                     "the flat engine")
         return self._train_flat(tokens, word_id, wcount, target, n_prev)
 
-    def _train_hist(self, tokens, word_id, target,
-                    n_prev: int = 0) -> int | None:
-        """Fused hist engine (ops/bpe_hist.py); None if the corpus does
-        not fit its layout.  On resume the caller has already replayed
-        n_prev merges into `tokens`."""
+    def _train_table(self, engine, tokens, word_id, target,
+                     n_prev: int = 0) -> int | None:
+        """Table engine "hist" (ops/bpe_hist.py, which routes vocab
+        above 4096 to the giant engine) or "giant" (ops/bpe_giant.py);
+        None if the corpus does not fit.  On resume the caller has
+        already replayed n_prev merges into `tokens`."""
         cfg = self.config
         counts = np.minimum(self._arrays.counts,
                             np.iinfo(np.int32).max).astype(np.int32)
         cb, steps = self._table_checkpoint_cb(n_prev)
+        kw = dict(target_merges=target, unk_id=cfg.unk_id,
+                  min_pair_freq=cfg.min_pair_freq, progress_cb=cb,
+                  lazy_final=True, n_prev_merges=n_prev, device=self.device)
         with log.Timer("train", nbytes=self._arrays.total_raw_bytes) as t:
-            out = bpe_hist.hist_train(
-                tokens, word_id, counts, target_merges=target,
-                unk_id=cfg.unk_id, min_pair_freq=cfg.min_pair_freq,
-                max_steps_per_call=steps, progress_cb=cb, lazy_final=True,
-                n_prev_merges=n_prev, device=self.device)
+            if engine == "giant":
+                out = bpe_giant.giant_train(
+                    tokens, word_id, counts,
+                    steps_per_call=4096 if steps is None else steps, **kw)
+            else:
+                out = bpe_hist.hist_train(tokens, word_id, counts,
+                                          max_steps_per_call=steps, **kw)
             if out is None:
                 return None
-            merges, freqs, final_fn = out
-        return self._finish_table_engine(merges, freqs, final_fn, n_prev,
-                                         t.elapsed, "hist")
+        if -(-(256 + target) // 128) * 128 > bpe_hist.MAX_V:
+            engine = "giant"          # the engine that actually ran
+        return self._finish_table_engine(*out, n_prev, t.elapsed, engine)
 
     def _train_flat(self, tokens, word_id, wcount, target,
                     n_prev: int) -> int:

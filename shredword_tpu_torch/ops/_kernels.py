@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels of the port: build, load and wrappers.
 
 The sources under ``shredword_tpu_torch/csrc`` are compiled at first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, named by a content hash of the sources and flags (as
-``shredword_tpu/runtime/build.py`` names the native runtime), and loaded
-with ctypes.  Importing this module builds nothing.
+with ``nvcc`` for ``sm_90a`` (one compiler per source, in parallel) into
+a shared library with a plain C interface, named by a content hash of
+every file under csrc/ and the flags (as ``shredword_tpu/runtime/build.py``
+names the native runtime), and loaded with ctypes.  Importing this module
+builds nothing.
 
 Every wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; it never falls back from one to
@@ -28,9 +29,9 @@ PAD = -3
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ["hist_fused.cu"]
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCES = ["hist_fused.cu", "giant.cu"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 build_seconds: float | None = None   # wall time of this process's build
@@ -49,39 +50,50 @@ def _nvcc() -> str:
 
 
 def lib_path() -> str:
+    """The library's path, named by a hash of every file under csrc/
+    (sources and headers) and of the flags."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sorted(os.listdir(CSRC_DIR)):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
+            h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"libshred_cuda-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"CUDA kernel build failed:\n{' '.join(cmd)}"
+                               f"\n{out}")
+    return "".join(outs)
+
+
 def build(extra_flags: tuple[str, ...] = ()) -> tuple[str, str]:
-    """Compile the kernel library unless it is already built.  Returns
-    (path, compiler output); extra_flags (e.g. ``-Xptxas -v``) force a
-    rebuild so their output is shown."""
+    """Compile the kernel library unless it is already built: one nvcc
+    per source, all at once, then one link.  Returns (path, compiler
+    output); extra_flags (e.g. ``-Xptxas -v``) force a rebuild so their
+    output is shown."""
     global build_seconds
     out = lib_path()
     if os.path.exists(out) and not extra_flags:
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"CUDA kernel build failed:\n{' '.join(cmd)}"
-                               f"\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, *extra_flags, "-c", "-o", o,
+                         os.path.join(CSRC_DIR, s)]
+                        for s, o in zip(SOURCES, objs)])
+        so = os.path.join(tmp, "lib.so")
+        log += _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", so, *objs]])
+        os.replace(so, out)
     build_seconds = time.perf_counter() - t0
-    return out, proc.stdout + proc.stderr
+    return out, log
 
 
 def lib() -> ctypes.CDLL:
@@ -91,6 +103,8 @@ def lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         L.shred_hist_fused_train.argtypes = [p] * 8 + [i] * 9 + [p]
         L.shred_hist_fused_train.restype = i
+        L.shred_giant_train.argtypes = [p] * 10 + [i] * 12 + [p]
+        L.shred_giant_train.restype = i
         L.shred_cuda_error_string.argtypes = [i]
         L.shred_cuda_error_string.restype = ctypes.c_char_p
         _lib = L
@@ -242,3 +256,155 @@ def merge_pass_plain(tw, wcount, a, b, new, unk, v):
         ok = sel & (vals >= 0) & (vals != unk)
         d.index_add_(0, vals[ok].long(), w[ok])
     return dl, dr
+
+
+# ---------------------------------------------------------------------
+# giant-vocab merge loop
+# ---------------------------------------------------------------------
+
+def giant_train_step(tw: torch.Tensor, wcount: torch.Tensor,
+                     hist: torch.Tensor, presT: torch.Tensor,
+                     rowmax: torch.Tensor, *, unk: int, min_freq: int,
+                     n_done: int, init_done: int, allowed: int,
+                     nc_used: int, steps: int) -> torch.Tensor:
+    """``steps`` greedy merges of the giant engine, in place.
+
+    Replaces ``shredword_tpu.ops.bpe_giant._giant_kernel`` (one launch,
+    same semantics): tw int16 [L, W] (words sorted by length into NC
+    chunks of W // NC columns), wcount int32 [W], hist int32 [v, v],
+    presT int8 [v, NC] (exact presence of each id in each chunk), rowmax
+    int32 [v] (upper bounds of the row maxima).  The scalars are the TPU
+    kernel's ``scal`` (unk_id, min_pair_freq, n_done, init_done, allowed,
+    nc_used); merge step i creates id 256 + n_done + i.  Returns int32
+    [steps, 5] records (a, b, freq, did, n_refresh) on tw's device, where
+    n_refresh counts the pick's row reads; did == 0 from the first step
+    that could not merge on (the done flag is sticky).
+
+    CPU tensors run :func:`giant_train_step_plain`; CUDA tensors run
+    ``csrc/giant.cu`` (bound by launch latency and its one-block pick,
+    see its header)."""
+    L, W = tw.shape
+    v, NC = presT.shape
+    if tw.dtype != torch.int16 or presT.dtype != torch.int8 or any(
+            x.dtype != torch.int32 for x in (wcount, hist, rowmax)):
+        raise TypeError("tw must be int16, presT int8, wcount, hist and "
+                        "rowmax int32")
+    if wcount.shape != (W,) or hist.shape != (v, v) \
+            or rowmax.shape != (v,) or W % NC:
+        raise ValueError(
+            f"shape mismatch: tw {tuple(tw.shape)}, wcount "
+            f"{tuple(wcount.shape)}, hist {tuple(hist.shape)}, presT "
+            f"{tuple(presT.shape)}, rowmax {tuple(rowmax.shape)}")
+    tensors = (tw, wcount, hist, presT, rowmax)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("tw, wcount, hist, presT and rowmax must be "
+                         "contiguous")
+    if L not in (16, 32, 64):
+        raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
+    cw = W // NC
+    if cw % 256:
+        raise ValueError(f"chunk width {cw} must be a multiple of 256")
+    if not 1 <= nc_used <= NC:
+        raise ValueError(f"nc_used {nc_used} must be in [1, {NC}]")
+    if 256 + n_done + min(steps, allowed) > v:
+        raise ValueError("merge ids would exceed the table size v")
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError("tw, wcount, hist, presT and rowmax must share "
+                         "one device")
+    kw = dict(unk=unk, min_freq=min_freq, n_done=n_done,
+              init_done=init_done, allowed=allowed, nc_used=nc_used,
+              steps=steps)
+    if tw.device.type == "cpu":
+        return giant_train_step_plain(*tensors, **kw)
+    if tw.device.type != "cuda":
+        raise ValueError(f"unsupported device {tw.device}")
+    dev = tw.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    dl = torch.empty(v, **i32)
+    dr = torch.empty(v, **i32)
+    bits = torch.empty(3 * NC, **i32)
+    state = torch.zeros(8, **i32)
+    records = torch.empty((steps, 5), **i32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().shred_giant_train(
+            tw.data_ptr(), wcount.data_ptr(), hist.data_ptr(),
+            presT.data_ptr(), rowmax.data_ptr(), dl.data_ptr(),
+            dr.data_ptr(), bits.data_ptr(), state.data_ptr(),
+            records.data_ptr(), L, W, v, NC, cw, nc_used, steps, unk,
+            min_freq, n_done, init_done, allowed, stream)
+    _check(rc)
+    giant_train_step.launches += 1
+    return records
+
+
+giant_train_step.launches = 0
+
+
+def _lazy_pick(hist, rowmax, min_freq) -> tuple[int, int, int]:
+    """(freq m, row a, row reads): the largest thresholded bound, its
+    row read and the bound refreshed until it is confirmed exact."""
+    n_refresh = 0
+    while True:
+        n_refresh += 1
+        rm = torch.where(rowmax >= min_freq, rowmax, 0)
+        m = int(rm.max())
+        if m <= 0:
+            return m, 0, n_refresh
+        a = int((rm == m).nonzero()[0, 0])          # smallest row
+        true_max = int(hist[a].max())
+        if true_max == m:
+            return m, a, n_refresh
+        rowmax[a] = true_max
+
+
+def giant_train_step_plain(tw, wcount, hist, presT, rowmax, *, unk,
+                           min_freq, n_done, init_done, allowed, nc_used,
+                           steps) -> torch.Tensor:
+    """Plain PyTorch version of :func:`giant_train_step`: the same lazy
+    pick and bound rules; the flagged chunks' columns are gathered, run
+    through :func:`merge_pass_plain` and scattered back, and the chunks'
+    presence comes from ``any()`` over each chunk."""
+    L, W = tw.shape
+    cw = W // presT.shape[1]
+    dev = tw.device
+    records = torch.zeros((steps, 5), dtype=torch.int32, device=dev)
+    done = bool(init_done)
+    for i in range(steps):
+        m, a, n_refresh = _lazy_pick(hist, rowmax, min_freq)
+        if not (m > 0 and not done and i < allowed):
+            # nothing changes any more: every later step confirms the
+            # same pick with one row read
+            records[i] = torch.tensor([0, 0, m, 0, n_refresh])
+            records[i + 1:] = torch.tensor([0, 0, m, 0, 1])
+            break
+        b = int((hist[a] == m).nonzero()[0, 0])     # then smallest column
+        new = 256 + n_done + i
+        records[i] = torch.tensor([a, b, m, 1, n_refresh])
+        # corpus: only chunks that hold both a and b can match
+        chunks = ((presT[a, :nc_used] != 0)
+                  & (presT[b, :nc_used] != 0)).nonzero()[:, 0]
+        cols = (chunks[:, None] * cw
+                + torch.arange(cw, device=dev)).reshape(-1)
+        sub = tw[:, cols]
+        t = sub.to(torch.int32)
+        matched = ((t[:-1] == a) & (t[1:] == b)).any(0).view(-1, cw).any(1)
+        dl, dr = merge_pass_plain(sub, wcount[cols], a, b, new, unk,
+                                  hist.shape[0])
+        tw[:, cols] = sub
+        per_chunk = sub.view(L, len(chunks), cw)
+        hit = chunks[matched]
+        presT[a, hit] = (per_chunk == a).any(2).any(0)[matched].to(torch.int8)
+        presT[b, hit] = (per_chunk == b).any(2).any(0)[matched].to(torch.int8)
+        presT[new, hit] = 1
+        # table, in the TPU kernel's order, with its row-max bound rules
+        hist[b] -= dr
+        rowmax[b] = hist[b].max()
+        hist[new] = dr
+        hist[:, a] -= dl
+        hist[:, new] += dl
+        hist[a, b] = 0
+        torch.maximum(rowmax, dl, out=rowmax)
+        rowmax[new] = hist[new].max()
+        rowmax[a] = hist[a].max()
+    return records

@@ -26,8 +26,8 @@ from . import _kernels
 from ._kernels import PAD
 
 CHUNK = 512       # column padding of build_layout, as in the JAX package
-MAX_V = 4096      # largest table of the fused engine; beyond it the
-                  # JAX package routes to the giant engine (not ported)
+MAX_V = 4096      # largest table of the fused engine; hist_train routes
+                  # larger vocabularies to the giant engine (bpe_giant)
 
 
 class HistCorpus(NamedTuple):
@@ -115,31 +115,25 @@ def state_to_jax(tw, wcount, hist, fc: int | None = None):
             wcount.reshape(nc, 1, fc), hist)
 
 
-def fused_hist_train(c: HistCorpus, v: int, *, target_merges: int,
-                     unk_id: int, min_pair_freq: int, steps_per_call: int,
-                     progress_cb: Callable | None = None, n_prev: int = 0,
-                     device="cpu") -> HistTrainState:
-    """Drive the fused merge loop to target_merges, steps_per_call
-    merges per kernel call.
+def drive_calls(call: Callable, *, target_merges: int, n_prev: int,
+                steps_per_call: int, progress_cb: Callable | None = None
+                ) -> tuple[np.ndarray, np.ndarray, bool]:
+    """Run a merge-loop kernel call after call up to target_merges.
 
+    ``call(n_done, init_done, allowed, steps)`` runs ``steps`` merges and
+    returns their int32 records [steps, >= 4] (a, b, freq, did, ...).
     Resume: n_prev merges were already replayed into the corpus by the
-    caller; new ids continue at 256 + n_prev and only new merges are
-    returned.  The done flag stops the loop once a call merges fewer
-    pairs than it was allowed (exhaustion or min_pair_freq)."""
-    dev = torch.device(device)
-    tw = torch.tensor(c.tw, device=dev)             # copies: trained in place
-    wc = torch.tensor(c.wcount.reshape(-1), device=dev)
-    hist = init_hist(tw, wc, unk_id, v)
+    caller; new ids continue at 256 + n_prev.  The done flag stops the
+    loop once a call merges fewer pairs than it was allowed (exhaustion
+    or min_pair_freq).  Returns the new merges int32 [n, 2], their
+    frequencies int32 [n] and the done flag."""
     merges: list = []
     freqs: list = []
     done = 0
     while len(merges) + n_prev < target_merges and not done:
         allowed = target_merges - n_prev - len(merges)
-        recs = _kernels.hist_fused_train(
-            tw, wc, hist, unk=unk_id, min_freq=min_pair_freq,
-            n_done=n_prev + len(merges), init_done=done, allowed=allowed,
-            steps=max(1, min(steps_per_call, allowed)))
-        rows = recs.cpu().numpy()           # 16 bytes per merge step
+        rows = call(n_prev + len(merges), done, allowed,
+                    max(1, min(steps_per_call, allowed))).cpu().numpy()
         did = rows[:, 3] != 0
         n_new = int(did.sum())
         if n_new < len(rows):
@@ -151,12 +145,32 @@ def fused_hist_train(c: HistCorpus, v: int, *, target_merges: int,
                         np.asarray(freqs, np.int32))
         if n_new == 0:
             break
-    n = len(merges)
-    return HistTrainState(
-        corpus=HistCorpus(tw, wc), hist=hist,
-        merges=np.asarray(merges, np.int32).reshape(n, 2),
-        merge_freqs=np.asarray(freqs, np.int32), n_merges=n,
-        done=bool(done))
+    return (np.asarray(merges, np.int32).reshape(len(merges), 2),
+            np.asarray(freqs, np.int32), bool(done))
+
+
+def fused_hist_train(c: HistCorpus, v: int, *, target_merges: int,
+                     unk_id: int, min_pair_freq: int, steps_per_call: int,
+                     progress_cb: Callable | None = None, n_prev: int = 0,
+                     device="cpu") -> HistTrainState:
+    """Drive the fused merge loop to target_merges, steps_per_call
+    merges per kernel call (see :func:`drive_calls`)."""
+    dev = torch.device(device)
+    tw = torch.tensor(c.tw, device=dev)             # copies: trained in place
+    wc = torch.tensor(c.wcount.reshape(-1), device=dev)
+    hist = init_hist(tw, wc, unk_id, v)
+
+    def call(n_done, init_done, allowed, steps):
+        return _kernels.hist_fused_train(
+            tw, wc, hist, unk=unk_id, min_freq=min_pair_freq, n_done=n_done,
+            init_done=init_done, allowed=allowed, steps=steps)
+
+    merges, freqs, done = drive_calls(
+        call, target_merges=target_merges, n_prev=n_prev,
+        steps_per_call=steps_per_call, progress_cb=progress_cb)
+    return HistTrainState(corpus=HistCorpus(tw, wc), hist=hist,
+                          merges=merges, merge_freqs=freqs,
+                          n_merges=len(merges), done=done)
 
 
 def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
@@ -169,15 +183,28 @@ def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
     final word_id), with a callable for the last two when lazy_final,
     or None if a word exceeds max_word_len.  wcount is per word.
 
+    Vocabularies above MAX_V go to the giant engine, which may also
+    return None (see ``bpe_giant.giant_train``).  The default cadence is
+    512 merges per call for the fused engine and 4096 for the giant one;
+    an explicit ``max_steps_per_call`` reaches either unchanged.
+
     Checkpoint resume: pass the REPLAYED corpus and ``n_prev_merges``;
     ``target_merges`` counts the previous merges too and only new merges
     are returned."""
-    steps = 512 if max_steps_per_call is None else max_steps_per_call
     v = -(-(256 + target_merges) // 128) * 128
     if v > MAX_V:
-        raise ValueError(f"vocab {256 + target_merges} exceeds the hist "
-                         f"engine's table ({MAX_V}); the giant engine "
-                         "that serves it is not ported yet")
+        # beyond the fused engine's table: the giant engine (lazy row-max
+        # pick, presence-indexed chunks) serves v <= 32768
+        from . import bpe_giant
+        return bpe_giant.giant_train(
+            tokens, word_id, wcount, target_merges=target_merges,
+            unk_id=unk_id, min_pair_freq=min_pair_freq,
+            max_word_len=max_word_len,
+            steps_per_call=(4096 if max_steps_per_call is None
+                            else max_steps_per_call),
+            progress_cb=progress_cb, lazy_final=lazy_final,
+            n_prev_merges=n_prev_merges, device=device)
+    steps = 512 if max_steps_per_call is None else max_steps_per_call
     c = build_layout(tokens, word_id, wcount, max_word_len, min_len=16)
     if c is None:
         return None

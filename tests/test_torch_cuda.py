@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version.
+"""The port's CUDA kernels against their plain PyTorch versions.
 
 These tests import no JAX, so they also run where only PyTorch is
 installed.  The ``cuda`` ones need a card and skip without one; run them
@@ -41,6 +41,15 @@ CASES = {
     "n_prev": (dict(seed=6), dict(target_merges=50, n_prev_merges=13)),
     "vocab4096": (dict(seed=7, n_words=3000, alpha=12),
                   dict(target_merges=3840, max_steps_per_call=256)),
+    # above vocab 4096 hist_train routes to the giant kernel
+    "giant_v5120": (dict(seed=8, n_words=3000, alpha=12),
+                    dict(target_merges=4864, max_steps_per_call=512)),
+    "giant_unk_chunked": (dict(seed=9, n_words=3000, alpha=12, unk=98),
+                          dict(target_merges=4500, unk_id=98,
+                               max_steps_per_call=300)),
+    "giant_rows32_n_prev": (dict(seed=10, n_words=2500, max_len=30,
+                                 alpha=6),
+                            dict(target_merges=4400, n_prev_merges=17)),
 }
 
 
@@ -58,9 +67,11 @@ def test_kernel_matches_plain(case, cuda):
     tokens, word_id, wc_word = _corpus(**corpus_kw)
     kw = {"unk_id": -1, "min_pair_freq": 2, **kw}
     want = bpe_hist.hist_train(tokens, word_id, wc_word, device="cpu", **kw)
-    n0 = _kernels.hist_fused_train.launches
+    kernel = (_kernels.giant_train_step if case.startswith("giant")
+              else _kernels.hist_fused_train)
+    n0 = kernel.launches
     got = bpe_hist.hist_train(tokens, word_id, wc_word, device=cuda, **kw)
-    assert _kernels.hist_fused_train.launches > n0
+    assert kernel.launches > n0
     assert len(got[0]) > 0
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
@@ -72,7 +83,7 @@ def test_trainer_on_cuda_matches_cpu(cuda, tmp_path):
                     for i in range(400))
     out = {}
     for dev in ("cpu", cuda):
-        for engine in ("hist", "flat"):
+        for engine in ("hist", "giant", "flat"):
             t = BPETrainer(target_vocab_size=330, unk_id=-1,
                            character_coverage=0.9995, min_pair_freq=2,
                            engine=engine, device=dev)

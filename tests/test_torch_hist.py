@@ -91,9 +91,31 @@ def test_long_word_declines_layout():
 
 
 def test_vocab_beyond_table_raises():
+    """Beyond the fused engine's table (v > 4096) hist_train routes to
+    the giant engine, as the JAX package does, and gives its results."""
+    tokens, word_id, wc_word = _rand_corpus(0, n_words=40, max_len=6)
+    kw = dict(target_merges=4864 - 256, unk_id=-1, min_pair_freq=1,
+              max_steps_per_call=64)
+    want = jax_hist.hist_train(tokens, word_id, wc_word, interpret=True,
+                               _cache={}, **kw)
+    got = bpe_hist.hist_train(tokens, word_id, wc_word, device="cpu", **kw)
+    assert len(got[0]) > 0
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def test_hist_train_respects_explicit_steps_for_giant(monkeypatch):
+    from shredword_tpu_torch.ops import bpe_giant
+
     tokens, word_id, wc_word = _rand_corpus(0)
-    with pytest.raises(ValueError, match="giant"):
-        bpe_hist.hist_train(tokens, word_id, wc_word, target_merges=4000)
+    seen = []
+    monkeypatch.setattr(bpe_giant, "giant_train",
+                        lambda *a, **k: seen.append(k["steps_per_call"]))
+    for steps in (64, None):
+        assert bpe_hist.hist_train(tokens, word_id, wc_word,
+                                   target_merges=5000,
+                                   max_steps_per_call=steps) is None
+    assert seen == [64, 4096]
 
 
 def _fused_layout(seed, n_words, alpha):

@@ -20,7 +20,7 @@ from shredword_tpu_torch import BPEConfig, BPETrainer
 from shredword_tpu_torch.ops import _kernels
 
 CONFIGS = [(name, i) for name, cfgs in GOLDEN_CONFIGS.items()
-           for i, cfg in enumerate(cfgs) if cfg[0] <= 4096]
+           for i in range(len(cfgs))]
 
 
 def _save(trainer, tmp_path, tag):
@@ -39,7 +39,7 @@ def jax_flat_files():
     return {}
 
 
-@pytest.mark.parametrize("engine", ["hist", "flat"])
+@pytest.mark.parametrize("engine", ["hist", "giant", "flat"])
 @pytest.mark.parametrize("name,i", CONFIGS)
 def test_model_bytes_match_jax_flat(name, i, engine, request, tmp_path,
                                     jax_flat_files):
@@ -67,7 +67,7 @@ def test_cpu_backend_matches_jax_cpu_backend(small_corpus_file, tmp_path):
     assert _save(t, tmp_path, "port") == _save(j, tmp_path, "jax")
 
 
-@pytest.mark.parametrize("engine", ["hist", "flat"])
+@pytest.mark.parametrize("engine", ["hist", "giant", "flat"])
 def test_jax_checkpoint_resumes_in_port(engine, zipf_corpus_file, tmp_path):
     cfg = (600, -1, 0.995, 10)
     full = JaxTrainer(*cfg, backend="tpu", engine="flat")
@@ -129,31 +129,47 @@ def test_config_validation():
     assert cfg.target_merges == 44 and cfg.backend == "cuda"
 
 
-@pytest.mark.parametrize("kw,match", [
+@pytest.mark.parametrize("kw,route", [
     (dict(target_vocab_size=5000), "giant"),
     (dict(target_vocab_size=400, engine="giant"), "giant"),
     (dict(target_vocab_size=400, shards=2), "sharded"),
 ])
-def test_unported_routes_raise(kw, match):
+def test_unported_routes_raise(kw, route, tmp_path):
+    """The giant routes (auto above vocab 4096, engine="giant" at any
+    vocab) train and match the JAX package; sharded training is not
+    ported and raises."""
+    data = b"the quick brown fox jumps over the lazy dog\n" * 20
     t = BPETrainer(unk_id=-1, min_pair_freq=2, device="cpu", **kw)
-    t.load_corpus_bytes(b"the quick brown fox jumps over the lazy dog\n" * 20)
-    with pytest.raises(TrainingError, match=match):
-        t.train()
+    t.load_corpus_bytes(data)
+    if route == "sharded":
+        with pytest.raises(TrainingError, match="sharded"):
+            t.train()
+        return
+    j = JaxTrainer(kw["target_vocab_size"], -1, min_pair_freq=2,
+                   backend="tpu", engine="flat")
+    j.load_corpus_bytes(data)
+    assert t.train() == j.train() > 0
+    assert _save(t, tmp_path, "port") == _save(j, tmp_path, "jax")
 
 
-def test_auto_falls_back_to_flat_for_long_words(tmp_path):
-    data = (b"x" * 100 + b" the quick brown fox\n") * 20
-    auto = BPETrainer(300, -1, 0.9999, 2, device="cpu")
-    auto.load_corpus_bytes(data)
+def _train_logged(trainer):
+    """(trainer.train(), the messages it logged at info level)."""
     logged = []
     handler = logging.Handler(logging.INFO)
     handler.emit = lambda record: logged.append(record.getMessage())
     logger = logging.getLogger("shredword_tpu")
     logger.addHandler(handler)
     try:
-        n = auto.train()
+        return trainer.train(), logged
     finally:
         logger.removeHandler(handler)
+
+
+def test_auto_falls_back_to_flat_for_long_words(tmp_path):
+    data = (b"x" * 100 + b" the quick brown fox\n") * 20
+    auto = BPETrainer(300, -1, 0.9999, 2, device="cpu")
+    auto.load_corpus_bytes(data)
+    n, logged = _train_logged(auto)
     assert any("using the flat engine" in m for m in logged)
     flat = BPETrainer(300, -1, 0.9999, 2, device="cpu", engine="flat")
     flat.load_corpus_bytes(data)
@@ -166,11 +182,32 @@ def test_auto_falls_back_to_flat_for_long_words(tmp_path):
 
 
 def test_launch_counter_stays_zero_on_cpu(small_corpus_file):
-    before = _kernels.hist_fused_train.launches
-    t = _port(GOLDEN_CONFIGS["small"][0], engine="hist")
-    t.load_corpus(small_corpus_file)
-    assert t.train() > 0
-    assert _kernels.hist_fused_train.launches == before == 0
+    counters = (_kernels.hist_fused_train, _kernels.giant_train_step)
+    for engine in ("hist", "giant"):
+        t = _port(GOLDEN_CONFIGS["small"][0], engine=engine)
+        t.load_corpus(small_corpus_file)
+        assert t.train() > 0
+    assert [k.launches for k in counters] == [0, 0]
+
+
+def test_giant_decline_falls_to_flat(tmp_path):
+    """Above vocab 4096 a word longer than the layout takes makes the
+    giant engine decline: auto trains on the flat engine (and says so),
+    engine "hist" and "giant" raise."""
+    data = (b"x" * 100 + b" the quick brown fox\n") * 20
+    auto = BPETrainer(5000, -1, 0.9999, 2, device="cpu")
+    auto.load_corpus_bytes(data)
+    n, logged = _train_logged(auto)
+    assert any("using the flat engine" in m for m in logged)
+    flat = BPETrainer(5000, -1, 0.9999, 2, device="cpu", engine="flat")
+    flat.load_corpus_bytes(data)
+    assert flat.train() == n > 0
+    assert _save(auto, tmp_path, "a") == _save(flat, tmp_path, "f")
+    for engine, match in (("hist", "fit"), ("giant", "envelope")):
+        t = BPETrainer(5000, -1, 0.9999, 2, device="cpu", engine=engine)
+        t.load_corpus_bytes(data)
+        with pytest.raises(TrainingError, match=match):
+            t.train()
 
 
 def test_import_and_train_without_jax(tmp_path):
