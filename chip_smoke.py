@@ -13,7 +13,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      tokens must be identical
   3. the main path at the headline configuration: BPETrainer(vocab 768,
      min_pair_freq 50, coverage 0.9999, backend "cuda") load_corpus ->
-     train -> save on the 16 MB corpus of bench.make_corpus; the kernel
+     train -> save on the 16 MB corpus of make_corpus; the kernel
      must have launched, and the .model/.vocab bytes must equal the
      port's flat engine on the card and the JAX package's golden digest
      (tests/golden/bench_v768.json)
@@ -31,8 +31,25 @@ Phases (any failure exits non-zero, and no result line is printed):
      port's flat engine on the card
   7. engine "giant" at the headline configuration (vocab 768): the bytes
      must equal the JAX golden digest, so hist == giant == flat there
+  8. the per-merge step (K4) against its plain version on the card, step
+     for step inside the per-merge train loop, on seeded random corpora at
+     vocab 768 and 4096 (tokens, dl, dr and match counts identical), then
+     the first 128 merges of that loop on the bench layout, kernel and
+     plain, at vocab 768 and 4096, and the kernel's device time per step
+     with the device kept ahead of the host
+  9. the same for the sparse step (K5), presence included, plus a
+     min_pair_freq stop
+ 10. hist_train(sparse=True) at the headline configuration: merges and
+     frequencies equal the dense engine's
+ 11. sharded BPETrainer at the headline configuration through the public
+     API: world size 1 on NCCL, then 2 gloo ranks on cuda:0 (spawned):
+     bytes equal the JAX golden digest; 2 ranks at vocab 4096: bytes equal
+     the fused hist engine's.  Each rank's first all_reduce (the
+     communicator's set-up) is timed apart from train()
 
-The last two lines of standard output are the kernels' JSON record and
+The corpus is generated here (make_corpus, the JAX bench's generator) and
+checked against its known digest.  The last lines of standard output are
+the card's name and power limit, the kernels' JSON record and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
 """
@@ -41,7 +58,9 @@ from __future__ import annotations
 
 import hashlib
 import json
+import multiprocessing
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -56,8 +75,63 @@ GIANT = dict(unk_id=-1, character_coverage=1.0, min_pair_freq=2)
 GIANT_VOCAB = 32768
 TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               4096: "shredword_tpu/ops/bpe_hist.py:690",    # _fused_kernel_big
-              GIANT_VOCAB: "shredword_tpu/ops/bpe_giant.py:292"}  # _giant_kernel
+              GIANT_VOCAB: "shredword_tpu/ops/bpe_giant.py:292",  # _giant_kernel
+              "step": "shredword_tpu/ops/bpe_hist.py:262",  # _merge_kernel
+              "sparse": "shredword_tpu/ops/bpe_hist.py:288"}  # _merge_kernel_sparse
 TIMED_MERGES = 128
+CORPUS_BYTES = 16_153_229
+CORPUS_SHA256 = ("0d4249769060f86272db067c48fda469"
+                 "c47e0d4eb4114d3ad37e2c62beb58dfc")
+# One H100 SXM (NVIDIA's data sheet): memory
+# rate, and the float32 rate outside the tensor cores, taken as the rate
+# of the int32 compares and adds these kernels do
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+RANK_TIMEOUT = 600
+
+
+def make_corpus(path: str, raw_mb: int = 16, seed: int = 1234) -> None:
+    """Deterministic zipf-ish corpus: ~100k distinct words, raw_mb MB.
+    The JAX bench's generator (bench.py make_corpus), kept here so that
+    this script needs nothing of the JAX side; main() checks the bytes
+    against CORPUS_SHA256."""
+    rng = np.random.RandomState(seed)
+    n_vocab = 100_000
+    # synthetic word shapes: letter bigram chains, lengths 2..14
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    lens = rng.randint(2, 15, n_vocab)
+    words = ["".join(letters[rng.randint(0, 26, L)]) for L in lens]
+    ranks = np.arange(1, n_vocab + 1)
+    probs = 1.0 / ranks ** 1.05
+    probs /= probs.sum()
+    target = raw_mb * 10**6
+    with open(path, "w") as f:
+        written = 0
+        while written < target:
+            idx = rng.choice(n_vocab, size=20_000, p=probs)
+            chunk_words = [words[i] for i in idx]
+            line_len = 0
+            parts = []
+            for w in chunk_words:
+                parts.append(w)
+                line_len += len(w) + 1
+                if line_len > 80:
+                    parts.append("\n")
+                    line_len = 0
+                else:
+                    parts.append(" ")
+            s = "".join(parts)
+            f.write(s)
+            written += len(s)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the ALU rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def check(ok: bool, what: str) -> None:
@@ -228,7 +302,14 @@ def phase_kernel_vs_plain(device: torch.device, bench_layout) -> dict:
             min_freq=HEADLINE["min_pair_freq"], merges=TIMED_MERGES,
             steps=TIMED_MERGES)
         check(err == 0 and n == TIMED_MERGES, f"bench layout v={v}")
-        timing[v] = dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n)
+        L, W = bench_layout.tw.shape
+        lim = min(v, 256 + n)
+        # tw and the live table in and out, weights, records; a compare
+        # per token per merge
+        timing[v] = dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n,
+                         **bound((4 * L * W + 4 * W + 8 * lim * lim
+                                  + 16 * n) / n, L * W),
+                         library_ms=None)
         print(f"[kernel] bench layout {tuple(bench_layout.tw.shape)} v={v}:"
               f" first {n} merges, kernel {ms_k / n:.4f} ms/merge, plain "
               f"{ms_p / n:.4f} ms/merge, max |kernel - plain| = {err}")
@@ -240,22 +321,25 @@ def phase_kernel_vs_plain(device: torch.device, bench_layout) -> dict:
 # ---------------------------------------------------------------------
 
 def train_and_save(corpus, out_dir, vocab, device, engine="auto",
-                   cfg=HEADLINE):
+                   cfg=HEADLINE, tag="", **kw):
     from shredword_tpu_torch import BPETrainer
 
     t = BPETrainer(target_vocab_size=vocab, backend="cuda", device=device,
-                   engine=engine, **cfg)
+                   engine=engine, **cfg, **kw)
+    cuda = device.type == "cuda"
     try:
         t.load_corpus(corpus)
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         n = t.train()
-        torch.cuda.synchronize(device)
+        if cuda:
+            torch.cuda.synchronize(device)
         secs = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(device)
-        mp = os.path.join(out_dir, f"{engine}_{vocab}.model")
-        vp = os.path.join(out_dir, f"{engine}_{vocab}.vocab")
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        mp = os.path.join(out_dir, f"{engine}_{vocab}{tag}.model")
+        vp = os.path.join(out_dir, f"{engine}_{vocab}{tag}.vocab")
         t.save(mp, vp)
         raw = t._arrays.total_raw_bytes
     finally:
@@ -264,17 +348,23 @@ def train_and_save(corpus, out_dir, vocab, device, engine="auto",
         return n, secs, raw, peak, f.read(), g.read()
 
 
-def phase_main_path(corpus, out_dir, vocab, device, *, engine="auto",
-                    cfg=HEADLINE, kernel="hist_fused_train",
-                    golden=None) -> int:
-    """Train, save and cross-check one configuration; returns the
-    launches of `kernel` in the trainer's run (every count is set to 0
-    just before it and read just after)."""
+def reset_counts() -> None:
     from shredword_tpu_torch.ops import _kernels
 
-    counters = (_kernels.hist_fused_train, _kernels.giant_train_step)
-    for k in counters:
+    for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
+              _kernels.hist_merge_step, _kernels.hist_merge_step_sparse):
         k.launches = 0
+
+
+def phase_main_path(corpus, out_dir, vocab, device, *, engine="auto",
+                    cfg=HEADLINE, kernel="hist_fused_train",
+                    golden=None) -> tuple[int, bytes, bytes]:
+    """Train, save and cross-check one configuration; returns the
+    launches of `kernel` in the trainer's run (every count is set to 0
+    just before it and read just after) and the .model/.vocab bytes."""
+    from shredword_tpu_torch.ops import _kernels
+
+    reset_counts()
     n, secs, raw, peak, model, vocab_b = train_and_save(
         corpus, out_dir, vocab, device, engine, cfg)
     launches = getattr(_kernels, kernel).launches
@@ -297,7 +387,7 @@ def phase_main_path(corpus, out_dir, vocab, device, *, engine="auto",
               "bytes equal the JAX package's golden digest")
         print(f"{tag}: .model/.vocab match the JAX golden digest "
               f"{golden['model_sha256'][:16]}...")
-    return launches
+    return launches, model, vocab_b
 
 
 # ---------------------------------------------------------------------
@@ -337,11 +427,367 @@ def phase_giant_vs_plain(device: torch.device, bench_layout) -> dict:
         min_freq=GIANT["min_pair_freq"], merges=TIMED_MERGES,
         steps=TIMED_MERGES)
     check(err == 0 and n == TIMED_MERGES, f"bench layout v={GIANT_VOCAB}")
+    L, W = bench_layout.tw.shape
+    nc = bench_layout.presT.shape[1]
+    cw = W // nc
+    w_used = -(-bench_layout.n_words // cw) * cw
+    lim = 256 + n
+    # the used chunks' tw in and out and weights, the live table, presence
+    # and bounds in and out, records; a compare per live row bound per
+    # merge (the pick)
+    cost = bound((4 * L * w_used + 4 * w_used + 8 * lim * lim
+                  + 2 * lim * nc + 8 * lim + 20 * n) / n, lim)
     print(f"[giant] bench layout {tuple(bench_layout.tw.shape)} "
           f"v={GIANT_VOCAB}: first {n} merges, kernel {ms_k / n:.4f} "
           f"ms/merge, plain {ms_p / n:.4f} ms/merge, max |kernel - plain| "
           f"= {err}")
-    return dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n)
+    return dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n, **cost,
+                library_ms=None)
+
+# ---------------------------------------------------------------------
+# phases 8 and 9
+# ---------------------------------------------------------------------
+
+class Timed:
+    """A step function that records CUDA events around each call (no
+    synchronisation inside the loop).  The per-merge loop is host-bound,
+    so the device waits for the host between the events and their span
+    is the host's time to enqueue the call; with ``lead`` a spin kernel
+    runs first, the call is enqueued while it spins, and the span is the
+    device's time for the call alone."""
+
+    LEAD_CYCLES = 400_000          # ~0.2 ms at the H100's clock
+
+    def __init__(self, fn, lead: bool = False):
+        self.fn = fn
+        self.lead = lead
+        self.events = []
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if self.lead:
+            torch.cuda._sleep(self.LEAD_CYCLES)
+        start.record()
+        out = self.fn(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self, calls: int) -> float:
+        """Device ms of the first `calls` calls."""
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[:calls])
+
+
+def loop_train(step):
+    """The per-merge train loop (bpe_hist.merge_steps) with corpus step
+    `step`, in hist_fused_train's interface: state (tw, wc, hist[, presT])
+    updated in place, int32 [steps, 4] records."""
+    from shredword_tpu_torch.ops import bpe_hist
+
+    def train(tw, wc, hist, *pres, **kw):
+        v = hist.shape[0]
+        return bpe_hist.merge_steps(
+            hist, lambda scal: step(tw, wc, *pres, scal, v=v), **kw)
+
+    return train
+
+
+def lockstep(layout, v, device, *, sparse, unk, min_freq, merges, steps):
+    """The kernel and its plain version in one per-merge loop: every
+    merge runs both on their own corpus copies with the same scalars, and
+    the deltas, match counts, tokens (and presence) must be identical.
+    The table follows the kernel.  Returns (max abs difference, merges
+    done)."""
+    from shredword_tpu_torch.ops import _kernels, bpe_hist
+
+    tw_k, wc, hist = hist_state(layout, v, unk, device)
+    tw_p = tw_k.clone()
+    pres = ()
+    if sparse:
+        p = torch.tensor(bpe_hist.build_presence(layout.tw, v), device=device)
+        pres = (p, p.clone())
+        kernel = _kernels.hist_merge_step_sparse
+        plain = _kernels.hist_merge_step_sparse_plain
+    else:
+        kernel = _kernels.hist_merge_step
+        plain = _kernels.hist_merge_step_plain
+    err = 0
+
+    def step(scal):
+        nonlocal err
+        dk = kernel(tw_k, wc, *pres[:1], scal, v=v)
+        dp = plain(tw_p, wc, *pres[1:], scal, v=v)
+        for a, b in [(dk, dp), (tw_k, tw_p)] + ([pres] if pres else []):
+            err = max(err, max_abs_diff(a, b))
+        return dk
+
+    def call(n_done, init_done, allowed, steps):
+        return bpe_hist.merge_steps(hist, step, unk=unk, min_freq=min_freq,
+                                    n_done=n_done, init_done=init_done,
+                                    allowed=allowed, steps=steps)
+
+    got, _, _ = bpe_hist.drive_calls(call, target_merges=merges, n_prev=0,
+                                     steps_per_call=steps)
+    if sparse:   # the presence stayed exact
+        exact = torch.tensor(bpe_hist.build_presence(tw_k.cpu().numpy(), v),
+                             device=device)
+        err = max(err, max_abs_diff(pres[0], exact))
+    return err, len(got)
+
+
+def counting(step):
+    """``step`` wrapped to count, before each merge it runs, the columns
+    that hold the pair (the ones the kernel rewrites and reads weights
+    for) and, for the sparse step, the chunks whose presence holds a and
+    b (the ones it reads): this run's data-dependent work."""
+    work = dict(matched=0, flagged=0)
+
+    def counted(tw, wc, *rest, v):
+        a, b, _, _, do = rest[-1].tolist()
+        if do:
+            work["matched"] += int(((tw[:-1] == a) & (tw[1:] == b))
+                                   .any(0).sum())
+            if len(rest) > 1:
+                p = rest[0]
+                work["flagged"] += int(((p[a] != 0) & (p[b] != 0)).sum())
+        return step(tw, wc, *rest, v=v)
+
+    return counted, work
+
+
+def phase_step_vs_plain(device, bench_layout, *, sparse: bool) -> dict:
+    """K4 (sparse=False) or K5 against its plain version; returns the
+    JSON timing record at vocab 768."""
+    from shredword_tpu_torch.ops import _kernels, bpe_hist
+
+    name = "sparse" if sparse else "step"
+    unk = 122                                           # the byte 'z'
+    cases = [(768, 2, 300, 128), (4096, 2, 400, 96)]
+    if sparse:
+        cases.append((768, 50000, 300, 64))             # min_freq stop
+    for v, min_freq, merges, steps in cases:
+        tokens, word_id, wc_word = random_corpus(v + 7, 20000, unk)
+        layout = bpe_hist.build_layout(tokens, word_id, wc_word, 64)
+        err, n = lockstep(layout, v, device, sparse=sparse, unk=unk,
+                          min_freq=min_freq, merges=merges, steps=steps)
+        print(f"[{name}] random corpus v={v} min_freq={min_freq}: {n} "
+              f"merges in calls of {steps}, max |kernel - plain| = {err}")
+        check(err == 0 and 0 < n and (n == merges) == (min_freq == 2),
+              f"{name} kernel == plain at v={v}")
+    kernel = (_kernels.hist_merge_step_sparse if sparse
+              else _kernels.hist_merge_step)
+    plain = (_kernels.hist_merge_step_sparse_plain if sparse
+             else _kernels.hist_merge_step_plain)
+    L, W = bench_layout.tw.shape
+    nc = W // bpe_hist.CHUNK
+    timing = {}
+    for v in (768, 4096):
+        tk, tp = Timed(kernel), Timed(plain)
+
+        def state(v=v):
+            st = hist_state(bench_layout, v, HEADLINE["unk_id"], device)
+            if sparse:
+                st.append(torch.tensor(
+                    bpe_hist.build_presence(bench_layout.tw, v),
+                    device=device))
+            return st
+
+        err, loop_k, loop_p, n = run_both(
+            loop_train(tk), loop_train(tp), state, device,
+            unk=HEADLINE["unk_id"], min_freq=HEADLINE["min_pair_freq"],
+            merges=TIMED_MERGES, steps=TIMED_MERGES)
+        check(err == 0 and n == TIMED_MERGES, f"{name} bench layout v={v}")
+        # the first n calls merged; run_both's past-the-end call follows
+        span_k, ms_p = tk.ms(n) / n, tp.ms(n) / n
+        # the kernel's device time: the same merges again, the device kept
+        # ahead of the host
+        td = Timed(kernel, lead=True)
+        again = dict(unk=HEADLINE["unk_id"],
+                     min_freq=HEADLINE["min_pair_freq"], n_done=0,
+                     init_done=0, allowed=n, steps=n)
+        loop_train(td)(*state(), **again)
+        ms_k = td.ms(n) / n
+        # the same merges once more, untimed, to count the work they need
+        counted, work = counting(kernel)
+        loop_train(counted)(*state(), **again)
+        mc = work["matched"] / n               # columns rewritten per merge
+        # per merge: scal and dl | dr | nm; the matched columns' weights
+        # read and tokens written; every token (K4) or the flagged chunks'
+        # tokens (K5) read, one compare each; K5 also reads presence of a
+        # and b for every chunk and writes three bytes per flagged chunk
+        common = 20 + 4 * (2 * v + 1) + mc * (2 * L + 4)
+        if sparse:
+            ch = work["flagged"] / n           # chunks read per merge
+            cost = bound(common + 2 * nc + ch * (2 * L * bpe_hist.CHUNK + 3),
+                         ch * L * bpe_hist.CHUNK)
+            extra = f", {ch:.2f} of {nc} chunks read per merge"
+        else:
+            cost = bound(common + 2 * L * W, L * W)
+            extra = ""
+        extra += f", {mc:.1f} columns matched per merge"
+        timing[v] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, **cost,
+                         library_ms=None)
+        print(f"[{name}] bench layout {(L, W)} v={v}: first {n} merges of "
+              f"the per-merge loop, kernel step {ms_k:.6f} ms/merge on the "
+              f"device ({span_k:.4f} with the host enqueueing it), plain "
+              f"step {ms_p:.4f} ms/merge (bound {cost['bound_ms']:.6f} ms, "
+              f"{cost['bound_by']}{extra}); whole loop {loop_k / n:.4f} "
+              f"ms/merge with the kernel, {loop_p / n:.4f} with the plain "
+              f"step; max |kernel - plain| = {err}")
+    return timing[768]
+
+
+# ---------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------
+
+def phase_sparse_train(corpus, device) -> int:
+    """hist_train(sparse=True) at the headline configuration; returns the
+    sparse step's launches in that run."""
+    from shredword_tpu_torch.ops import _kernels, bpe_hist
+
+    tokens, word_id, wc_word = token_arrays(corpus, device, HEADLINE)
+    kw = dict(target_merges=768 - 256, unk_id=HEADLINE["unk_id"],
+              min_pair_freq=HEADLINE["min_pair_freq"], device=device,
+              lazy_final=True)
+    reset_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    sm, sf, _ = bpe_hist.hist_train(tokens, word_id, wc_word, sparse=True,
+                                    **kw)
+    torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    launches = _kernels.hist_merge_step_sparse.launches
+    dm, df, _ = bpe_hist.hist_train(tokens, word_id, wc_word, **kw)
+    print(f"[sparse] hist_train(sparse=True) vocab 768: {len(sm)} merges in "
+          f"{secs:.4f} s, {launches} hist_merge_step_sparse calls")
+    check(launches > 0, "the sparse path launched hist_merge_step_sparse")
+    check(len(sm) == 512 and np.array_equal(sm, dm)
+          and np.array_equal(sf, df), "sparse == dense merges and freqs")
+    return launches
+
+
+# ---------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def first_collective(device: torch.device) -> float:
+    """Seconds of the process group's first all_reduce: the
+    communicator's set-up (lazy in NCCL), kept out of train()."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, dtype=torch.int32, device=device))
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def sharded_rank(rank, world, store, corpus, vocab, out_dir, result, dev):
+    """One gloo rank of BPETrainer(shards=world) on device `dev`
+    (spawned)."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.ops import _kernels
+
+    device = torch.device(dev)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        setup = first_collective(device)
+        reset_counts()
+        n, secs, raw, _, model, vocab_b = train_and_save(
+            corpus, out_dir, vocab, device, tag=f"_gloo{world}r{rank}",
+            shards=world)
+        launches = _kernels.hist_merge_step.launches
+    finally:
+        dist.destroy_process_group()
+    with open(result, "w") as f:
+        json.dump(dict(n=n, secs=secs, raw=raw, launches=launches,
+                       setup=setup,
+                       model=hashlib.sha256(model).hexdigest(),
+                       vocab=hashlib.sha256(vocab_b).hexdigest()), f)
+
+
+def run_gloo_ranks(corpus, out_dir, vocab, device, world=2) -> list[dict]:
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(out_dir, f"store_{vocab}")
+    results = [os.path.join(out_dir, f"rank{r}_{vocab}.json")
+               for r in range(world)]
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, store, corpus, vocab, out_dir,
+                               results[r], str(device)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"gloo ranks exited with {codes}")
+    out = []
+    for path in results:
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_sharded(corpus, out_dir, device, golden, fused_4096,
+                  backend="nccl") -> int:
+    """Sharded BPETrainer through the public API; returns the per-merge
+    step's launches in the world-size-1 NCCL run at the headline."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.ops import _kernels
+    from shredword_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                         rank=0, backend=backend)
+    try:
+        setup = first_collective(device)
+        reset_counts()
+        n, secs, raw, _, model, vocab_b = train_and_save(
+            corpus, out_dir, 768, device, tag="_nccl1",
+            mesh=multihost.global_mesh())
+        launches = _kernels.hist_merge_step.launches
+    finally:
+        dist.destroy_process_group()
+    print(f"[sharded] {backend} world 1, vocab 768: first all_reduce "
+          f"{setup:.4f} s, then {n} merges, train {secs:.4f} s, "
+          f"{raw / 1e6 / secs:.3f} MB/s, {launches} hist_merge_step calls")
+    check(launches > 0, "sharded training launched hist_merge_step")
+    check(hashlib.sha256(model).hexdigest() == golden["model_sha256"]
+          and hashlib.sha256(vocab_b).hexdigest() == golden["vocab_sha256"]
+          and n == golden["merges"], "NCCL world 1 == JAX golden digest")
+    want = {768: (golden["model_sha256"], golden["vocab_sha256"]),
+            4096: tuple(hashlib.sha256(b).hexdigest() for b in fused_4096)}
+    for vocab in (768, 4096):
+        ranks = run_gloo_ranks(corpus, out_dir, vocab, device)
+        for r, res in enumerate(ranks):
+            print(f"[sharded] gloo rank {r}/2 on {device}, vocab {vocab}: "
+                  f"first all_reduce {res['setup']:.4f} s, then "
+                  f"{res['n']} merges, train {res['secs']:.4f} s, "
+                  f"{res['raw'] / 1e6 / res['secs']:.3f} MB/s, "
+                  f"{res['launches']} hist_merge_step calls")
+            check(res["launches"] > 0 and (res["model"], res["vocab"])
+                  == want[vocab], f"2 gloo ranks, vocab {vocab}: bytes")
+        print(f"[sharded] 2 gloo ranks, vocab {vocab}: bytes equal the "
+              + ("JAX golden digest" if vocab == 768
+                 else "fused hist engine's"))
+    return launches
 
 
 def main() -> int:
@@ -349,7 +795,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import bench
     from shredword_tpu_torch.ops import bpe_giant, bpe_hist
 
     device = torch.device("cuda", 0)
@@ -358,31 +803,46 @@ def main() -> int:
         golden = json.load(f)
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus.txt")
-        bench.make_corpus(corpus)
+        make_corpus(corpus)
+        with open(corpus, "rb") as f:
+            data = f.read()
+        digest = hashlib.sha256(data).hexdigest()
+        print(f"[env] corpus: {len(data)} bytes, sha256 {digest}")
+        check(len(data) == CORPUS_BYTES and digest == CORPUS_SHA256,
+              "the corpus is the JAX bench's")
+        del data
         bench_layout = bpe_hist.build_layout(
             *token_arrays(corpus, device, HEADLINE), 64)
         timing = phase_kernel_vs_plain(device, bench_layout)
         launches = {768: phase_main_path(corpus, tmp, 768, device,
-                                         golden=golden),
-                    4096: phase_main_path(corpus, tmp, 4096, device)}
+                                         golden=golden)[0]}
+        launches[4096], *fused_4096 = phase_main_path(corpus, tmp, 4096,
+                                                      device)
         giant_layout = bpe_giant.build_giant_layout(
             *token_arrays(corpus, device, GIANT), GIANT_VOCAB)
         timing[GIANT_VOCAB] = phase_giant_vs_plain(device, giant_layout)
         del giant_layout
         launches[GIANT_VOCAB] = phase_main_path(
             corpus, tmp, GIANT_VOCAB, device, cfg=GIANT,
-            kernel="giant_train_step")
+            kernel="giant_train_step")[0]
         phase_main_path(corpus, tmp, 768, device, engine="giant",
                         kernel="giant_train_step", golden=golden)
-    kernels = [dict(name=f"hist_fused_train@v{v}", route="cuda",
-                    source="shredword_tpu_torch/csrc/hist_fused.cu",
-                    replaces=TPU_KERNEL[v], launches=launches[v],
-                    **timing[v]) for v in (768, 4096)]
-    kernels.append(dict(name=f"giant_train@v{GIANT_VOCAB}", route="cuda",
-                        source="shredword_tpu_torch/csrc/giant.cu",
-                        replaces=TPU_KERNEL[GIANT_VOCAB],
-                        launches=launches[GIANT_VOCAB],
-                        **timing[GIANT_VOCAB]))
+        timing["step"] = phase_step_vs_plain(device, bench_layout,
+                                             sparse=False)
+        timing["sparse"] = phase_step_vs_plain(device, bench_layout,
+                                               sparse=True)
+        launches["sparse"] = phase_sparse_train(corpus, device)
+        launches["step"] = phase_sharded(corpus, tmp, device, golden,
+                                         fused_4096)
+    src = "shredword_tpu_torch/csrc/"
+    rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
+            ("hist_fused_train@v4096", "hist_fused.cu", 4096),
+            (f"giant_train@v{GIANT_VOCAB}", "giant.cu", GIANT_VOCAB),
+            ("hist_merge_step@v768", "hist_step.cu", "step"),
+            ("hist_merge_step_sparse@v768", "hist_step.cu", "sparse")]
+    kernels = [dict(name=name, route="cuda", source=src + f,
+                    replaces=TPU_KERNEL[key], launches=launches[key],
+                    **timing[key]) for name, f, key in rows]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

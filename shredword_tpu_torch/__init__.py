@@ -5,9 +5,11 @@ CUDA (NVIDIA Hopper).
 ``.model``/``.vocab`` files; its merge loop runs as a hand-written CUDA
 kernel on a CUDA device (``csrc/hist_fused.cu`` up to vocab 4096,
 ``csrc/giant.cu`` up to 32768), or as that kernel's plain PyTorch version
-on the CPU.  The host layer (native corpus loader,
-serialization, checkpoints) is shared with ``shredword_tpu``, which
-imports no JAX at module level.  This package never imports JAX.
+on the CPU.  Sharded training runs over ``torch.distributed``
+(``parallel/``).  The package stands alone: it keeps its own host layer
+(native corpus loader and faithful trainer under ``runtime/``,
+serialization, checkpoints, errors, logging) and imports neither JAX
+nor the JAX package.
 """
 
 from .config import BPEConfig

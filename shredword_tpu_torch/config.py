@@ -4,14 +4,14 @@ The fields, defaults and defaulting rules are those of
 ``shredword_tpu.config.BPEConfig`` (reference bpe.h:43-48 and
 create_trainer, bpe.cpp:124-130).  Only the backends differ: ``"cuda"``
 runs the device engines (hist or giant kernel, or flat stream) on the
-trainer's torch device, ``"cpu"`` the shared native faithful engine.
+trainer's torch device, ``"cpu"`` the port's native faithful engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from shredword_tpu.errors import ConfigError
+from .errors import ConfigError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +29,7 @@ class BPEConfig:
     engine: str = "auto"                # "auto" | "hist" | "giant" | "flat"
     checkpoint_path: str | None = None  # mid-training checkpoint file
     checkpoint_every: int = 0           # merges between checkpoints (0=off)
-    shards: int = 0                     # data-parallel shards (not ported)
+    shards: int = 0                     # data-parallel ranks
 
     def normalized(self) -> "BPEConfig":
         """Apply reference defaulting rules (bpe.cpp:124-130)."""

@@ -40,6 +40,20 @@ __device__ __forceinline__ unsigned long long block_max_u64(unsigned long long x
   return x;
 }
 
+__device__ __forceinline__ int block_sum(int x) {
+  __shared__ int warp_val[32];
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) warp_val[warp] = x;
+  __syncthreads();
+  const int nw = (blockDim.x + 31) >> 5;
+  x = threadIdx.x < nw ? warp_val[threadIdx.x] : 0;
+  if (warp == 0)
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 __device__ __forceinline__ int block_min(int x) {
   return -block_max(-x);  // callers pass values in [0, INT_MAX]
 }

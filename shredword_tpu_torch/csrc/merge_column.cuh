@@ -28,11 +28,13 @@ constexpr int PAD = -3;
 constexpr int MC_MATCHED = 1;  // the column held the pair and was merged
 constexpr int MC_HAS_A = 2;    // a occurs in the column after the merge
 constexpr int MC_HAS_B = 4;    // b occurs in the column after the merge
+constexpr int MC_COUNT_SHIFT = 8;  // bits 8 and up: the merges it made
 
 // Merges (a, b) -> nw in column `col` of tw [L, W] in place.  Tokens live
 // in registers; loads and stores of one row are coalesced across a warp
 // whose threads hold neighbouring columns.  The column is rewritten only
-// when it matched.
+// when it matched.  Returns the MC_ bits above, with the number of merges
+// made in the column from bit MC_COUNT_SHIFT up.
 template <int L>
 __device__ __forceinline__ int merge_column(int16_t* __restrict__ tw, int W,
                                             int col, int a, int b, int nw,
@@ -55,6 +57,7 @@ __device__ __forceinline__ int merge_column(int16_t* __restrict__ tw, int W,
     return (has_a ? MC_HAS_A : 0) | (has_b ? MC_HAS_B : 0);
   }
   const int w = wcount[col];
+  int n = 0;          // merges made
   int o = 0;          // next output row
   int last = PAD;     // last token emitted (the post-merge left neighbour)
   bool skip = false;  // this row is the consumed right half of a merge
@@ -72,6 +75,7 @@ __device__ __forceinline__ int merge_column(int16_t* __restrict__ tw, int W,
       if (rv >= 0 && rv != unk) atomicAdd(&dr[rv], w);
       x = nw;
       skip = true;
+      ++n;
     }
     has_a |= x == a;
     has_b |= x == b;
@@ -80,7 +84,8 @@ __device__ __forceinline__ int merge_column(int16_t* __restrict__ tw, int W,
     last = x;
   }
   for (; o < L; ++o) tw[(size_t)o * W + col] = (int16_t)PAD;
-  return MC_MATCHED | (has_a ? MC_HAS_A : 0) | (has_b ? MC_HAS_B : 0);
+  return MC_MATCHED | (has_a ? MC_HAS_A : 0) | (has_b ? MC_HAS_B : 0) |
+         (n << MC_COUNT_SHIFT);
 }
 
 }  // namespace shred

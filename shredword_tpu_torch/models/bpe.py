@@ -3,10 +3,15 @@
 Same public API and outputs as ``shredword_tpu.models.bpe.BPETrainer``
 (``load_corpus`` / ``load_corpus_bytes`` / ``load_corpora``, ``train``,
 ``save``, checkpoints, ``merges``/``merge_freqs``/``token_frequencies``).
-The host side of that class (native corpus ingestion, coverage and unk
-mapping, checkpoint replay through the native encoder, the lazy final
-corpus, serialization) imports no JAX and is inherited as it is; this
-class replaces the device part:
+Pipeline:
+
+  1. host: native corpus ingestion (``runtime/``, threaded dedup) and
+     coverage/unk mapping
+  2. device: one of the engines below on ``device``
+  3. host: serialization; the final merged corpus is materialized only
+     when a consumer (``token_frequencies``, ``save``) first needs it
+
+Backends:
 
   backend "cuda"  device engines on ``device`` (default "cuda"):
                   engine "auto"/"hist" -> the fused hist kernel for
@@ -14,11 +19,16 @@ class replaces the device part:
                   32768 (auto falls to flat when the table engines
                   decline the corpus); "giant" -> the giant kernel at
                   any vocab; "flat" -> the sort-based stream engine.
-                  Sharded training is not ported yet and raises.
+                  ``mesh`` (a 1-D ``DeviceMesh`` or a ``ProcessGroup``)
+                  or ``shards=N`` (the default ``torch.distributed``
+                  group, of world size N) trains data-parallel on the
+                  sharded hist engine, vocab <= 4096.
   backend "cpu"   the native faithful engine, as in the JAX package.
 
-On a CPU device the table engines run their kernels' plain PyTorch
-versions.
+Ties break to the lexicographically smallest pair on the device
+engines; ``tie_break="faithful"`` runs the native engine, whose outputs
+byte-match the reference binary.  On a CPU device the table engines run
+their kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -26,36 +36,157 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shredword_tpu.errors import ConfigError, TrainingError
-from shredword_tpu.models import bpe as _host
-from shredword_tpu.utils import logging as log
-
+from .. import checkpoint as ckpt
+from .. import serialization
 from ..config import BPEConfig
+from ..errors import ConfigError, TrainingError
 from ..ops import bpe_giant, bpe_hist, bpe_ops
+from ..parallel import hist as par_hist
+from ..parallel import mesh as par_mesh
+from ..runtime import native
+from ..utils import logging as log
+
+_BASE_VOCAB = 256
 
 
-class BPETrainer(_host.BPETrainer):
+class BPETrainer:
     def __init__(self, target_vocab_size: int = 8192, unk_id: int = 0,
                  character_coverage: float = 0.995,
                  min_pair_freq: int = 2000, mesh=None, device="cuda",
                  **kwargs):
-        config = BPEConfig(
+        self.config = BPEConfig(
             target_vocab_size=target_vocab_size, unk_id=unk_id,
             character_coverage=character_coverage,
             min_pair_freq=min_pair_freq, **kwargs).validate()
         self.device = torch.device(device)
-        if (config.backend == "cuda" and self.device.type == "cuda"
+        if (self.config.backend == "cuda" and self.device.type == "cuda"
                 and not torch.cuda.is_available()):
             raise ConfigError(
                 "backend='cuda' needs a CUDA device and none is available; "
                 "pass device='cpu' to run the device engines on the CPU, "
                 "or backend='cpu' for the native engine")
-        # The inherited constructor sets up the host-side state; its own
-        # config knows only the JAX backends, so it is replaced here.
-        super().__init__(target_vocab_size, unk_id, character_coverage,
-                         min_pair_freq, mesh=mesh,
-                         **{**kwargs, "backend": "cpu"})
-        self.config = config
+        # data-parallel training: a 1-D DeviceMesh or a ProcessGroup;
+        # alternatively shards=N in the config uses the default group
+        self.mesh = mesh
+        self._corpus: native.NativeCorpus | None = None
+        self._faithful: native.FaithfulTrainer | None = None
+        self._arrays: native.CorpusArrays | None = None
+        self._keep: np.ndarray | None = None
+        self._merges = np.zeros((0, 2), dtype=np.int32)
+        self._merge_freqs = np.zeros(0, dtype=np.int64)
+        self.__final_tokens: np.ndarray | None = None
+        self.__final_word_id: np.ndarray | None = None
+        self._final_fn = None   # lazy materializer (device -> host)
+        self._trained = False
+
+    # The table engines leave the merged corpus on the device; the copy
+    # to the host happens only when a consumer first touches the arrays.
+    @property
+    def _final_tokens(self) -> np.ndarray | None:
+        self._materialize_final()
+        return self.__final_tokens
+
+    @_final_tokens.setter
+    def _final_tokens(self, value) -> None:
+        self._final_fn = None
+        self.__final_tokens = value
+
+    @property
+    def _final_word_id(self) -> np.ndarray | None:
+        self._materialize_final()
+        return self.__final_word_id
+
+    @_final_word_id.setter
+    def _final_word_id(self, value) -> None:
+        # clear the lazy materializer in BOTH setters: assigning either
+        # array must not be silently overwritten by a later _final_fn run
+        self._final_fn = None
+        self.__final_word_id = value
+
+    def _materialize_final(self) -> None:
+        if self._final_fn is not None:
+            fn, self._final_fn = self._final_fn, None
+            self.__final_tokens, self.__final_word_id = fn()
+
+    # ------------------------------------------------------------------
+    # corpus
+    # ------------------------------------------------------------------
+
+    def _faithful_order(self) -> bool:
+        # The cpu backend runs the faithful engine, whose tie-breaks are
+        # corpus-order artifacts; keep the reference word order so its
+        # output is reference-identical regardless of tie_break.
+        return (self.config.tie_break == "faithful"
+                or self.config.backend == "cpu")
+
+    def load_corpus(self, path: str) -> None:
+        with log.Timer("load_corpus") as t:
+            self._corpus = native.NativeCorpus.from_file(
+                path, faithful_order=self._faithful_order())
+            self._ingest()
+        log.info("Loaded corpus: %d unique words, %d occurrences, "
+                 "%.1f MB raw (%.1f MB/s)", self._arrays.n_words,
+                 self._arrays.total_occurrences,
+                 self._arrays.total_raw_bytes / 1e6,
+                 self._arrays.total_raw_bytes / 1e6 / max(t.elapsed, 1e-9))
+
+    def load_corpus_bytes(self, data: bytes) -> None:
+        self._corpus = native.NativeCorpus.from_bytes(
+            data, faithful_order=self._faithful_order())
+        self._ingest()
+
+    def load_corpora(self, paths: list[str]) -> None:
+        """Train on several corpus files at once (deduplicated jointly).
+
+        The reference documents calling load_corpus repeatedly for this
+        (UserBPE.md "Multiple Corpus Training") but its implementation
+        discards all but the last corpus; here load_corpus replaces by
+        design and load_corpora provides the documented capability."""
+        chunks = []
+        for p in paths:
+            with open(p, "rb") as f:
+                chunks.append(f.read())
+            if chunks[-1] and not chunks[-1].endswith(b"\n"):
+                chunks.append(b"\n")
+        self.load_corpus_bytes(b"".join(chunks))
+
+    def __enter__(self) -> "BPETrainer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.destroy()
+
+    def _ingest(self) -> None:
+        if self._faithful is not None:   # stale vs the new corpus
+            self._faithful.free()
+            self._faithful = None
+        self._arrays = self._corpus.arrays()
+        keep, n_kept, n_unique = self._corpus.coverage(
+            self.config.character_coverage)
+        self._keep = keep
+        log.debug("Character histogram: %d unique, keeping %d", n_unique,
+                  n_kept)
+
+    def _token_arrays(self):
+        """Flat (tokens, word_id, wcount) int32 arrays with unk applied."""
+        arr = self._arrays
+        tokens = arr.word_bytes.astype(np.int32)
+        unk = np.where(~self._keep[arr.word_bytes])[0]
+        tokens[unk] = self.config.unk_id
+        lengths = np.diff(arr.offsets)
+        word_id = np.repeat(
+            np.arange(arr.n_words, dtype=np.int32), lengths)
+        wcount = self._word_counts()[word_id]
+        return tokens, word_id, wcount
+
+    def _word_counts(self) -> np.ndarray:
+        """Per-word occurrence counts, clipped to int32."""
+        return np.minimum(self._arrays.counts,
+                          np.iinfo(np.int32).max).astype(np.int32)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
 
     def train(self, max_merges: int | None = None) -> int:
         if self._arrays is None:
@@ -70,6 +201,43 @@ class BPETrainer(_host.BPETrainer):
                     "mid-training")
             return self._train_cpu_or_faithful(max_merges)
         return self._train_device(max_merges)
+
+    def _train_cpu_or_faithful(self, max_merges) -> int:
+        # tie_break="faithful" requires the reference's heap/hash iteration
+        # artifacts (docs/CONFORMANCE.md §2), which only the native engine
+        # reproduces; it is used regardless of backend.
+        cfg = self.config
+        if self._faithful is None:
+            self._faithful = native.FaithfulTrainer(
+                cfg.target_vocab_size, cfg.unk_id,
+                cfg.character_coverage, cfg.min_pair_freq)
+            self._faithful.load(self._corpus)
+        t = self._faithful   # kept alive: train() continues incrementally
+        limit = -1 if max_merges is None else max_merges
+        if cfg.checkpoint_path and cfg.checkpoint_every:
+            n = 0
+            while True:
+                step = cfg.checkpoint_every
+                if limit >= 0:
+                    step = min(step, limit - n)
+                    if step <= 0:
+                        break
+                got = t.train(step)
+                n += got
+                ckpt.save_checkpoint(
+                    cfg.checkpoint_path, merges=t.merges(),
+                    merge_freqs=t.merge_freqs().astype(np.int64),
+                    config=cfg)
+                if got < step:
+                    break
+        else:
+            n = t.train(limit)
+        self._merges = t.merges()
+        self._merge_freqs = t.merge_freqs().astype(np.int64)
+        self._final_tokens, self._final_word_id = t.tokens()
+        self._trained = True
+        log.info("Training completed: %d merges performed.", n)
+        return n
 
     def _train_device(self, max_merges) -> int:
         cfg = self.config
@@ -94,12 +262,15 @@ class BPETrainer(_host.BPETrainer):
             self._final_word_id = word_id
             log.info("Training completed: 0 merges performed.")
             return 0
+        group = None
         if self.mesh is not None or cfg.shards > 1:
-            raise TrainingError(
-                "sharded training is not ported to shredword_tpu_torch "
-                "yet (see ROADMAP.md); train on one device")
+            # before the replay: a missing process group is a config error
+            group = par_mesh.process_group(self.mesh, cfg.shards)
         tokens, word_id, wcount, n_prev = self._replay_for_resume(
             tokens, word_id, wcount)
+        if group is not None:
+            return self._train_sharded(group, tokens, word_id, target,
+                                       n_prev)
 
         if cfg.engine == "giant":
             out = self._train_table("giant", tokens, word_id, target, n_prev)
@@ -131,8 +302,6 @@ class BPETrainer(_host.BPETrainer):
         None if the corpus does not fit.  On resume the caller has
         already replayed n_prev merges into `tokens`."""
         cfg = self.config
-        counts = np.minimum(self._arrays.counts,
-                            np.iinfo(np.int32).max).astype(np.int32)
         cb, steps = self._table_checkpoint_cb(n_prev)
         kw = dict(target_merges=target, unk_id=cfg.unk_id,
                   min_pair_freq=cfg.min_pair_freq, progress_cb=cb,
@@ -140,10 +309,11 @@ class BPETrainer(_host.BPETrainer):
         with log.Timer("train", nbytes=self._arrays.total_raw_bytes) as t:
             if engine == "giant":
                 out = bpe_giant.giant_train(
-                    tokens, word_id, counts,
+                    tokens, word_id, self._word_counts(),
                     steps_per_call=4096 if steps is None else steps, **kw)
             else:
-                out = bpe_hist.hist_train(tokens, word_id, counts,
+                out = bpe_hist.hist_train(tokens, word_id,
+                                          self._word_counts(),
                                           max_steps_per_call=steps, **kw)
             if out is None:
                 return None
@@ -185,3 +355,218 @@ class BPETrainer(_host.BPETrainer):
         log.info("Training completed: %d merges performed. (%.2f s, flat "
                  "engine)", n_merges - n_prev, t.elapsed)
         return n_merges - n_prev
+
+    def _train_sharded(self, group, tokens, word_id, target,
+                       n_prev: int) -> int:
+        """Data-parallel training over a torch.distributed group: the
+        sharded hist engine (parallel/hist.py, one all_reduce of the
+        count deltas per merge).  Merge sequences are bit-identical to
+        single-device training.  Resume: the caller has already replayed
+        n_prev merges into `tokens`."""
+        cfg = self.config
+        n_shards = group.size()
+        if -(-(256 + target) // 128) * 128 > bpe_hist.MAX_V:
+            raise TrainingError(
+                "sharded training above vocab 4096 needs the sharded "
+                "giant engine (shredword_tpu/parallel/giant.py), which is "
+                "not ported to shredword_tpu_torch yet; train on one "
+                "device (the giant engine) instead")
+        with log.Timer("train", nbytes=self._arrays.total_raw_bytes) as t:
+            out = par_hist.sharded_hist_train(
+                tokens, word_id, self._word_counts(), mesh=group,
+                target_merges=target, unk_id=cfg.unk_id,
+                min_pair_freq=cfg.min_pair_freq, n_prev_merges=n_prev,
+                device=self.device)
+        if out is None:
+            raise TrainingError(
+                "a word is longer than the sharded hist layout takes (64 "
+                "tokens): that needs the sharded flat engine "
+                "(shredword_tpu/parallel/train.py), which is not ported "
+                "to shredword_tpu_torch yet")
+        merges, freqs = out
+        self._merges = np.concatenate(
+            [self._merges[:n_prev], merges.astype(np.int32)])
+        self._merge_freqs = np.concatenate(
+            [self._merge_freqs[:n_prev], freqs.astype(np.int64)])
+        self._final_tokens = None
+        self._final_word_id = None
+        self._set_final_replay(self._merges)
+        self._trained = True
+        log.info("Training completed: %d merges performed. (%.2f s, "
+                 "sharded hist engine, %d shards)", len(merges), t.elapsed,
+                 n_shards)
+        return len(merges)
+
+    def _replay_for_resume(self, tokens, word_id, wcount):
+        """Checkpoint resume (any device engine, sharded or not): replay
+        the learned merges onto the fresh corpus with the native encoder
+        (exact: same rank order and left-to-right overlap semantics as
+        training), then continue with re-counted pairs, mirroring the
+        reference's bpe_init-after-merge resumability (bpe.cpp:171-185).
+        New ids continue at 256 + n_prev.  Returns (tokens, word_id,
+        wcount, n_prev)."""
+        n_prev = len(self._merges)
+        if not n_prev:
+            return tokens, word_id, wcount, 0
+        lengths = np.bincount(word_id, minlength=self._arrays.n_words)
+        offsets = np.zeros(len(lengths) + 1, np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        enc = native.NativeEncoder(self._merges)
+        tokens, out_off = enc.apply_merges(tokens, offsets)
+        enc.free()
+        word_id = np.repeat(
+            np.arange(self._arrays.n_words, dtype=np.int32),
+            np.diff(out_off))
+        wcount = self._word_counts()[word_id]
+        log.info("Resumed from %d merges; replayed corpus has %d "
+                 "tokens", n_prev, len(tokens))
+        return tokens, word_id, wcount, n_prev
+
+    def _set_final_replay(self, merges: np.ndarray) -> None:
+        """Lazy final corpus: replay the learned merges onto the raw
+        dedup stream with the native encoder."""
+        arr = self._arrays
+        keep = self._keep
+        unk_id = self.config.unk_id
+
+        def final_fn():
+            tokens = arr.word_bytes.astype(np.int32)
+            unk = np.where(~keep[arr.word_bytes])[0]
+            tokens[unk] = unk_id
+            offsets = arr.offsets.astype(np.int64)
+            if len(merges):
+                enc = native.NativeEncoder(merges)
+                tokens, offsets = enc.apply_merges(tokens, offsets)
+                enc.free()
+            word_id = np.repeat(np.arange(arr.n_words, dtype=np.int32),
+                                np.diff(offsets))
+            return tokens.astype(np.int32), word_id
+
+        self._final_fn = final_fn
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+
+    def _write_checkpoint(self, ts, n_prev: int) -> None:
+        n = ts.n_merges
+        merges = np.concatenate(
+            [self._merges[:n_prev], ts.merges[n_prev:n].astype(np.int32)])
+        freqs = np.concatenate(
+            [self._merge_freqs[:n_prev],
+             ts.merge_freqs[n_prev:n].astype(np.int64)])
+        ckpt.save_checkpoint(self.config.checkpoint_path, merges=merges,
+                             merge_freqs=freqs, config=self.config)
+        log.debug("checkpoint: %d merges -> %s", n,
+                  self.config.checkpoint_path)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write a resumable checkpoint of the merges learned so far."""
+        ckpt.save_checkpoint(path, merges=self._merges,
+                             merge_freqs=self._merge_freqs,
+                             config=self.config)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Load a checkpoint; the next train() resumes after its merges
+        (corpus must be loaded; it is replayed on resume).  Returns the
+        number of merges restored."""
+        _, merges, freqs = ckpt.load_checkpoint(path)
+        self._merges = merges.astype(np.int32)
+        self._merge_freqs = freqs.astype(np.int64)
+        self._trained = False
+        return len(merges)
+
+    def _table_checkpoint_cb(self, n_prev: int):
+        """(cb, steps) for the table engines' progress callbacks.  The
+        engines report only NEW merges; the checkpoint must carry the
+        full sequence, so the replayed prefix is prepended."""
+        cfg = self.config
+        if not (cfg.checkpoint_path and cfg.checkpoint_every):
+            return None, None
+        prev_m = self._merges[:n_prev].astype(np.int32)
+        prev_f = self._merge_freqs[:n_prev].astype(np.int64)
+
+        def cb(merges, freqs):
+            ckpt.save_checkpoint(
+                cfg.checkpoint_path,
+                merges=np.concatenate([prev_m, merges.astype(np.int32)]),
+                merge_freqs=np.concatenate([prev_f,
+                                            freqs.astype(np.int64)]),
+                config=cfg)
+
+        return cb, cfg.checkpoint_every
+
+    def _finish_table_engine(self, merges, freqs, final_fn, n_prev,
+                             elapsed, engine: str) -> int:
+        self._merges = np.concatenate(
+            [self._merges[:n_prev], merges.astype(np.int32)])
+        self._merge_freqs = np.concatenate(
+            [self._merge_freqs[:n_prev], freqs.astype(np.int64)])
+        self._final_tokens = None
+        self._final_word_id = None
+        self._final_fn = final_fn
+        self._trained = True
+        log.info("Training completed: %d merges performed. (%.2f s, "
+                 "%s engine)", len(merges), elapsed, engine)
+        return len(merges)
+
+    # ------------------------------------------------------------------
+    # results
+    # ------------------------------------------------------------------
+
+    @property
+    def merges(self) -> np.ndarray:
+        return self._merges
+
+    @property
+    def merge_freqs(self) -> np.ndarray:
+        return self._merge_freqs
+
+    @property
+    def num_merges(self) -> int:
+        return len(self._merges)
+
+    @property
+    def vocab_size(self) -> int:
+        return _BASE_VOCAB + self.num_merges
+
+    def token_frequencies(self) -> np.ndarray:
+        """Frequency of every vocab id over the final merged corpus
+        (reference bpe_save counting pass, bpe.cpp:704-712)."""
+        if not self._trained:
+            raise TrainingError("train must be called first")
+        freqs = np.zeros(self.vocab_size, dtype=np.int64)
+        toks = self._final_tokens
+        counts = np.minimum(self._arrays.counts,
+                            np.iinfo(np.int64).max).astype(np.int64)
+        w = counts[self._final_word_id]
+        valid = (toks >= 0) & (toks < self.vocab_size)
+        np.add.at(freqs, toks[valid], w[valid])
+        return freqs
+
+    def save(self, model_path: str, vocab_path: str | None = None) -> None:
+        if not self._trained:
+            raise TrainingError("train must be called before save")
+        serialization.write_model_binary(model_path, self._merges)
+        if vocab_path is not None:
+            serialization.write_vocab(vocab_path, self._merges,
+                                      self.token_frequencies())
+            log.info("Saved %d-token vocab to %s and %d merges to %s",
+                     self.vocab_size, vocab_path, self.num_merges,
+                     model_path)
+        else:
+            log.info("Saved %d merges to %s", self.num_merges, model_path)
+
+    def destroy(self) -> None:
+        if self._faithful is not None:
+            self._faithful.free()
+            self._faithful = None
+        if self._corpus is not None:
+            self._corpus.free()
+            self._corpus = None
+
+    def __del__(self):
+        try:
+            self.destroy()
+        except Exception:
+            pass

@@ -25,11 +25,13 @@ import time
 import torch
 
 PAD = -3
+CHUNK = 512       # columns per chunk of the hist layout (its W is a
+                  # multiple) and per presence bit of the sparse step
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ["hist_fused.cu", "giant.cu"]
+SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -105,6 +107,10 @@ def lib() -> ctypes.CDLL:
         L.shred_hist_fused_train.restype = i
         L.shred_giant_train.argtypes = [p] * 10 + [i] * 12 + [p]
         L.shred_giant_train.restype = i
+        L.shred_hist_merge_step.argtypes = [p] * 4 + [i] * 3 + [p]
+        L.shred_hist_merge_step.restype = i
+        L.shred_hist_merge_step_sparse.argtypes = [p] * 5 + [i] * 4 + [p]
+        L.shred_hist_merge_step_sparse.restype = i
         L.shred_cuda_error_string.argtypes = [i]
         L.shred_cuda_error_string.restype = ctypes.c_char_p
         _lib = L
@@ -205,7 +211,7 @@ def hist_fused_train_plain(tw, wcount, hist, *, unk, min_freq, n_done,
         b = int((hist[a] == m).nonzero()[0, 0])     # then smallest column
         new = 256 + n_done + i
         records[i] = torch.tensor([a, b, m, 1], dtype=torch.int32)
-        dl, dr = merge_pass_plain(tw, wcount, a, b, new, unk, v)
+        dl, dr, _ = merge_pass_plain(tw, wcount, a, b, new, unk, v)
         hist[:, a] -= dl
         hist[:, new] += dl
         hist[b, :] -= dr
@@ -226,7 +232,8 @@ def _shift_up(x: torch.Tensor, k: int, fill) -> torch.Tensor:
 
 def merge_pass_plain(tw, wcount, a, b, new, unk, v):
     """Merge (a, b) -> new over the [L, W] corpus in place; returns the
-    int32 [v] left/right neighbour weight vectors (dl, dr)
+    int32 [v] left/right neighbour weight vectors (dl, dr) and the
+    number of merged occurrences nm
     (bpe_hist._select_and_apply + _slot_delta_accum semantics)."""
     L, W = tw.shape
     t = tw.to(torch.int32)
@@ -234,7 +241,7 @@ def merge_pass_plain(tw, wcount, a, b, new, unk, v):
     dl = torch.zeros(v, dtype=torch.int32, device=tw.device)
     dr = torch.zeros_like(dl)
     if not bool(m.any()):
-        return dl, dr
+        return dl, dr, 0
     # greedy left-to-right: every other match of a run, from its head
     row = torch.arange(L, device=tw.device)[:, None]
     last_nm = torch.where(m, -1, row).cummax(0).values
@@ -255,7 +262,7 @@ def merge_pass_plain(tw, wcount, a, b, new, unk, v):
     for vals, d in ((lval, dl), (rval, dr)):
         ok = sel & (vals >= 0) & (vals != unk)
         d.index_add_(0, vals[ok].long(), w[ok])
-    return dl, dr
+    return dl, dr, int(sel.sum())
 
 
 # ---------------------------------------------------------------------
@@ -389,8 +396,8 @@ def giant_train_step_plain(tw, wcount, hist, presT, rowmax, *, unk,
         sub = tw[:, cols]
         t = sub.to(torch.int32)
         matched = ((t[:-1] == a) & (t[1:] == b)).any(0).view(-1, cw).any(1)
-        dl, dr = merge_pass_plain(sub, wcount[cols], a, b, new, unk,
-                                  hist.shape[0])
+        dl, dr, _ = merge_pass_plain(sub, wcount[cols], a, b, new, unk,
+                                     hist.shape[0])
         tw[:, cols] = sub
         per_chunk = sub.view(L, len(chunks), cw)
         hit = chunks[matched]
@@ -408,3 +415,141 @@ def giant_train_step_plain(tw, wcount, hist, presT, rowmax, *, unk,
         rowmax[new] = hist[new].max()
         rowmax[a] = hist[a].max()
     return records
+
+
+# ---------------------------------------------------------------------
+# per-merge hist step (one given merge over the corpus) and its sparse
+# variant
+# ---------------------------------------------------------------------
+
+def _check_step_args(tw, wcount, scal, v):
+    L, W = tw.shape
+    if tw.dtype != torch.int16 or wcount.dtype != torch.int32 \
+            or scal.dtype != torch.int32:
+        raise TypeError("tw must be int16, wcount and scal int32")
+    if wcount.shape != (W,) or scal.shape != (5,):
+        raise ValueError(f"shape mismatch: tw {tuple(tw.shape)}, wcount "
+                         f"{tuple(wcount.shape)}, scal {tuple(scal.shape)}")
+    if not (tw.is_contiguous() and wcount.is_contiguous()):
+        raise ValueError("tw and wcount must be contiguous")
+    if L not in (16, 32, 64):
+        raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
+    if v < 256:
+        raise ValueError(f"table size v must be >= 256, got {v}")
+    if not (tw.device == wcount.device == scal.device):
+        raise ValueError("tw, wcount and scal must share one device")
+    if tw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tw.device}")
+
+
+def hist_merge_step(tw: torch.Tensor, wcount: torch.Tensor,
+                    scal: torch.Tensor, *, v: int) -> torch.Tensor:
+    """One given merge (a, b) -> new over the corpus, tw in place.
+
+    Replaces ``shredword_tpu.ops.bpe_hist._merge_kernel``
+    (``make_merge_step``): tw int16 [L, W] (one word per column, PAD
+    after it), wcount int32 [W], scal int32 [5] = (a, b, new, unk, do) on
+    tw's device: the TPU kernel's ``scal`` plus a do flag that the train
+    loop computes on the device (do == 0 changes nothing, as the JAX
+    loop's ``lax.cond`` skips the step).  Ids must be below v.  Returns
+    int32 [2v + 1] = dl ‖ dr ‖ nm: the left and right neighbour weights
+    of the merged occurrences and their number (dl ‖ dr is the one
+    buffer the sharded engine all-reduces).
+
+    CPU tensors run :func:`hist_merge_step_plain`; CUDA tensors run
+    ``csrc/hist_step.cu``."""
+    _check_step_args(tw, wcount, scal, v)
+    if tw.device.type == "cpu":
+        return hist_merge_step_plain(tw, wcount, scal, v=v)
+    L, W = tw.shape
+    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
+    with torch.cuda.device(tw.device):
+        stream = torch.cuda.current_stream(tw.device).cuda_stream
+        rc = lib().shred_hist_merge_step(
+            tw.data_ptr(), wcount.data_ptr(), scal.data_ptr(),
+            out.data_ptr(), L, W, v, stream)
+    _check(rc)
+    hist_merge_step.launches += 1
+    return out
+
+
+hist_merge_step.launches = 0
+
+
+def hist_merge_step_plain(tw, wcount, scal, *, v) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_merge_step`: the closed-form
+    select/compact/delta pass over the whole [L, W] corpus."""
+    a, b, new, unk, do = scal.tolist()
+    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
+    if do:
+        dl, dr, nm = merge_pass_plain(tw, wcount, a, b, new, unk, v)
+        out[:v], out[v:2 * v], out[2 * v] = dl, dr, nm
+    return out
+
+
+def hist_merge_step_sparse(tw: torch.Tensor, wcount: torch.Tensor,
+                           presT: torch.Tensor, scal: torch.Tensor, *,
+                           v: int) -> torch.Tensor:
+    """:func:`hist_merge_step` over only the CHUNK-column chunks whose
+    presence holds both a and b; tw and presT in place.
+
+    Replaces ``shredword_tpu.ops.bpe_hist._merge_kernel_sparse``
+    (``make_merge_step_sparse``).  presT int8 [v, NC], W = NC * CHUNK:
+    1 iff the id occurs in the chunk, exact (``bpe_hist.build_presence``;
+    the JAX package keeps int32 [NC, 8, v] with 8 equal rows).  Every
+    chunk that holds a and b gets its presence rewritten after the merge,
+    as the TPU kernel does; the other chunks are not read.  Returns
+    int32 [2v + 1] = dl ‖ dr ‖ nm.
+
+    CPU tensors run :func:`hist_merge_step_sparse_plain`; CUDA tensors
+    run ``csrc/hist_step.cu``."""
+    _check_step_args(tw, wcount, scal, v)
+    L, W = tw.shape
+    if presT.dtype != torch.int8 or presT.shape != (v, W // CHUNK) \
+            or W % CHUNK or not presT.is_contiguous():
+        raise ValueError(f"presT must be contiguous int8 [v, W / {CHUNK}] "
+                         f"with W a multiple of {CHUNK}: tw "
+                         f"{tuple(tw.shape)}, presT {tuple(presT.shape)}")
+    if presT.device != tw.device:
+        raise ValueError("tw and presT must share one device")
+    if tw.device.type == "cpu":
+        return hist_merge_step_sparse_plain(tw, wcount, presT, scal, v=v)
+    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
+    with torch.cuda.device(tw.device):
+        stream = torch.cuda.current_stream(tw.device).cuda_stream
+        rc = lib().shred_hist_merge_step_sparse(
+            tw.data_ptr(), wcount.data_ptr(), presT.data_ptr(),
+            scal.data_ptr(), out.data_ptr(), L, W, v, W // CHUNK, stream)
+    _check(rc)
+    hist_merge_step_sparse.launches += 1
+    return out
+
+
+hist_merge_step_sparse.launches = 0
+
+
+def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
+                                 v) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_merge_step_sparse`: the
+    flagged chunks' columns are gathered, run through
+    :func:`merge_pass_plain` and scattered back, and their presence is
+    rebuilt over every id, as the TPU kernel rebuilds it
+    (bpe_hist.py:330-339)."""
+    a, b, new, unk, do = scal.tolist()
+    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
+    if not do:
+        return out
+    L = tw.shape[0]
+    chunks = ((presT[a] != 0) & (presT[b] != 0)).nonzero()[:, 0]
+    cols = (chunks[:, None] * CHUNK
+            + torch.arange(CHUNK, device=tw.device)).reshape(-1)
+    sub = tw[:, cols]
+    dl, dr, nm = merge_pass_plain(sub, wcount[cols], a, b, new, unk, v)
+    tw[:, cols] = sub
+    t = sub.view(L, len(chunks), CHUNK).long()
+    which = chunks.view(1, -1, 1).expand_as(t)
+    ok = (t >= 0) & (t < v)
+    presT[:, chunks] = 0
+    presT[t[ok], which[ok]] = 1
+    out[:v], out[v:2 * v], out[2 * v] = dl, dr, nm
+    return out

@@ -5,10 +5,19 @@
            each word; weights int32 [W] per column
   hist     int32 [v, v] exact pair counts, maintained by per-merge
            deltas; ties break to the smallest row, then column
-  kernel   the whole merge loop of one call runs in
+  fused    the whole merge loop of one call runs in
            ``_kernels.hist_fused_train`` (CUDA on the card, its plain
            PyTorch version on the CPU); the host reads 16 bytes of
-           record per merge once per call
+           record per merge once per call.  The main path.
+  per-merge  ``merge_steps``: the pick and the table update as PyTorch
+           ops on the device and the corpus pass as one kernel per merge
+           (``_kernels.hist_merge_step``, K4), with no host round trip
+           inside a call; the per-shard step of sharded training
+           (``parallel/hist.py``).  With the chunk-skipping step
+           (``hist_merge_step_sparse``, K5) it runs behind
+           ``hist_train(sparse=True)``.  ``make_train_loop`` and
+           ``make_train_loop_sparse`` are the JAX package's per-call
+           forms of the same loops.
 
 Merge sequences, frequencies and final corpora are identical to the JAX
 package's hist engine and to the flat engine (lex tie-break, greedy
@@ -23,9 +32,8 @@ import numpy as np
 import torch
 
 from . import _kernels
-from ._kernels import PAD
+from ._kernels import CHUNK, PAD
 
-CHUNK = 512       # column padding of build_layout, as in the JAX package
 MAX_V = 4096      # largest table of the fused engine; hist_train routes
                   # larger vocabularies to the giant engine (bpe_giant)
 
@@ -36,11 +44,11 @@ class HistCorpus(NamedTuple):
 
 
 class HistTrainState(NamedTuple):
-    corpus: HistCorpus        # device tensors after training
+    corpus: HistCorpus        # device tensors: tw [L, W], wcount [W]
     hist: torch.Tensor        # int32 [v, v]
-    merges: np.ndarray        # int32 [n, 2], new merges only
-    merge_freqs: np.ndarray   # int32 [n]
-    n_merges: int
+    merges: np.ndarray        # int32 [M_max, 2]; slot k is merge k
+    merge_freqs: np.ndarray   # int32 [M_max]
+    n_merges: int             # including the n_prev resumed merges
     done: bool
 
 
@@ -83,36 +91,68 @@ def init_hist(tw: torch.Tensor, wcount: torch.Tensor, unk_id: int,
     return hist.view(v, v)
 
 
-def state_from_jax(tw, wcount, hist, device="cpu"):
+def state_from_jax(tw, wcount, hist, device="cpu", presence=None):
     """The JAX package's hist-engine arrays as the port's tensors.
 
     Accepts the ``HistCorpus`` layout (tw [L, W], wcount [1, W]) and the
     fused driver's layout (tw [NC, L, fc], wcount [NC, 1, fc]).  Returns
-    (tw int16 [L, W], wcount int32 [W], hist int32 [v, v]) on device."""
+    (tw int16 [L, W], wcount int32 [W], hist int32 [v, v]) on device,
+    and presT int8 [v, NC] when the sparse step's ``presence`` (int32
+    [NC, 8, v], 8 equal rows) is given."""
     tw = np.asarray(tw)
     wcount = np.asarray(wcount)
     if tw.ndim == 3:
         nc, L, fc = tw.shape
         tw = tw.transpose(1, 0, 2).reshape(L, nc * fc)
     dev = torch.device(device)
-    return (torch.tensor(np.asarray(tw, np.int16), device=dev),
-            torch.tensor(np.asarray(wcount, np.int32).reshape(-1),
-                         device=dev),
-            torch.tensor(np.asarray(hist, np.int32), device=dev))
+    out = (torch.tensor(np.asarray(tw, np.int16), device=dev),
+           torch.tensor(np.asarray(wcount, np.int32).reshape(-1),
+                        device=dev),
+           torch.tensor(np.asarray(hist, np.int32), device=dev))
+    if presence is None:
+        return out
+    pres = np.asarray(presence)[:, 0, :].T.astype(np.int8)
+    return (*out, torch.tensor(np.ascontiguousarray(pres), device=dev))
 
 
-def state_to_jax(tw, wcount, hist, fc: int | None = None):
+def state_to_jax(tw, wcount, hist, fc: int | None = None, presT=None):
     """Inverse of :func:`state_from_jax`: numpy arrays in the
-    ``HistCorpus`` layout, or in the fused layout when ``fc`` is given."""
+    ``HistCorpus`` layout, or in the fused layout when ``fc`` is given;
+    with ``presT``, the sparse step's presence int32 [NC, 8, v] too."""
     tw = tw.cpu().numpy()
     wcount = wcount.cpu().numpy()
     hist = hist.cpu().numpy()
     L, W = tw.shape
     if fc is None:
-        return tw, wcount.reshape(1, W), hist
-    nc = W // fc
-    return (np.ascontiguousarray(tw.reshape(L, nc, fc).transpose(1, 0, 2)),
+        out = (tw, wcount.reshape(1, W), hist)
+    else:
+        nc = W // fc
+        out = (np.ascontiguousarray(
+            tw.reshape(L, nc, fc).transpose(1, 0, 2)),
             wcount.reshape(nc, 1, fc), hist)
+    if presT is None:
+        return out
+    pres = presT.cpu().numpy().T.astype(np.int32)            # [NC, v]
+    return (*out, np.ascontiguousarray(
+        np.broadcast_to(pres[:, None, :], (pres.shape[0], 8,
+                                           pres.shape[1]))))
+
+
+def build_presence(tw: np.ndarray, v: int) -> np.ndarray:
+    """int8 [v, NC]: 1 iff the id occurs in chunk c (columns
+    [c * CHUNK, (c + 1) * CHUNK)) of the [L, W] layout; built once on the
+    host, then the sparse step keeps it exact for the chunks it
+    processes.  The JAX package stores the same bits as int32 [NC, 8, v]
+    (eight equal rows, a TPU tiling artifact; see
+    :func:`state_from_jax`)."""
+    L, W = tw.shape
+    nc = W // CHUNK
+    t = np.asarray(tw).reshape(L, nc, CHUNK).astype(np.int64)
+    chunk = np.broadcast_to(np.arange(nc)[None, :, None], t.shape)
+    ok = (t >= 0) & (t < v)
+    pres = np.zeros((v, nc), np.int8)
+    pres[t[ok], chunk[ok]] = 1
+    return pres
 
 
 def drive_calls(call: Callable, *, target_merges: int, n_prev: int,
@@ -149,44 +189,220 @@ def drive_calls(call: Callable, *, target_merges: int, n_prev: int,
             np.asarray(freqs, np.int32), bool(done))
 
 
+def _drive_state(ts: HistTrainState, call: Callable, *, target_merges: int,
+                 n_prev: int, steps_per_call: int,
+                 progress_cb: Callable | None) -> HistTrainState:
+    """:func:`drive_calls` from the fresh state ``ts`` (its corpus and
+    table are what ``call`` trains in place); returns ts with the
+    records."""
+    merges, freqs, done = drive_calls(
+        call, target_merges=target_merges, n_prev=n_prev,
+        steps_per_call=steps_per_call, progress_cb=progress_cb)
+    n = n_prev + len(merges)
+    ts.merges[n_prev:n] = merges
+    ts.merge_freqs[n_prev:n] = freqs
+    return ts._replace(n_merges=n, done=done)
+
+
 def fused_hist_train(c: HistCorpus, v: int, *, target_merges: int,
                      unk_id: int, min_pair_freq: int, steps_per_call: int,
                      progress_cb: Callable | None = None, n_prev: int = 0,
                      device="cpu") -> HistTrainState:
     """Drive the fused merge loop to target_merges, steps_per_call
     merges per kernel call (see :func:`drive_calls`)."""
-    dev = torch.device(device)
-    tw = torch.tensor(c.tw, device=dev)             # copies: trained in place
-    wc = torch.tensor(c.wcount.reshape(-1), device=dev)
-    hist = init_hist(tw, wc, unk_id, v)
+    ts = hist_train_init(c, unk_id, target_merges, v, device=device)
+    (tw, wc), hist = ts.corpus, ts.hist
 
     def call(n_done, init_done, allowed, steps):
         return _kernels.hist_fused_train(
             tw, wc, hist, unk=unk_id, min_freq=min_pair_freq, n_done=n_done,
             init_done=init_done, allowed=allowed, steps=steps)
 
-    merges, freqs, done = drive_calls(
-        call, target_merges=target_merges, n_prev=n_prev,
-        steps_per_call=steps_per_call, progress_cb=progress_cb)
-    return HistTrainState(corpus=HistCorpus(tw, wc), hist=hist,
-                          merges=merges, merge_freqs=freqs,
-                          n_merges=len(merges), done=done)
+    return _drive_state(ts, call, target_merges=target_merges, n_prev=n_prev,
+                        steps_per_call=steps_per_call,
+                        progress_cb=progress_cb)
+
+
+# ---------------------------------------------------------------------
+# per-merge train loops (K4, K5)
+# ---------------------------------------------------------------------
+
+def apply_hist_updates(hist: torch.Tensor, a, b, new, dl: torch.Tensor,
+                       dr: torch.Tensor, do=1) -> torch.Tensor:
+    """The five exact table updates of a merge, in place and in the JAX
+    order (bpe_hist.py:251-259): column a -= dl, column new += dl, row
+    b -= dr, row new += dr, cell (a, b) = 0.  The order matters when
+    a == b or a neighbour is a or b.  a, b, new and do may be ints or
+    int tensors on hist's device (then nothing waits for the device);
+    do == 0 keeps the cell (the merge did not run, so dl and dr are 0)."""
+    v = hist.shape[0]
+    a, b, new, do = (torch.as_tensor(x, device=hist.device).reshape(1)
+                     .long() for x in (a, b, new, do))
+    hist.index_add_(1, a, -dl.view(v, 1))
+    hist.index_add_(1, new, dl.view(v, 1))
+    hist.index_add_(0, b, -dr.view(1, v))
+    hist.index_add_(0, new, dr.view(1, v))
+    flat = hist.view(-1)
+    cell = a * v + b
+    flat.index_copy_(0, cell, flat[cell] * (1 - do).to(hist.dtype))
+    return hist
+
+
+def merge_steps(hist: torch.Tensor, step: Callable, *, unk: int,
+                min_freq: int, n_done: int, init_done: int, allowed: int,
+                steps: int) -> torch.Tensor:
+    """``steps`` greedy merges with the pick and the table update as
+    PyTorch ops on hist's device and the corpus pass in ``step``; the
+    scalars (a, b, new, count, done) stay on the device, so nothing waits
+    for it inside a call, as in the JAX ``while_loop``.
+
+    The pick is the JAX one (``make_train_loop``): the argmax over the
+    thresholded flat table, ties to the smallest flat index.
+    ``step(scal)`` merges scal = int32 [5] (a, b, new, unk, do) over the
+    corpus and returns int32 dl ‖ dr (‖ nm) of length >= 2v.  Merge step
+    i creates id 256 + n_done + i.  Returns int32 [steps, 4] records
+    (a, b, freq, did) on hist's device, with the :func:`drive_calls`
+    contract: did == 0 from the first step that could not merge on."""
+    v = hist.shape[0]
+    if 256 + n_done + min(steps, allowed) > v:
+        raise ValueError("merge ids would exceed the table size v")
+    dev = hist.device
+    flat = hist.view(-1)
+    # ids of steps that cannot merge are clamped: they only index zeros
+    news = torch.arange(256 + n_done, 256 + n_done + steps,
+                        dtype=torch.int32).clamp_(max=v - 1).to(dev)
+    unk_t = torch.tensor(unk, dtype=torch.int32).to(dev)
+    done = torch.tensor(bool(init_done)).to(dev)
+    records = torch.empty((steps, 4), dtype=torch.int32, device=dev)
+    for i in range(steps):
+        cnt, best = torch.where(flat >= min_freq, flat, 0).max(0)
+        do = (cnt > 0) & ~done if i < allowed else torch.zeros_like(done)
+        done = ~do
+        best = best.int()
+        scal = torch.stack([best // v, best % v, news[i], unk_t, do.int()])
+        d = step(scal)
+        apply_hist_updates(hist, scal[0], scal[1], scal[2], d[:v],
+                           d[v:2 * v], scal[4])
+        records[i] = torch.stack([scal[0], scal[1], cnt, scal[4]])
+    return records
+
+
+def loop_call(ts: HistTrainState, step: Callable, *, target_merges: int,
+              max_steps: int, unk_id: int,
+              min_pair_freq: int) -> HistTrainState:
+    """One call of a per-merge train loop: up to max_steps merges of
+    :func:`merge_steps`, stopping at done or target_merges like the JAX
+    loop's ``cond_fn``; the records are read once."""
+    k = min(max_steps, target_merges - ts.n_merges)
+    if ts.done or k <= 0:
+        return ts
+    rows = merge_steps(ts.hist, step, unk=unk_id, min_freq=min_pair_freq,
+                       n_done=ts.n_merges, init_done=0, allowed=k,
+                       steps=k).cpu().numpy()
+    did = rows[:, 3] != 0
+    n0, n = ts.n_merges, int(did.sum())
+    ts.merges[n0:n0 + n] = rows[did, :2]
+    ts.merge_freqs[n0:n0 + n] = rows[did, 2]
+    return ts._replace(n_merges=n0 + n, done=n < k)
+
+
+def hist_train_init(c: HistCorpus, unk_id: int, max_merges: int, v: int,
+                    device="cpu") -> HistTrainState:
+    """State of the per-merge loops: the layout on device, its exact
+    table, empty records; callers seed n_merges on resume."""
+    dev = torch.device(device)
+    tw = torch.tensor(np.asarray(c.tw, np.int16), device=dev)
+    wc = torch.tensor(np.asarray(c.wcount, np.int32).reshape(-1),
+                      device=dev)
+    return HistTrainState(
+        corpus=HistCorpus(tw, wc), hist=init_hist(tw, wc, unk_id, v),
+        merges=np.zeros((max(max_merges, 1), 2), np.int32),
+        merge_freqs=np.zeros(max(max_merges, 1), np.int32),
+        n_merges=0, done=False)
+
+
+def _check_loop_state(ts: HistTrainState, v: int, L: int, W: int) -> None:
+    if tuple(ts.corpus.tw.shape) != (L, W) or ts.hist.shape != (v, v):
+        raise ValueError(f"state does not match the loop: tw "
+                         f"{tuple(ts.corpus.tw.shape)} vs {(L, W)}, hist "
+                         f"{tuple(ts.hist.shape)} vs {(v, v)}")
+
+
+def make_train_loop(v: int, L: int, W: int, *, target_merges: int,
+                    max_steps: int) -> Callable:
+    """The per-merge train loop (JAX ``make_train_loop``):
+    ``train_loop(ts, unk_id, min_pair_freq) -> ts`` runs up to max_steps
+    merges, each a pick, one K4 corpus pass
+    (:func:`_kernels.hist_merge_step`) and :func:`apply_hist_updates`."""
+
+    def train_loop(ts: HistTrainState, unk_id: int,
+                   min_pair_freq: int) -> HistTrainState:
+        _check_loop_state(ts, v, L, W)
+        tw, wc = ts.corpus
+        return loop_call(
+            ts, lambda scal: _kernels.hist_merge_step(tw, wc, scal, v=v),
+            target_merges=target_merges, max_steps=max_steps, unk_id=unk_id,
+            min_pair_freq=min_pair_freq)
+
+    return train_loop
+
+
+def make_train_loop_sparse(v: int, L: int, W: int, *, target_merges: int,
+                           max_steps: int) -> Callable:
+    """:func:`make_train_loop` with the chunk-skipping K5 corpus pass
+    (:func:`_kernels.hist_merge_step_sparse`):
+    ``train_loop(ts, presT, unk_id, min_pair_freq) -> ts``, presT int8
+    [v, W / CHUNK] updated in place."""
+
+    def train_loop(ts: HistTrainState, presT: torch.Tensor, unk_id: int,
+                   min_pair_freq: int) -> HistTrainState:
+        _check_loop_state(ts, v, L, W)
+        tw, wc = ts.corpus
+        return loop_call(
+            ts, lambda scal: _kernels.hist_merge_step_sparse(
+                tw, wc, presT, scal, v=v),
+            target_merges=target_merges, max_steps=max_steps, unk_id=unk_id,
+            min_pair_freq=min_pair_freq)
+
+    return train_loop
+
+
+def _sparse_drive(c: HistCorpus, v: int, unk_id: int, min_pair_freq: int,
+                  target_merges: int, max_steps: int, progress_cb=None,
+                  device="cpu") -> HistTrainState:
+    ts = hist_train_init(c, unk_id, target_merges, v, device=device)
+    (tw, wc), hist = ts.corpus, ts.hist
+    presT = torch.tensor(build_presence(c.tw, v), device=hist.device)
+
+    def step(scal):
+        return _kernels.hist_merge_step_sparse(tw, wc, presT, scal, v=v)
+
+    def call(n_done, init_done, allowed, steps):
+        return merge_steps(hist, step, unk=unk_id, min_freq=min_pair_freq,
+                           n_done=n_done, init_done=init_done,
+                           allowed=allowed, steps=steps)
+
+    return _drive_state(ts, call, target_merges=target_merges, n_prev=0,
+                        steps_per_call=max_steps, progress_cb=progress_cb)
 
 
 def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
                *, target_merges: int, unk_id: int = -1,
                min_pair_freq: int = 2, max_word_len: int = 64,
-               max_steps_per_call: int | None = None, progress_cb=None,
-               lazy_final: bool = False, n_prev_merges: int = 0,
-               device="cpu"):
+               max_steps_per_call: int | None = None, sparse: bool = False,
+               progress_cb=None, lazy_final: bool = False,
+               n_prev_merges: int = 0, device="cpu"):
     """Full driver.  Returns (merges [M, 2], freqs [M], final flat tokens,
     final word_id), with a callable for the last two when lazy_final,
     or None if a word exceeds max_word_len.  wcount is per word.
 
     Vocabularies above MAX_V go to the giant engine, which may also
     return None (see ``bpe_giant.giant_train``).  The default cadence is
-    512 merges per call for the fused engine and 4096 for the giant one;
-    an explicit ``max_steps_per_call`` reaches either unchanged.
+    512 merges per call for the fused and sparse engines and 4096 for the
+    giant one; an explicit ``max_steps_per_call`` reaches each unchanged.
+    ``sparse`` trains with the chunk-skipping per-merge loop (K5) when
+    nothing is resumed, as the JAX package does; otherwise the fused
+    kernel runs.
 
     Checkpoint resume: pass the REPLAYED corpus and ``n_prev_merges``;
     ``target_merges`` counts the previous merges too and only new merges
@@ -208,10 +424,15 @@ def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
     c = build_layout(tokens, word_id, wcount, max_word_len, min_len=16)
     if c is None:
         return None
-    ts = fused_hist_train(c, v, target_merges=target_merges, unk_id=unk_id,
-                          min_pair_freq=min_pair_freq, steps_per_call=steps,
-                          progress_cb=progress_cb, n_prev=n_prev_merges,
-                          device=device)
+    ts = None
+    if sparse and n_prev_merges == 0:
+        ts = _sparse_drive(c, v, unk_id, min_pair_freq, target_merges,
+                           steps, progress_cb, device)
+    if ts is None:
+        ts = fused_hist_train(c, v, target_merges=target_merges,
+                              unk_id=unk_id, min_pair_freq=min_pair_freq,
+                              steps_per_call=steps, progress_cb=progress_cb,
+                              n_prev=n_prev_merges, device=device)
     final_tw = ts.corpus.tw
 
     def final_fn():
@@ -225,6 +446,8 @@ def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
         keep = final_word_id < n_real_words
         return (final_tokens[keep].astype(np.int32), final_word_id[keep])
 
+    merges = ts.merges[n_prev_merges:ts.n_merges]
+    freqs = ts.merge_freqs[n_prev_merges:ts.n_merges]
     if lazy_final:
-        return ts.merges, ts.merge_freqs, final_fn
-    return (ts.merges, ts.merge_freqs, *final_fn())
+        return merges, freqs, final_fn
+    return (merges, freqs, *final_fn())

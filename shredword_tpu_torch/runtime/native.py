@@ -1,0 +1,264 @@
+"""ctypes bindings of the port's native host runtime.
+
+The part of the JAX package's ``shredword_tpu/runtime/native.py`` that
+the port's trainer calls: corpus loading and dedup (``NativeCorpus``,
+``CorpusArrays``), the reference-faithful CPU trainer
+(``FaithfulTrainer``) and merge replay (``NativeEncoder``).  Handles are
+opaque ``c_void_p``; arrays cross the boundary as numpy buffers with
+explicit sizes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+
+from . import build as _build
+
+
+class ShredConfigC(ctypes.Structure):
+    _fields_ = [
+        ("target_vocab_size", ctypes.c_int64),
+        ("unk_id", ctypes.c_int32),
+        ("character_coverage", ctypes.c_double),
+        ("min_pair_freq", ctypes.c_uint64),
+    ]
+
+
+_lib = None
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        L = ctypes.CDLL(_build.build())
+        _declare(L)
+        _lib = L
+    return _lib
+
+
+def _declare(L: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i64 = ctypes.c_int64
+    i32 = ctypes.c_int
+    L.shred_corpus_from_bytes.argtypes = [ctypes.c_char_p, i64, i32, i32]
+    L.shred_corpus_from_bytes.restype = p
+    L.shred_corpus_from_file.argtypes = [ctypes.c_char_p, i32, i32]
+    L.shred_corpus_from_file.restype = p
+    for fn in ("shred_corpus_num_words", "shred_corpus_unique_bytes",
+               "shred_corpus_total_raw_bytes",
+               "shred_corpus_total_occurrences"):
+        getattr(L, fn).argtypes = [p]
+        getattr(L, fn).restype = i64
+    L.shred_corpus_export.argtypes = [p, p, p, p]
+    L.shred_corpus_export.restype = None
+    L.shred_corpus_coverage.argtypes = [p, ctypes.c_double, p,
+                                        ctypes.POINTER(i32)]
+    L.shred_corpus_coverage.restype = i32
+    L.shred_corpus_free.argtypes = [p]
+    L.shred_corpus_free.restype = None
+
+    L.shred_trainer_create.argtypes = [ctypes.POINTER(ShredConfigC)]
+    L.shred_trainer_create.restype = p
+    L.shred_trainer_load.argtypes = [p, p]
+    L.shred_trainer_load.restype = None
+    L.shred_trainer_train.argtypes = [p, i32]
+    L.shred_trainer_train.restype = i32
+    L.shred_trainer_num_merges.argtypes = [p]
+    L.shred_trainer_num_merges.restype = i64
+    L.shred_trainer_get_merges.argtypes = [p, p]
+    L.shred_trainer_get_merges.restype = None
+    L.shred_trainer_get_merge_freqs.argtypes = [p, p]
+    L.shred_trainer_get_merge_freqs.restype = None
+    L.shred_trainer_token_count.argtypes = [p]
+    L.shred_trainer_token_count.restype = i64
+    L.shred_trainer_export_tokens.argtypes = [p, p, p]
+    L.shred_trainer_export_tokens.restype = None
+    L.shred_trainer_free.argtypes = [p]
+    L.shred_trainer_free.restype = None
+
+    L.shred_encoder_create.argtypes = [p, i64]
+    L.shred_encoder_create.restype = p
+    L.shred_encoder_free.argtypes = [p]
+    L.shred_encoder_free.restype = None
+    L.shred_apply_merges.argtypes = [p, p, p, i64, p, i64, p]
+    L.shred_apply_merges.restype = i64
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@dataclass
+class CorpusArrays:
+    """Unique words as flat arrays, the hand-off format for the device
+    engines."""
+
+    word_bytes: np.ndarray   # uint8 [unique_bytes], words concatenated
+    offsets: np.ndarray      # int64 [n_words + 1]
+    counts: np.ndarray       # uint64 [n_words]
+    total_raw_bytes: int
+    total_occurrences: int
+
+    @property
+    def n_words(self) -> int:
+        return len(self.counts)
+
+    def word(self, i: int) -> bytes:
+        return self.word_bytes[self.offsets[i]:self.offsets[i + 1]].tobytes()
+
+
+class NativeCorpus:
+    """Owning wrapper over a native corpus handle."""
+
+    def __init__(self, handle):
+        if not handle:
+            raise IOError("corpus load failed")
+        self._h = handle
+
+    @classmethod
+    def from_bytes(cls, data: bytes,
+                   faithful_order: bool = False) -> "NativeCorpus":
+        # nthreads 0: the runtime picks the dedup thread count
+        return cls(lib().shred_corpus_from_bytes(data, len(data),
+                                                 int(faithful_order), 0))
+
+    @classmethod
+    def from_file(cls, path: str,
+                  faithful_order: bool = False) -> "NativeCorpus":
+        """Load and dedup a corpus file (files over 2 GiB stream in
+        bounded-memory blocks inside the runtime)."""
+        h = lib().shred_corpus_from_file(path.encode(), int(faithful_order),
+                                         0)
+        if not h:
+            raise IOError(f"Failed to load corpus from {path}")
+        return cls(h)
+
+    def arrays(self) -> CorpusArrays:
+        L = lib()
+        n = L.shred_corpus_num_words(self._h)
+        nbytes = L.shred_corpus_unique_bytes(self._h)
+        word_bytes = np.empty(nbytes, dtype=np.uint8)
+        offsets = np.empty(n + 1, dtype=np.int64)
+        counts = np.empty(n, dtype=np.uint64)
+        L.shred_corpus_export(self._h, _ptr(word_bytes), _ptr(offsets),
+                              _ptr(counts))
+        return CorpusArrays(
+            word_bytes=word_bytes, offsets=offsets, counts=counts,
+            total_raw_bytes=L.shred_corpus_total_raw_bytes(self._h),
+            total_occurrences=L.shred_corpus_total_occurrences(self._h),
+        )
+
+    def coverage(self, coverage: float) -> tuple[np.ndarray, int, int]:
+        """(keep_mask bool[256], n_kept, n_unique) under reference
+        coverage semantics (docs/CONFORMANCE.md §1.2)."""
+        keep = np.zeros(256, dtype=np.uint8)
+        n_unique = ctypes.c_int(0)
+        n_kept = lib().shred_corpus_coverage(self._h, coverage, _ptr(keep),
+                                             ctypes.byref(n_unique))
+        return keep.astype(bool), n_kept, n_unique.value
+
+    def free(self) -> None:
+        if self._h:
+            lib().shred_corpus_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.free()
+        except Exception:
+            pass
+
+
+class FaithfulTrainer:
+    """Reference-faithful CPU trainer (conformance oracle)."""
+
+    def __init__(self, target_vocab_size=8192, unk_id=-1,
+                 character_coverage=0.995, min_pair_freq=2000):
+        cfg = ShredConfigC(target_vocab_size=target_vocab_size, unk_id=unk_id,
+                           character_coverage=character_coverage,
+                           min_pair_freq=min_pair_freq)
+        self._h = lib().shred_trainer_create(ctypes.byref(cfg))
+        if not self._h:
+            raise RuntimeError("Failed to create faithful trainer")
+
+    def load(self, corpus: NativeCorpus) -> None:
+        lib().shred_trainer_load(self._h, corpus._h)
+
+    def train(self, max_merges: int = -1) -> int:
+        return lib().shred_trainer_train(self._h, max_merges)
+
+    @property
+    def num_merges(self) -> int:
+        return lib().shred_trainer_num_merges(self._h)
+
+    def merges(self) -> np.ndarray:
+        out = np.empty((self.num_merges, 2), dtype=np.int32)
+        lib().shred_trainer_get_merges(self._h, _ptr(out))
+        return out
+
+    def merge_freqs(self) -> np.ndarray:
+        out = np.empty(self.num_merges, dtype=np.uint64)
+        lib().shred_trainer_get_merge_freqs(self._h, _ptr(out))
+        return out
+
+    def tokens(self) -> tuple[np.ndarray, np.ndarray]:
+        n = lib().shred_trainer_token_count(self._h)
+        toks = np.empty(n, dtype=np.int32)
+        wids = np.empty(n, dtype=np.int32)
+        lib().shred_trainer_export_tokens(self._h, _ptr(toks), _ptr(wids))
+        return toks, wids
+
+    def free(self) -> None:
+        if self._h:
+            lib().shred_trainer_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.free()
+        except Exception:
+            pass
+
+
+class NativeEncoder:
+    """CPU merge replay over a merge table (checkpoint resume and the
+    sharded engine's final corpus)."""
+
+    def __init__(self, merges: np.ndarray):
+        merges = np.ascontiguousarray(merges, dtype=np.int32)
+        if merges.ndim != 2 or merges.shape[1] != 2:
+            raise ValueError(f"merges must be [M, 2], got {merges.shape}")
+        self._h = lib().shred_encoder_create(_ptr(merges), len(merges))
+
+    def apply_merges(self, tokens: np.ndarray, offsets: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Apply the merge table to int32 token words.  Returns (merged
+        flat tokens, output offsets)."""
+        tokens = np.ascontiguousarray(tokens, dtype=np.int32)
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        n_words = len(offsets) - 1
+        out_off = np.empty(n_words + 1, dtype=np.int64)
+        cap = max(len(tokens), 16)
+        out = np.empty(cap, dtype=np.int32)
+        n = lib().shred_apply_merges(self._h, _ptr(tokens), _ptr(offsets),
+                                     n_words, _ptr(out), cap, _ptr(out_off))
+        if n < 0:
+            out = np.empty(-n, dtype=np.int32)
+            n = lib().shred_apply_merges(self._h, _ptr(tokens),
+                                         _ptr(offsets), n_words, _ptr(out),
+                                         -n, _ptr(out_off))
+        return out[:n].copy(), out_off
+
+    def free(self) -> None:
+        if self._h:
+            lib().shred_encoder_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.free()
+        except Exception:
+            pass

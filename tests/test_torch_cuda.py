@@ -112,3 +112,71 @@ def test_wrapper_rejects_bad_input():
                                                    "allowed": 2})
     recs = _kernels.hist_fused_train(tw, wc, hist, **kw)
     assert recs.shape == (8, 4) and not recs[:, 3].any()
+
+
+def _layout(seed, **kw):
+    return bpe_hist.build_layout(*_corpus(seed, **kw), 64)
+
+
+# name: (corpus arguments, unk id, min_pair_freq, steps per call, target)
+LOOP_CASES = {
+    "plain": (dict(seed=20, n_words=1500), -1, 2, 16, 60),
+    "unk_byte": (dict(seed=21, n_words=1500, unk=98), 98, 2, 7, 40),
+    "rows32": (dict(seed=22, n_words=1200, max_len=30, alpha=4), -1, 2, 16,
+               40),
+    "min_freq_stop": (dict(seed=23, n_words=1500), -1, 700, 16, 80),
+    "vocab1024": (dict(seed=24, n_words=3000, alpha=12), -1, 2, 128, 700),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_step_loops_match_plain(case, sparse, cuda):
+    """The per-merge train loops with K4 (make_train_loop) or K5
+    (make_train_loop_sparse) on the card against the same loops on the
+    CPU (the steps' plain versions), call by call: merges, counters,
+    tokens, tables and presence."""
+    corpus_kw, unk, minf, steps, target = LOOP_CASES[case]
+    c = _layout(**corpus_kw)
+    L, W = c.tw.shape
+    v = -(-(256 + target) // 128) * 128
+    make = (bpe_hist.make_train_loop_sparse if sparse
+            else bpe_hist.make_train_loop)
+    loop = make(v, L, W, target_merges=target, max_steps=steps)
+    kernel = (_kernels.hist_merge_step_sparse if sparse
+              else _kernels.hist_merge_step)
+    n0 = kernel.launches
+    states = []
+    for dev in ("cpu", cuda):
+        ts = bpe_hist.hist_train_init(c, unk, target, v, device=dev)
+        pres = (torch.tensor(bpe_hist.build_presence(c.tw, v), device=dev),)
+        states.append([ts, pres[:int(sparse)]])
+    for _ in range(target // steps + 2):
+        for st in states:
+            st[0] = loop(st[0], *st[1], unk, minf)
+        (tp, pp), (tk, pk) = states
+        assert (tk.n_merges, tk.done) == (tp.n_merges, tp.done)
+        np.testing.assert_array_equal(tk.merges, tp.merges)
+        np.testing.assert_array_equal(tk.merge_freqs, tp.merge_freqs)
+        assert torch.equal(tk.corpus.tw.cpu(), tp.corpus.tw)
+        assert torch.equal(tk.hist.cpu(), tp.hist)
+        for a, b in zip(pk, pp):
+            assert torch.equal(a.cpu(), b)
+    assert kernel.launches > n0 and tk.n_merges > 0
+    assert tk.done == (case == "min_freq_stop")
+
+
+@pytest.mark.cuda
+def test_sparse_hist_train_on_cuda_matches_cpu(cuda):
+    kw = dict(target_merges=200, unk_id=-1, min_pair_freq=2,
+              max_steps_per_call=64)
+    tokens, word_id, wc_word = _corpus(30, n_words=2500)
+    want = bpe_hist.hist_train(tokens, word_id, wc_word, device="cpu",
+                               sparse=True, **kw)
+    got = bpe_hist.hist_train(tokens, word_id, wc_word, device=cuda,
+                              sparse=True, **kw)
+    dense = bpe_hist.hist_train(tokens, word_id, wc_word, device=cuda, **kw)
+    for w, g, d in zip(want, got, dense):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, d)

@@ -14,9 +14,10 @@ import torch
 
 from golden.corpus_gen import GOLDEN_CONFIGS
 from shredword_tpu import checkpoint as ckpt
-from shredword_tpu.errors import ConfigError, TrainingError
 from shredword_tpu.models.bpe import BPETrainer as JaxTrainer
 from shredword_tpu_torch import BPEConfig, BPETrainer
+from shredword_tpu_torch import checkpoint as port_ckpt
+from shredword_tpu_torch.errors import ConfigError, TrainingError
 from shredword_tpu_torch.ops import _kernels
 
 CONFIGS = [(name, i) for name, cfgs in GOLDEN_CONFIGS.items()
@@ -96,6 +97,33 @@ def test_jax_checkpoint_resumes_in_port(engine, zipf_corpus_file, tmp_path):
     np.testing.assert_array_equal(merges, full.merges[:len(merges)])
 
 
+@pytest.mark.parametrize("engine", ["hist", "flat"])
+def test_port_checkpoint_resumes_in_jax(engine, zipf_corpus_file, tmp_path):
+    """The reverse direction: a checkpoint the port writes (through its
+    own checkpoint module) resumes in the JAX package."""
+    cfg = (600, -1, 0.995, 10)
+    full = _port(cfg, engine=engine)
+    full.load_corpus(zipf_corpus_file)
+    n = full.train()
+    assert n > 40
+    half = _port(cfg, engine=engine)
+    half.load_corpus(zipf_corpus_file)
+    assert half.train(max_merges=25) == 25
+    cp = str(tmp_path / "port.ckpt")
+    half.save_checkpoint(cp)
+    _, merges, _ = port_ckpt.load_checkpoint(cp)
+    np.testing.assert_array_equal(merges, full.merges[:25])
+
+    j = JaxTrainer(*cfg, backend="tpu", engine="flat")
+    j.load_corpus(zipf_corpus_file)
+    assert j.load_checkpoint(cp) == 25
+    assert j.train() == n - 25
+    np.testing.assert_array_equal(j.merges, full.merges)
+    np.testing.assert_array_equal(j.merge_freqs, full.merge_freqs)
+    np.testing.assert_array_equal(j.token_frequencies(),
+                                  full.token_frequencies())
+
+
 def test_incremental_train_matches_one_call(small_corpus_file):
     cfg = GOLDEN_CONFIGS["small"][0]
     one = _port(cfg)
@@ -136,13 +164,15 @@ def test_config_validation():
 ])
 def test_unported_routes_raise(kw, route, tmp_path):
     """The giant routes (auto above vocab 4096, engine="giant" at any
-    vocab) train and match the JAX package; sharded training is not
-    ported and raises."""
+    vocab) train and match the JAX package.  Sharded training runs over
+    torch.distributed: without a process group shards=2 is a config
+    error that says how to start one (sharded training itself is tested
+    in ranks in tests/test_torch_parallel.py)."""
     data = b"the quick brown fox jumps over the lazy dog\n" * 20
     t = BPETrainer(unk_id=-1, min_pair_freq=2, device="cpu", **kw)
     t.load_corpus_bytes(data)
     if route == "sharded":
-        with pytest.raises(TrainingError, match="sharded"):
+        with pytest.raises(ConfigError, match="torch.distributed"):
             t.train()
         return
     j = JaxTrainer(kw["target_vocab_size"], -1, min_pair_freq=2,
@@ -157,7 +187,7 @@ def _train_logged(trainer):
     logged = []
     handler = logging.Handler(logging.INFO)
     handler.emit = lambda record: logged.append(record.getMessage())
-    logger = logging.getLogger("shredword_tpu")
+    logger = logging.getLogger("shredword_tpu_torch")
     logger.addHandler(handler)
     try:
         return trainer.train(), logged
