@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. environment: card name and power limit, torch/CUDA/nvcc versions,
-     and the build of the CUDA kernel library from the checkout's sources
+     and the build of the CUDA kernel library from the checkout's sources,
+     with a second build of it that counts each phase's cycles
+     (-DSHRED_PHASE_CLOCKS), all sources of both at once
   2. the fused hist kernel against its plain PyTorch version on the card,
      on seeded random corpora at vocab 768 and 4096 (chunked calls, an
      unk byte, 'aaaa' runs), then timed at the main path's shapes (the
@@ -16,21 +18,30 @@ Phases (any failure exits non-zero, and no result line is printed):
      train -> save on the 16 MB corpus of make_corpus; the kernel
      must have launched, and the .model/.vocab bytes must equal the
      port's flat engine on the card and the JAX package's golden digest
-     (tests/golden/bench_v768.json)
+     (tests/golden/bench_v768.json); the merge loop's ms per merge over
+     the whole run, from CUDA events around each kernel call inside
+     train() (no synchronise added to the run)
   4. the same at vocab 4096, cross-checked against the flat engine
   5. the giant kernel against its plain PyTorch version on the card, on
      seeded random corpora at vocab 5120 and 8192 (chunk widths 512 and
      1024, chunked calls, an unk byte, 'aaaa' runs, a min_pair_freq
      stop, a call past the end): records, tokens, tables, presence and
      row-max bounds must be identical; then both timed on the bench
-     corpus's giant layout at vocab 32768 for the first 128 merges
+     corpus's giant layout at vocab 32768 for the first 128 merges, and
+     for a late window of 128 merges from merge 16128 (one state advanced
+     by the kernel, then kernel and plain from two clones of it); the
+     mean n_refresh (row reads per merge) of each, and the bound of each
+     from what its merges move on this data (counted in a rerun)
   6. the giant main path: BPETrainer(vocab 32768, min_pair_freq 2,
      coverage 1.0, backend "cuda") load_corpus -> train -> save on the
      same corpus (the JAX bench's measure_giant_vocab configuration);
      the giant kernel must have launched, and the bytes must equal the
-     port's flat engine on the card
+     port's flat engine on the card; whole-run ms per merge as in 3
   7. engine "giant" at the headline configuration (vocab 768): the bytes
-     must equal the JAX golden digest, so hist == giant == flat there
+     must equal the JAX golden digest, so hist == giant == flat there;
+     then one train() at vocab 768, 4096 and 32768 under torch.profiler:
+     kernel launches per wrapper call (must be 1) and the device busy
+     share
   8. the per-merge step (K4) against its plain version on the card, step
      for step inside the per-merge train loop, on seeded random corpora at
      vocab 768 and 4096 (tokens, dl, dr and match counts identical), then
@@ -46,6 +57,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      bytes equal the JAX golden digest; 2 ranks at vocab 4096: bytes equal
      the fused hist engine's.  Each rank's first all_reduce (the
      communicator's set-up) is timed apart from train()
+ 12. the phase clocks: the hist kernel at vocab 768 and 4096 and the giant
+     kernel at 32768 (first 128 merges and the whole run), as the main
+     path calls them, once with each build from equal states: records and
+     state must be identical; prints the µs per merge of each phase
 
 The corpus is generated here (make_corpus, the JAX bench's generator) and
 checked against its known digest.  The last lines of standard output are
@@ -56,6 +71,7 @@ CUDA device is available.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import multiprocessing
@@ -79,6 +95,7 @@ TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               "step": "shredword_tpu/ops/bpe_hist.py:262",  # _merge_kernel
               "sparse": "shredword_tpu/ops/bpe_hist.py:288"}  # _merge_kernel_sparse
 TIMED_MERGES = 128
+LATE_START = 16128   # the giant late window: new ids from 16384 on
 CORPUS_BYTES = 16_153_229
 CORPUS_SHA256 = ("0d4249769060f86272db067c48fda469"
                  "c47e0d4eb4114d3ad37e2c62beb58dfc")
@@ -88,6 +105,15 @@ CORPUS_SHA256 = ("0d4249769060f86272db067c48fda469"
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 RANK_TIMEOUT = 600
+# the phases of csrc/hist_fused.cu and csrc/giant.cu, in the order of their
+# enums; a "sync" phase is the wait in the grid barrier that ends the
+# phase before it
+HIST_PHASES = ["init", "init sync", "pick scan", "pick", "corpus",
+               "corpus sync", "update rows", "update", "update sync"]
+GIANT_PHASES = ["init", "init sync", "pick scan", "row read", "row sync",
+                "corpus", "corpus sync", "update rows", "update others",
+                "update", "update sync", "bounds"]
+CLOCKED_BLOCKS, CLOCKED_PHASES = 1024, 16     # csrc/phase_clock.cuh
 
 
 def make_corpus(path: str, raw_mb: int = 16, seed: int = 1234) -> None:
@@ -168,7 +194,11 @@ def elapsed_ms(fn, device: torch.device) -> float:
 # phase 1
 # ---------------------------------------------------------------------
 
-def phase_env() -> str:
+def phase_env() -> tuple[str, str]:
+    """Returns the card's name and power limit, and the path of the
+    library built with the phase clocks."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from shredword_tpu_torch.ops import _kernels
 
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -177,14 +207,22 @@ def phase_env() -> str:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" torch CUDA {torch.version.cuda}")
     print(f"[env] {run([_kernels._nvcc(), '--version']).splitlines()[-1]}")
-    path, out = _kernels.build(("-Xptxas", "-v"))
-    print(f"[env] built {os.path.relpath(path, ROOT)} in "
-          f"{_kernels.build_seconds:.2f} s")
+    clocked = _kernels.lib_path().replace("libshred_cuda-",
+                                          "libshred_cuda_clocks-")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(_kernels.build, ("-Xptxas", "-v")),
+                  pool.submit(_kernels.build, ("-DSHRED_PHASE_CLOCKS",),
+                              clocked)]
+        (path, out), _ = [b.result() for b in builds]
+    print(f"[env] built {os.path.relpath(path, ROOT)} and "
+          f"{os.path.relpath(clocked, ROOT)} in "
+          f"{time.perf_counter() - t0:.2f} s")
     for line in out.splitlines():
         if "entry function" in line or "registers" in line \
                 or "spill" in line:
             print(f"[env] ptxas: {line.strip()}")
-    return card
+    return card, clocked
 
 
 # ---------------------------------------------------------------------
@@ -225,14 +263,15 @@ def giant_state(layout, v, unk, device) -> list[torch.Tensor]:
     return [tw, wc, hist, presT, rowmax]
 
 
-def run_both(kernel, plain, state, device, *, merges, steps, **kw):
-    """Drive a kernel and its plain version call by call, each on its
-    own state() (tensors updated in place), then one untimed call past
-    the end (every step only confirms the pick); returns (max abs
-    difference over records and state, kernel ms, plain ms, merges
-    done)."""
+def run_both(kernel, plain, state, device, *, merges, steps, start=0,
+             **kw):
+    """Drive a kernel and its plain version call by call from merge
+    `start`, each on its own state() (tensors updated in place), then one
+    untimed call past the end (every step only confirms the pick);
+    returns (max abs difference over records and state, kernel ms, plain
+    ms, merges done)."""
     sk, sp = state(), state()
-    err, ms_k, ms_p, n_done, done = 0, 0.0, 0.0, 0, 0
+    err, ms_k, ms_p, n_done, done = 0, 0.0, 0.0, start, 0
 
     def call(ckw, timed=True):
         nonlocal err, ms_k, ms_p
@@ -247,8 +286,8 @@ def run_both(kernel, plain, state, device, *, merges, steps, **kw):
             err = max(err, max_abs_diff(a, b))
         return out["k"]
 
-    while n_done < merges and not done:
-        allowed = merges - n_done
+    while n_done < start + merges and not done:
+        allowed = start + merges - n_done
         recs = call(dict(kw, n_done=n_done, init_done=done, allowed=allowed,
                          steps=min(steps, allowed)))
         n_new = int(recs[:, 3].sum())
@@ -256,7 +295,7 @@ def run_both(kernel, plain, state, device, *, merges, steps, **kw):
         n_done += n_new
     call(dict(kw, n_done=n_done, init_done=1, allowed=0, steps=8),
          timed=False)
-    return err, ms_k, ms_p, n_done
+    return err, ms_k, ms_p, n_done - start
 
 
 def token_arrays(corpus, device, cfg):
@@ -365,14 +404,25 @@ def phase_main_path(corpus, out_dir, vocab, device, *, engine="auto",
     from shredword_tpu_torch.ops import _kernels
 
     reset_counts()
-    n, secs, raw, peak, model, vocab_b = train_and_save(
-        corpus, out_dir, vocab, device, engine, cfg)
+    # CUDA events around each kernel call inside train(), no synchronise
+    timer = Timed(getattr(_kernels, kernel), keep=True)
+    setattr(_kernels, kernel, timer)
+    try:
+        n, secs, raw, peak, model, vocab_b = train_and_save(
+            corpus, out_dir, vocab, device, engine, cfg)
+    finally:
+        setattr(_kernels, kernel, timer.fn)
     launches = getattr(_kernels, kernel).launches
     tag = f"[main] vocab {vocab}, engine {engine}"
     print(f"{tag}: {n} merges, train {secs:.4f} s, "
           f"{raw / 1e6 / secs:.3f} MB/s over {raw / 1e6:.2f} MB raw, "
           f"{launches} {kernel} calls, peak device memory "
           f"{peak / 1e9:.3f} GB")
+    extra = (f", mean n_refresh {mean_refresh(timer.outs):.3f}"
+             if kernel == "giant_train_step" else "")
+    print(f"{tag}: merge loop {timer.ms() / n:.6f} ms per merge over the "
+          f"whole run (CUDA events around its {len(timer.events)} kernel "
+          f"calls){extra}")
     check(launches > 0, f"the main path launched {kernel}")
     check(n > 0, "merges learned")
     fn, fsecs, _, _, fmodel, fvocab = train_and_save(
@@ -394,14 +444,84 @@ def phase_main_path(corpus, out_dir, vocab, device, *, engine="auto",
 # phase 5
 # ---------------------------------------------------------------------
 
-def run_giant_both(layout, v, device, *, unk, **kw):
+def nc_used(layout) -> int:
+    cw = layout.tw.shape[1] // layout.presT.shape[1]
+    return -(-layout.n_words // cw)
+
+
+def run_giant_both(layout, v, device, *, unk, state=None, **kw):
+    """run_both for the giant kernel; returns its result and the mean
+    n_refresh (row reads per merge) of the kernel's merges."""
     from shredword_tpu_torch.ops import _kernels
 
-    cw = layout.tw.shape[1] // layout.presT.shape[1]
-    return run_both(_kernels.giant_train_step,
-                    _kernels.giant_train_step_plain,
-                    lambda: giant_state(layout, v, unk, device), device,
-                    unk=unk, nc_used=-(-layout.n_words // cw), **kw)
+    kernel = Timed(_kernels.giant_train_step, keep=True)
+    out = run_both(kernel, _kernels.giant_train_step_plain,
+                   state or (lambda: giant_state(layout, v, unk, device)),
+                   device, unk=unk, nc_used=nc_used(layout), **kw)
+    return (*out, mean_refresh(kernel.outs))
+
+
+def mean_refresh(records: list[torch.Tensor]) -> float:
+    """Mean n_refresh (lane 4) over the merges (did == 1) of giant
+    records."""
+    recs = torch.cat(records).cpu()
+    did = recs[:, 3] == 1
+    return float(recs[did, 4].double().mean())
+
+
+def giant_cost(layout, state, start: int, n: int) -> dict:
+    """bound() per merge of the n giant merges from merge `start`, from
+    what they must move on this run's data: once per call, the used
+    chunks' tw in and out and their weights, and the live bounds in and
+    out; per merge, the pick's row reads (n_refresh live rows), presence
+    of a and b over the used chunks, every table cell and presence byte
+    that the merge changes (read and written) and the record.  A compare
+    per live bound and per cell read, for each row read.  The kernel
+    advances `state` (at vocab GIANT_VOCAB) one merge per call, and what
+    changed is found by comparing the state before and after."""
+    from shredword_tpu_torch.ops import _kernels
+
+    L, W = layout.tw.shape
+    used = nc_used(layout)
+    w_used = used * (W // layout.presT.shape[1])
+    hist, presT = state[2], state[3]
+    hist0, presT0 = hist.clone(), presT.clone()
+    nbytes = 4 * L * w_used + 4 * w_used + 8 * (256 + start + n)
+    ops = 0
+    for i in range(n):
+        lim = 257 + start + i                  # live ids of the merge
+        rec = _kernels.giant_train_step(
+            *state, unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"],
+            n_done=start + i, init_done=0, allowed=1, steps=1,
+            nc_used=used)[0].tolist()
+        check(rec[3] == 1, "the giant kernel merges through the window")
+        cells = int((hist != hist0).sum())
+        flags = int((presT != presT0).sum())
+        nbytes += rec[4] * 4 * lim + 2 * used + 8 * cells + 2 * flags + 20
+        ops += rec[4] * 2 * lim
+        hist0.copy_(hist)
+        presT0.copy_(presT)
+    return bound(nbytes / n, ops / n)
+
+
+def advance_giant(layout, device, merges: int) -> list[torch.Tensor]:
+    """A giant state of the bench layout at vocab GIANT_VOCAB advanced
+    by the kernel through `merges` merges, in calls of 4096 as
+    giant_train makes them."""
+    from shredword_tpu_torch.ops import _kernels
+
+    st = giant_state(layout, GIANT_VOCAB, GIANT["unk_id"], device)
+    n = 0
+    while n < merges:
+        steps = min(4096, merges - n)
+        recs = _kernels.giant_train_step(
+            *st, unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"],
+            n_done=n, init_done=0, allowed=merges - n, steps=steps,
+            nc_used=nc_used(layout))
+        n_new = int(recs[:, 3].sum())
+        check(n_new == steps, "the giant kernel merges on to the window")
+        n += n_new
+    return st
 
 
 def phase_giant_vs_plain(device: torch.device, bench_layout) -> dict:
@@ -414,35 +534,44 @@ def phase_giant_vs_plain(device: torch.device, bench_layout) -> dict:
         tokens, word_id, wc_word = random_corpus(v + cw, 30000, unk)
         layout = bpe_giant.build_giant_layout(tokens, word_id, wc_word, v,
                                               cw=cw)
-        err, _, _, n = run_giant_both(layout, v, device, unk=unk,
-                                      min_freq=min_freq, merges=merges,
-                                      steps=steps)
+        err, _, _, n, refresh = run_giant_both(
+            layout, v, device, unk=unk, min_freq=min_freq, merges=merges,
+            steps=steps)
         print(f"[giant] random corpus v={v} cw={cw} min_freq={min_freq}: "
-              f"{n} merges in chunks of {steps}, max |kernel - plain| = "
-              f"{err}")
+              f"{n} merges in chunks of {steps}, mean n_refresh "
+              f"{refresh:.3f}, max |kernel - plain| = {err}")
         check(err == 0 and (n == merges) == (min_freq == 2) and n > 0,
               f"giant kernel == plain at v={v} cw={cw}")
-    err, ms_k, ms_p, n = run_giant_both(
-        bench_layout, GIANT_VOCAB, device, unk=GIANT["unk_id"],
-        min_freq=GIANT["min_pair_freq"], merges=TIMED_MERGES,
-        steps=TIMED_MERGES)
+    gkw = dict(unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"],
+               merges=TIMED_MERGES, steps=TIMED_MERGES)
+    err, ms_k, ms_p, n, refresh = run_giant_both(bench_layout, GIANT_VOCAB,
+                                                 device, **gkw)
     check(err == 0 and n == TIMED_MERGES, f"bench layout v={GIANT_VOCAB}")
-    L, W = bench_layout.tw.shape
-    nc = bench_layout.presT.shape[1]
-    cw = W // nc
-    w_used = -(-bench_layout.n_words // cw) * cw
-    lim = 256 + n
-    # the used chunks' tw in and out and weights, the live table, presence
-    # and bounds in and out, records; a compare per live row bound per
-    # merge (the pick)
-    cost = bound((4 * L * w_used + 4 * w_used + 8 * lim * lim
-                  + 2 * lim * nc + 8 * lim + 20 * n) / n, lim)
+    cost = giant_cost(bench_layout, giant_state(
+        bench_layout, GIANT_VOCAB, GIANT["unk_id"], device), 0, n)
     print(f"[giant] bench layout {tuple(bench_layout.tw.shape)} "
-          f"v={GIANT_VOCAB}: first {n} merges, kernel {ms_k / n:.4f} "
-          f"ms/merge, plain {ms_p / n:.4f} ms/merge, max |kernel - plain| "
+          f"v={GIANT_VOCAB}: first {n} merges, kernel {ms_k / n:.6f} "
+          f"ms/merge (bound {cost['bound_ms']:.8f}, {cost['bound_by']}), "
+          f"plain {ms_p / n:.4f} "
+          f"ms/merge, mean n_refresh {refresh:.3f}, max |kernel - plain| "
           f"= {err}")
-    return dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n, **cost,
-                library_ms=None)
+    # the late window: one state advanced by the kernel, then kernel and
+    # plain from two clones of it, where lim is large
+    base = advance_giant(bench_layout, device, LATE_START)
+    err_l, ms_kl, ms_pl, n_l, refresh_l = run_giant_both(
+        bench_layout, GIANT_VOCAB, device, start=LATE_START,
+        state=lambda: [x.clone() for x in base], **gkw)
+    check(err_l == 0 and n_l == TIMED_MERGES,
+          f"late window from merge {LATE_START}")
+    late = giant_cost(bench_layout, base, LATE_START, n_l)
+    del base
+    print(f"[giant] late window, merges {LATE_START}-{LATE_START + n_l}: "
+          f"kernel {ms_kl / n_l:.6f} ms/merge (bound "
+          f"{late['bound_ms']:.8f}, {late['bound_by']}), plain "
+          f"{ms_pl / n_l:.4f} ms/merge, mean "
+          f"n_refresh {refresh_l:.3f}, max |kernel - plain| = {err_l}")
+    return dict(max_abs_err=max(err, err_l), ms=ms_k / n,
+                plain_ms=ms_p / n, **cost, library_ms=None)
 
 # ---------------------------------------------------------------------
 # phases 8 and 9
@@ -458,10 +587,12 @@ class Timed:
 
     LEAD_CYCLES = 400_000          # ~0.2 ms at the H100's clock
 
-    def __init__(self, fn, lead: bool = False):
+    def __init__(self, fn, lead: bool = False, keep: bool = False):
         self.fn = fn
         self.lead = lead
+        self.keep = keep
         self.events = []
+        self.outs = []       # what fn returned, when keep
 
     def __call__(self, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -472,10 +603,22 @@ class Timed:
         out = self.fn(*args, **kw)
         end.record()
         self.events.append((start, end))
+        if self.keep:
+            self.outs.append(out)
         return out
 
-    def ms(self, calls: int) -> float:
-        """Device ms of the first `calls` calls."""
+    # a kernel wrapper counts its launches on the module attribute it is
+    # called through, which may be this object while it stands in for it
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def ms(self, calls: int | None = None) -> float:
+        """Device ms of the first `calls` calls (of all by default)."""
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in self.events[:calls])
 
@@ -640,6 +783,63 @@ def phase_step_vs_plain(device, bench_layout, *, sparse: bool) -> dict:
 
 
 # ---------------------------------------------------------------------
+# the profiler window
+# ---------------------------------------------------------------------
+
+def busy_us(events) -> float:
+    """Microseconds in which at least one of the device events ran."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def phase_profile(corpus, device) -> None:
+    """One train() per main-path vocab under torch.profiler: the kernel
+    launches per wrapper call (the persistent kernels: 1) and the device
+    busy share of train()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shredword_tpu_torch import BPETrainer
+    from shredword_tpu_torch.ops import _kernels
+
+    for vocab, cfg, wrapper, kernel in (
+            (768, HEADLINE, "hist_fused_train", "hist_train_kernel"),
+            (4096, HEADLINE, "hist_fused_train", "hist_train_kernel"),
+            (GIANT_VOCAB, GIANT, "giant_train_step", "giant_train_kernel")):
+        t = BPETrainer(target_vocab_size=vocab, backend="cuda",
+                       device=device, **cfg)
+        try:
+            t.load_corpus(corpus)
+            torch.cuda.synchronize(device)
+            calls = getattr(_kernels, wrapper).launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                t.train()
+                torch.cuda.synchronize(device)
+                wall_us = (time.perf_counter() - t0) * 1e6
+            calls = getattr(_kernels, wrapper).launches - calls
+        finally:
+            t.destroy()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ours = [e for e in dev if kernel in e.name]
+        tag = f"[profile] vocab {vocab}"
+        check(len(dev) > 0, f"the profiler saw device events, vocab {vocab}")
+        print(f"{tag}: {len(ours)} {kernel} launches in {calls} {wrapper} "
+              f"calls ({len(ours) / max(calls, 1):.2f} per call), "
+              f"{len(dev)} device events, device busy "
+              f"{busy_us(dev) / wall_us:.3f} of train() "
+              f"({wall_us / 1e3:.2f} ms under the profiler), "
+              f"{kernel} {busy_us(ours) / 1e3:.2f} ms")
+        check(len(ours) == calls > 0, f"one {kernel} launch per call")
+
+
+# ---------------------------------------------------------------------
 # phase 10
 # ---------------------------------------------------------------------
 
@@ -790,6 +990,95 @@ def phase_sharded(corpus, out_dir, device, golden, fused_4096,
     return launches
 
 
+# ---------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------
+
+def read_cycles(lib, name: str) -> np.ndarray:
+    """[blocks, phases] SM cycles of every block that ran since the last
+    read (the counts are then zeroed)."""
+    torch.cuda.synchronize()
+    buf = np.zeros((CLOCKED_BLOCKS, CLOCKED_PHASES), np.uint64)
+    check(getattr(lib, name)(buf.ctypes.data) == 0, f"{name} read")
+    ran = np.flatnonzero(buf.sum(1) > 0)
+    return buf[:ran.max() + 1 if len(ran) else 0].astype(np.float64)
+
+
+def drive(kernel, state, merges: int, steps: int, **kw):
+    """Call kernel on state in calls of `steps` from merge 0 up to
+    `merges`, as the trainer does; returns (records, device ms of the
+    calls)."""
+    n, ms, recs = 0, 0.0, []
+    while n < merges:
+        st = min(steps, merges - n)
+        ms += elapsed_ms(lambda: recs.append(kernel(
+            *state, n_done=n, init_done=0, allowed=merges - n, steps=st,
+            **kw)), state[0].device)
+        done = int(recs[-1][:, 3].sum())
+        n += done
+        if done < st:
+            break
+    return torch.cat(recs), ms
+
+
+def phase_clocks(device, clocked: str, hist_layout, giant_layout) -> None:
+    """The build with phase clocks against the plain build, on the main
+    path's kernel calls from equal states (records and state identical),
+    and where each merge's time goes: per phase, the µs per merge of the
+    mean block and of the largest, SM cycles at the clock rate implied by
+    block 0's cycles over the clocked calls' device time.  The clocked
+    build synchronises each block at every mark, so its time differs a
+    little from the plain build's."""
+    from shredword_tpu_torch.ops import _kernels
+
+    lib = _kernels.bind(clocked)
+    for name in ("shred_hist_phase_cycles", "shred_giant_phase_cycles"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
+    plain = _kernels.lib()
+    hkw = dict(unk=HEADLINE["unk_id"], min_freq=HEADLINE["min_pair_freq"])
+    gkw = dict(unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"],
+               nc_used=nc_used(giant_layout))
+    hist = ("hist_fused_train", "shred_hist_phase_cycles", HIST_PHASES, hkw)
+    giant = ("giant_train_step", "shred_giant_phase_cycles", GIANT_PHASES,
+             gkw)
+    cases = [(f"hist v {v}", hist, v - 256, 512,
+              lambda v=v: hist_state(hist_layout, v, hkw["unk"], device))
+             for v in (768, 4096)]
+    cases += [(f"giant v {GIANT_VOCAB} {what}", giant, merges, steps,
+               lambda: giant_state(giant_layout, GIANT_VOCAB, gkw["unk"],
+                                   device))
+              for what, merges, steps in (
+                  (f"first {TIMED_MERGES}", TIMED_MERGES, TIMED_MERGES),
+                  ("whole run", GIANT_VOCAB - 256, 4096))]
+    for tag, (wrapper, reader, names, kw), merges, steps, state in cases:
+        kernel = getattr(_kernels, wrapper)
+        sp = state()
+        recs_p, _ = drive(kernel, sp, merges, steps, **kw)
+        sc = state()
+        read_cycles(lib, reader)
+        _kernels._lib = lib
+        try:
+            recs_c, ms = drive(kernel, sc, merges, steps, **kw)
+        finally:
+            _kernels._lib = plain
+        cycles = read_cycles(lib, reader)
+        err = max(max_abs_diff(a, b)
+                  for a, b in [(recs_c, recs_p), *zip(sc, sp)])
+        del sp, sc
+        n = int(recs_c[:, 3].sum())
+        check(err == 0 and n == merges,
+              f"the phase-clock build equals the plain build, {tag}")
+        per_us = cycles[0].sum() / (ms * 1e3)          # cycles per µs
+        print(f"[clocks] {tag}: {n} merges, clocked kernel {ms / n:.6f} ms "
+              f"per merge, {len(cycles)} blocks at {per_us / 1e3:.3f} GHz, "
+              f"records and state equal the plain build's")
+        us = cycles / per_us / n
+        for k, name in enumerate(names):
+            print(f"[clocks] {tag}:   {name:<13} mean {us[:, k].mean():7.4f},"
+                  f" largest block {us[:, k].max():7.4f} µs per merge")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -798,7 +1087,7 @@ def main() -> int:
     from shredword_tpu_torch.ops import bpe_giant, bpe_hist
 
     device = torch.device("cuda", 0)
-    card = phase_env()
+    card, clocked = phase_env()
     with open(os.path.join(ROOT, "tests", "golden", "bench_v768.json")) as f:
         golden = json.load(f)
     with tempfile.TemporaryDirectory() as tmp:
@@ -821,12 +1110,12 @@ def main() -> int:
         giant_layout = bpe_giant.build_giant_layout(
             *token_arrays(corpus, device, GIANT), GIANT_VOCAB)
         timing[GIANT_VOCAB] = phase_giant_vs_plain(device, giant_layout)
-        del giant_layout
         launches[GIANT_VOCAB] = phase_main_path(
             corpus, tmp, GIANT_VOCAB, device, cfg=GIANT,
             kernel="giant_train_step")[0]
         phase_main_path(corpus, tmp, 768, device, engine="giant",
                         kernel="giant_train_step", golden=golden)
+        phase_profile(corpus, device)
         timing["step"] = phase_step_vs_plain(device, bench_layout,
                                              sparse=False)
         timing["sparse"] = phase_step_vs_plain(device, bench_layout,
@@ -834,6 +1123,7 @@ def main() -> int:
         launches["sparse"] = phase_sparse_train(corpus, device)
         launches["step"] = phase_sharded(corpus, tmp, device, golden,
                                          fused_4096)
+    phase_clocks(device, clocked, bench_layout, giant_layout)
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),

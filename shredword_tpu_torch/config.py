@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from .errors import ConfigError
 
 
@@ -61,3 +63,17 @@ class BPEConfig:
     @property
     def target_merges(self) -> int:
         return self.target_vocab_size - 256
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``.  The port's entry points run on
+    the card unless the caller asks for the CPU: a CUDA device on a host
+    that has none raises ConfigError (decided at the call, never at
+    import), with no fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise ConfigError(
+            f"device {str(device)!r} needs a CUDA device and none is "
+            "available; pass device='cpu' to run the device engines on the "
+            "CPU, or backend='cpu' for the native engine")
+    return dev

@@ -1,4 +1,5 @@
-// Giant-vocab BPE merge loop for Hopper (sm_90a): vocab up to 32768.
+// Giant-vocab BPE merge loop for Hopper (sm_90a), vocab up to 32768: one
+// persistent cooperative launch per call.
 //
 // Replaces the TPU kernel shredword_tpu/ops/bpe_giant.py::_giant_kernel
 // (make_giant_train).  State, all in device memory and updated in place:
@@ -10,241 +11,413 @@
 //   tw      int16 [L, W] one word per column, words sorted by length into
 //           chunks of cw columns; wcount int32 [W]
 //   presT   int8 [v, NC] exact presence of each id in each chunk
-//
-// One C call runs `steps` merges and enqueues four kernels per merge on
-// the caller's stream; every per-merge scalar lives in a device state
-// buffer, so the host never waits inside a call:
-//   pick    one block: the lazy pick (bpe_giant.py:327-368) -- take the
-//           largest thresholded bound (smallest row on ties), read that
-//           row, and if its true maximum differs, store it as the row's
-//           bound and repeat; then b, the (a, b, freq, did, n_refresh)
-//           record, the sticky done flag, and the zeroing of dl/dr and
-//           the per-chunk bits
-//   corpus  the blocks of the chunks c < nc_used; a block whose chunk
-//           does not hold both a and b (presT) exits at once.  One thread
-//           per column runs merge_column.cuh (merge, compaction, int32
-//           atomics into dl/dr) and the block ORs into the chunk's bits
-//           whether it matched and whether a and b remain in it
-//   rows    one thread per live column: row b -= dr (its maximum at this
-//           point is row b's new bound), row new = dr, and the exact
-//           maxima of the final rows new and a computed from dl/dr; the
-//           presence rows a, b, new of the matched chunks (:520-540)
-//   cols    one thread per live row r with dl[r] != 0: column a -= dl[r],
-//           column new += dl[r]; cell (a, b) = 0 last; the bounds
-//           rowmax = max(rowmax, dl), then the exact maxima of rows new
-//           and a (:542-612)
 // Ids above the merge's new id hold no pair yet, so every table scan is
 // bounded by the live ids (lim = new + 1), not by v.  All counts are
-// non-negative, which makes a maximum over the live columns (started at
-// 0) equal to the maximum over all v columns.
+// non-negative, which makes a maximum over the live columns equal to the
+// maximum over all v columns.
 //
-// What bounds it on the H100: each merge is a serial chain of four
-// launches, so it is bound by latency, not bandwidth.  The one-block pick
-// -- a scan of up to 32768 bounds and one 128 KB row per retry -- takes
-// most of the device time (about 60% at vocab 32768 on a 16 MB corpus);
-// the corpus pass reads only the chunks the presence index flags, and the
-// table passes touch O(v) words, all inside the 50 MB L2.  The design
-// keeps every scan bounded by the live ids and the host out of the chain;
-// a multi-block pick and a persistent kernel or a CUDA graph of the chain
-// are the next steps.
+// What bounds it on the H100: each merge is a serial chain -- the lazy
+// pick (a scan of the row bounds, then a read of the claimed row, repeated
+// while the bound is stale), the corpus pass over the chunks that hold
+// both ids, the table update -- of small work inside the 50 MB L2, so its
+// latency bounds it: the grid barriers between the phases, the pick's
+// row reads (up to 128 KB each) and the dependent L2 round trips inside
+// each phase (chip_smoke.py's phase clocks count them).  The design:
+//   - one launch per call, every block co-resident (grid sized from the
+//     occupancy calculator); a grid barrier after each row read of the
+//     pick, after the corpus pass and after the update;
+//   - a key per group of 32 rows (the largest bound, then the smallest
+//     row holding it, as one 64-bit max_key), kept exact: the pick reads
+//     v / 32 group keys, one load each, instead of v bounds, and the
+//     winning key names the row.  Thresholding commutes with the maximum,
+//     so the smallest row of the largest thresholded key is the row a
+//     flat scan finds.  Bound increases go to the keys by atomicMax; the
+//     rows whose bound is set or lowered (a refreshed row, and a, b, new
+//     after each merge) have their groups recomputed by every block
+//     alike, all in one round of loads;
+//   - the read of row a is spread over the grid with 16-byte loads and
+//     yields the maximum and its first column in one 64-bit key, so the
+//     confirming read also gives b;
+//   - each block compacts the flagged chunk ids (presence of a and of b)
+//     itself and takes every G-th unit of 256 columns of them;
+//   - rows a, b and new are rewritten by the whole grid, 16 bytes a
+//     thread; every other live row with dl != 0 changes in two cells,
+//     one warp per group of rows and one atomicMax per group key; the
+//     exact maxima of the final rows a and new (and of row b after its
+//     own update) are reduced into per-merge slots, one atomic per block
+//     that holds their columns (atomics on one address queue at L2);
+//   - dl/dr and the slots are pairs used in turn, zeroed one merge ahead,
+//     so zeroing costs no barrier.
+// Data written by other blocks in the same launch is read through L2:
+// the file is built with -dlcm=cg (global loads bypass the incoherent
+// L1), and grid.sync() orders the phases.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
 
 #include "block_reduce.cuh"
 #include "merge_column.cuh"
+#include "phase_clock.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace shred;
 
-constexpr int PICK_THREADS = 1024;
-constexpr int CORPUS_THREADS = 256;
-constexpr int TABLE_THREADS = 256;
+constexpr int THREADS = 256;
+// co-resident blocks per SM, at most: more only make the grid barrier
+// dearer
+constexpr int BLOCKS_PER_SM = 2;
+constexpr int WARPS = THREADS / 32;
+constexpr int GROUP = 32;  // rows per group key: one warp's lanes
 
-// per-merge device state, written by pick and read by the later kernels
-enum { S_A = 0, S_B, S_NEW, S_DO, S_DONE, S_MAXB, S_MAXNEW, S_MAXA, S_LEN };
+// phases of a merge, as phase_clock.cuh counts them; the pick's three
+// repeat with each row read
+enum { PH_INIT, PH_INIT_SYNC, PH_PICK, PH_ROW_READ, PH_ROW_SYNC, PH_CORPUS,
+       PH_CORPUS_SYNC, PH_UPDATE_ROWS, PH_UPDATE_OTHERS, PH_UPDATE,
+       PH_UPDATE_SYNC, PH_BOUNDS };
 
-// per-chunk bits, int32 [3, NC]
-enum { CB_MATCHED = 0, CB_STILL_A, CB_STILL_B };
+// per-merge maxima slots, two sets used in turn
+enum { SL_A = 0, SL_B, SL_NEW, SL_LEN };
 
-__global__ void __launch_bounds__(PICK_THREADS)
-pick_kernel(const int* __restrict__ hist, int* rowmax, int v, int lim, int i,
-            int new_id, int min_freq, int allowed, int init_done, int* state,
-            int* __restrict__ records, int* __restrict__ dl,
-            int* __restrict__ dr, int* __restrict__ bits, int n_bits) {
-  __shared__ int s_a, s_m, s_stale;
-  int a = 0, m = 0, n_refresh = 0;
-  for (;;) {
-    ++n_refresh;
-    unsigned long long best = 0ull;
-    for (int r = threadIdx.x; r < lim; r += blockDim.x) {
-      const int rm = rowmax[r];
-      const unsigned long long key = max_key(rm >= min_freq ? rm : 0, r, lim);
-      best = key > best ? key : best;
-    }
-    best = block_max_u64(best);
-    if (threadIdx.x == 0) {
-      s_m = key_val(best);
-      s_a = key_idx(best, lim);
-    }
-    __syncthreads();
-    m = s_m;
-    a = s_a;
-    if (m <= 0) break;
-    const int* row = hist + (size_t)a * v;
-    int true_max = 0;
-    for (int c = threadIdx.x; c < lim; c += blockDim.x)
-      true_max = max(true_max, row[c]);
-    true_max = block_max(true_max);
-    if (threadIdx.x == 0) {
-      s_stale = true_max != m;
-      if (true_max != m) rowmax[a] = true_max;  // refresh the bound, retry
-    }
-    __syncthreads();
-    if (!s_stale) break;
-  }
-  const int done = i == 0 ? init_done : state[S_DONE];
-  const int d = (m > 0) && !done && (i < allowed);
-  int b = INT_MAX;
-  if (d) {
-    const int* row = hist + (size_t)a * v;
-    for (int c = threadIdx.x; c < lim; c += blockDim.x)
-      if (row[c] == m) { b = c; break; }  // strided: first hit is this thread's min
-  }
-  b = block_min(b);
-  if (threadIdx.x == 0) {
-    records[5 * i + 0] = d ? a : 0;
-    records[5 * i + 1] = d ? b : 0;
-    records[5 * i + 2] = m;
-    records[5 * i + 3] = d;
-    records[5 * i + 4] = n_refresh;
-    state[S_A] = d ? a : 0;
-    state[S_B] = d ? b : 0;
-    state[S_NEW] = new_id;
-    state[S_DO] = d;
-    state[S_DONE] = done || !d;
-    state[S_MAXB] = 0;
-    state[S_MAXNEW] = 0;
-    state[S_MAXA] = 0;
-  }
-  if (d) {
-    for (int c = threadIdx.x; c < lim; c += blockDim.x) {
-      dl[c] = 0;
-      dr[c] = 0;
-    }
-    for (int c = threadIdx.x; c < n_bits; c += blockDim.x) bits[c] = 0;
-  }
+struct GiantArgs {
+  int16_t* tw;
+  const int* wcount;
+  int* hist;                 // [v, v]
+  int8_t* presT;             // [v, NC]
+  int* rowmax;               // [v]
+  int* dl;                   // [2v]: two buffers used in turn
+  int* dr;                   // [2v]
+  int* bits;                 // [NC]: per-chunk bits
+  unsigned long long* gkey;  // [v / GROUP]: group keys
+  unsigned long long* keys;  // [3]: row-read keys, used in turn
+  int* slots;                // [2 * SL_LEN]
+  int* records;              // [steps, 5]
+  int W, v, NC, cw, nc_used, steps, unk, min_freq, n_done, init_done,
+      allowed;
+};
+
+// chunk bits of the corpus pass
+constexpr int CB_MATCHED = 1, CB_HAS_A = 2, CB_HAS_B = 4;
+
+__device__ __forceinline__ int thresh(int x, int min_freq) {
+  return x >= min_freq ? x : 0;
 }
 
-// bpe_giant.py:375-518 with kb = 1: cw / CORPUS_THREADS blocks per chunk.
+// The key of group g: max_key of its largest bound and the smallest row
+// that holds it.  regroup rewrites the keys of the groups of rows r[k]
+// (r[k] < 0: none), row r[k] taken as val[k] whatever rowmax holds; warp
+// 0 of the block, all groups' loads at once.  Every block writes the same
+// values.
+__device__ __forceinline__ void regroup(const int* rowmax,
+                                        unsigned long long* gkey,
+                                        const int (&r)[3], const int (&val)[3],
+                                        int v) {
+  const int lane = threadIdx.x & 31;
+  int x[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    x[k] = r[k] >= 0 ? rowmax[r[k] / GROUP * GROUP + lane] : 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    if (r[k] >= 0) {
+      const int row = r[k] / GROUP * GROUP + lane;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        if (row == r[q]) x[k] = val[q];
+      const unsigned long long key = warp_max_u64(max_key(x[k], row, v));
+      if (lane == 0) gkey[r[k] / GROUP] = key;
+    }
+}
+
 template <int L>
-__global__ void corpus_kernel(int16_t* __restrict__ tw,
-                              const int* __restrict__ wcount, int W, int cw,
-                              int NC, const int8_t* __restrict__ presT,
-                              const int* __restrict__ state,
-                              int* __restrict__ dl, int* __restrict__ dr,
-                              int unk, int* __restrict__ bits) {
-  if (!state[S_DO]) return;
-  const int per_chunk = cw / CORPUS_THREADS;
-  const int c = blockIdx.x / per_chunk;
-  const int a = state[S_A], b = state[S_B];
-  if (!(presT[(size_t)a * NC + c] && presT[(size_t)b * NC + c])) return;
-  const int col = c * cw + (blockIdx.x % per_chunk) * CORPUS_THREADS +
-                  threadIdx.x;
-  const int r = merge_column<L>(tw, W, col, a, b, state[S_NEW], unk, wcount,
-                                dl, dr);
-  // every block of a flagged chunk reports, matched or not: a and b must
-  // be looked for in the whole chunk after the merge
-  const int matched = __syncthreads_or(r & MC_MATCHED);
-  const int has_a = __syncthreads_or(r & MC_HAS_A);
-  const int has_b = __syncthreads_or(r & MC_HAS_B);
-  if (threadIdx.x == 0) {
-    if (matched) atomicOr(&bits[CB_MATCHED * NC + c], 1);
-    if (has_a) atomicOr(&bits[CB_STILL_A * NC + c], 1);
-    if (has_b) atomicOr(&bits[CB_STILL_B * NC + c], 1);
+__global__ void __launch_bounds__(THREADS) giant_train_kernel(GiantArgs p) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_m, s_a;
+  __shared__ unsigned long long s_key;
+  __shared__ int s_warp[WARPS];
+  __shared__ int s_list[THREADS];
+  const int v = p.v, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = gridDim.x, nthreads = G * THREADS;
+  const int gtid = blockIdx.x * THREADS + tid;
+  const int gwarp = gtid >> 5, nwarps = nthreads >> 5;
+  const int NC = p.NC;
+  int* rowmax = p.rowmax;
+  unsigned long long* gkey = p.gkey;
+  const auto same = [](int, int h) { return h; };
+  PhaseClock clk;
+
+  for (int g = gtid; g < v / GROUP; g += nthreads) {
+    unsigned long long k = 0ull;
+    for (int r = g * GROUP; r < (g + 1) * GROUP; ++r)
+      k = umax64(k, max_key(rowmax[r], r, v));
+    gkey[g] = k;
+  }
+  for (int c = gtid; c < 2 * v; c += nthreads) p.dl[c] = p.dr[c] = 0;
+  for (int c = gtid; c < NC; c += nthreads) p.bits[c] = 0;
+  if (gtid < 3) p.keys[gtid] = 0ull;
+  if (gtid < 2 * SL_LEN) p.slots[gtid] = 0;
+  clk.mark(PH_INIT);
+  grid.sync();
+  clk.mark(PH_INIT_SYNC);
+
+  unsigned t = 0;  // row reads so far in this call, the same in every block
+  for (int i = 0; i < p.steps; ++i) {
+    const int nw = 256 + p.n_done + i;
+    const int lim = nw + 1 < v ? nw + 1 : v;
+    int* dl = p.dl + (i & 1) * v;
+    int* dr = p.dr + (i & 1) * v;
+    int* slot = p.slots + (i & 1) * SL_LEN;
+
+    // lazy pick (bpe_giant.py:327-368), every block alike: the largest
+    // thresholded bound (smallest row on ties); read that row; if its
+    // true maximum differs, store it as the row's bound and repeat
+    int m = 0, a = 0, b = 0, n_refresh = 0;
+    for (;;) {
+      ++n_refresh;
+      const int ng = (lim + GROUP - 1) / GROUP;
+      unsigned long long best = 0ull;
+      for (int g = tid; g < ng; g += THREADS) {
+        const unsigned long long gk = gkey[g];
+        best = umax64(best, max_key(thresh(key_val(gk), p.min_freq),
+                                    key_idx(gk, v), v));
+      }
+      best = block_max_u64(best);
+      if (tid == 0) {
+        s_m = key_val(best);
+        s_a = key_idx(best, v);
+      }
+      __syncthreads();
+      m = s_m;
+      if (m <= 0) break;
+      a = s_a;
+      clk.mark(PH_PICK);
+      // the row read, spread over the grid: (max, first column) as a key
+      unsigned long long* key = p.keys + t % 3;
+      if (gtid == 0) p.keys[(t + 1) % 3] = 0ull;  // last read two reads ago
+      const unsigned long long k = block_max_u64(row_max_key(
+          p.hist + (size_t)a * v, lim, v, gtid, nthreads, same));
+      if (tid == 0 && k) atomicMax(key, k);
+      clk.mark(PH_ROW_READ);
+      grid.sync();
+      clk.mark(PH_ROW_SYNC);
+      ++t;
+      // one load of the key per block: a line that every thread loads at
+      // once queues at its L2 slice
+      if (tid == 0) s_key = *key;
+      __syncthreads();
+      const unsigned long long row_key = s_key;
+      const int true_max = key_val(row_key);
+      if (true_max == m) {
+        b = key_idx(row_key, v);
+        break;
+      }
+      if (warp == 0) {  // refresh the bound, retry
+        regroup(rowmax, gkey, {a, -1, -1}, {true_max, 0, 0}, v);
+        if (lane == 0) rowmax[a] = true_max;
+      }
+      __syncthreads();
+    }
+    if (!(m > 0 && !p.init_done && i < p.allowed)) {
+      // nothing changes any more: every later step confirms the same
+      // pick with one row read
+      if (blockIdx.x == 0)
+        for (int j = i + tid; j < p.steps; j += THREADS) {
+          int* rec = p.records + 5 * j;
+          rec[0] = rec[1] = rec[3] = 0;
+          rec[2] = m;
+          rec[4] = j == i ? n_refresh : 1;
+        }
+      break;
+    }
+    if (gtid == 0) {
+      int* rec = p.records + 5 * i;
+      rec[0] = a;
+      rec[1] = b;
+      rec[2] = m;
+      rec[3] = 1;
+      rec[4] = n_refresh;
+    }
+
+    // corpus (bpe_giant.py:375-518): the chunks c < nc_used whose
+    // presence holds a and b, in units of THREADS columns; unit u of the
+    // merge goes to block u % G
+    const int per_chunk = p.cw / THREADS;
+    int base = 0;
+    for (int w0 = 0; w0 < p.nc_used; w0 += THREADS) {
+      const int c = w0 + tid;
+      const bool flagged = c < p.nc_used && p.presT[(size_t)a * NC + c] &&
+                           p.presT[(size_t)b * NC + c];
+      const unsigned bal = __ballot_sync(0xffffffffu, flagged);
+      if (lane == 0) s_warp[warp] = __popc(bal);
+      __syncthreads();
+      int before = 0, n_flagged = 0;
+      for (int w = 0; w < WARPS; ++w) {
+        before += w < warp ? s_warp[w] : 0;
+        n_flagged += s_warp[w];
+      }
+      if (flagged) s_list[before + __popc(bal & ((1u << lane) - 1u))] = c;
+      __syncthreads();
+      const int units = n_flagged * per_chunk;
+      for (int u = ((int)blockIdx.x - base % G + G) % G; u < units; u += G) {
+        const int chunk = s_list[u / per_chunk];
+        const int col =
+            chunk * p.cw + (u % per_chunk) * THREADS + tid;
+        const int r = merge_column<L>(p.tw, p.W, col, a, b, nw, p.unk,
+                                      p.wcount, dl, dr);
+        // every unit of a flagged chunk reports, matched or not: a and b
+        // must be looked for in the whole chunk after the merge
+        const int bits =
+            (__syncthreads_or(r & MC_MATCHED) ? CB_MATCHED : 0) |
+            (__syncthreads_or(r & MC_HAS_A) ? CB_HAS_A : 0) |
+            (__syncthreads_or(r & MC_HAS_B) ? CB_HAS_B : 0);
+        if (tid == 0 && bits) atomicOr(&p.bits[chunk], bits);
+      }
+      base += units;
+      __syncthreads();  // s_warp and s_list are rewritten next window
+    }
+    clk.mark(PH_CORPUS);
+    grid.sync();
+    clk.mark(PH_CORPUS_SYNC);
+
+    // table (bpe_giant.py:544-612), as steps 1-5 in the TPU kernel's
+    // order: 1. row b -= dr; 2. row new = dr; 3. column a -= dl, column
+    // new += dl; 4. cell (a, b) = 0; 5. bounds.  Rows a, new (and b):
+    // every 16-byte group of their live columns is one job of the grid.
+    const int n4 = (lim + 3) >> 2;
+    const int n_rows = b == a ? 2 : 3;
+    int max_a = -1, max_new = -1, max_b = -1;  // -1: no column here
+    for (int j = gtid; j < n_rows * n4; j += nthreads) {
+      const int which = j / n4, c0 = (j % n4) << 2;
+      const int sr = which == 0 ? a : which == 1 ? nw : b;
+      int4* cell = reinterpret_cast<int4*>(p.hist + (size_t)sr * v + c0);
+      const int4 x0 = *cell;
+      const int4 d4 = *reinterpret_cast<const int4*>(dr + c0);
+      const int dls = dl[sr];
+      int h0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const int dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      int h[4];
+      bool changed = false;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e;
+        const int hb = h0[e] - (sr == b ? dv[e] : 0);       // step 1
+        int y = (sr == nw ? dv[e] : hb)                      // step 2
+                - (c == a ? dls : 0) + (c == nw ? dls : 0);  // step 3
+        if (sr == a && c == b) y = 0;                        // step 4
+        h[e] = y;
+        changed |= y != h0[e];
+        if (which == 0) max_a = max(max_a, y);
+        if (which == 1) max_new = max(max_new, y);
+        if (which == 2) max_b = max(max_b, hb);  // bound after step 1
+      }
+      if (changed) *cell = make_int4(h[0], h[1], h[2], h[3]);
+    }
+    clk.mark(PH_UPDATE_ROWS);
+    // every other live row: step 3 in two cells, then its bound.  One
+    // group of rows per warp, from the grid's last warp down (the jobs
+    // above start at block 0), and one atomicMax per group.
+    for (int r0 = (nwarps - 1 - gwarp) * GROUP; r0 < lim;
+         r0 += nwarps * GROUP) {
+      const int r = r0 + lane;
+      const int d = r < lim ? dl[r] : 0;
+      unsigned long long up = 0ull;
+      if (d != 0 && r != a && r != b && r != nw) {
+        int* row = p.hist + (size_t)r * v;
+        const int ha = row[a], hn = row[nw], bound = rowmax[r];  // at once
+        row[a] = ha - d;
+        row[nw] = hn + d;
+        if (d > bound) {
+          rowmax[r] = d;
+          up = max_key(d, r, v);
+        }
+      }
+      up = warp_max_u64(up);
+      if (lane == 0 && up) atomicMax(&gkey[r0 / GROUP], up);
+    }
+    clk.mark(PH_UPDATE_OTHERS);
+    // presence rows a, b, new of the chunks that matched (:520-540)
+    for (int c = gtid; c < p.nc_used; c += nthreads) {
+      const int x = p.bits[c];
+      if (!x) continue;
+      p.bits[c] = 0;
+      if (x & CB_MATCHED) {
+        p.presT[(size_t)a * NC + c] = (x & CB_HAS_A) ? 1 : 0;
+        p.presT[(size_t)b * NC + c] = (x & CB_HAS_B) ? 1 : 0;
+        p.presT[(size_t)nw * NC + c] = 1;
+      }
+    }
+    // the other deltas and slots were last read by the previous merge
+    int* dl_next = p.dl + ((i + 1) & 1) * v;
+    int* dr_next = p.dr + ((i + 1) & 1) * v;
+    for (int c = gtid; c < lim; c += nthreads) dl_next[c] = dr_next[c] = 0;
+    if (gtid < SL_LEN) p.slots[((i + 1) & 1) * SL_LEN + gtid] = 0;
+    // one atomic per row and per block that holds some of its columns:
+    // atomics on one address queue up at L2
+    unsigned long long mx[3] = {(unsigned)(max_a + 1), (unsigned)(max_new + 1),
+                                (unsigned)(max_b + 1)};
+    block_max_u64_n(mx);
+    if (tid == 0) {
+      if (mx[0]) atomicMax(&slot[SL_A], (int)mx[0] - 1);
+      if (mx[1]) atomicMax(&slot[SL_NEW], (int)mx[1] - 1);
+      if (mx[2]) atomicMax(&slot[SL_B], (int)mx[2] - 1);
+    }
+    clk.mark(PH_UPDATE);
+    grid.sync();
+    clk.mark(PH_UPDATE_SYNC);
+
+    // step 5 for rows b, new and a and their groups, every block alike:
+    // row b's bound after step 1, raised to dl[b] (rowmax = max(rowmax,
+    // dl)); rows new and a exact
+    if (warp == 0) {
+      const int val[3] = {slot[SL_A], slot[SL_NEW], max(slot[SL_B], dl[b])};
+      regroup(rowmax, gkey, {a, nw, b != a ? b : -1}, val, v);
+      if (lane == 0) {
+        rowmax[a] = val[0];
+        rowmax[nw] = val[1];
+        if (b != a) rowmax[b] = val[2];
+      }
+    }
+    __syncthreads();
+    clk.mark(PH_BOUNDS);
   }
 }
 
-// Table steps 1 and 2 (bpe_giant.py:544-562), the exact maxima that the
-// bound rules of step 5 need, and the presence rewrite (:520-540).
-__global__ void rows_kernel(int* __restrict__ hist, int v, int lim,
-                            const int* __restrict__ dl,
-                            const int* __restrict__ dr, int* state,
-                            int8_t* __restrict__ presT, int NC, int nc_used,
-                            const int* __restrict__ bits) {
-  if (!state[S_DO]) return;
-  const int a = state[S_A], b = state[S_B], nw = state[S_NEW];
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  int max_b = 0, max_new = 0, max_a = 0;
-  if (c < lim) {
-    const int dla = dl[a], dln = dl[nw], d = dr[c];
-    int* row_b = hist + (size_t)b * v;
-    const int hb = row_b[c] - d;  // 1. row b -= dr
-    if (d != 0) row_b[c] = hb;
-    hist[(size_t)nw * v + c] = d;  // 2. row new = dr
-    max_b = hb;
-    // final row new: dr, then column a -= dl[new], column new += dl[new]
-    max_new = d + (c == nw ? dln : 0) - (c == a ? dln : 0);
-    // final row a: after steps 1 and 3, with cell (a, b) zeroed
-    const int ha = (a == b ? hb : hist[(size_t)a * v + c]) -
-                   (c == a ? dla : 0) + (c == nw ? dla : 0);
-    max_a = c == b ? 0 : ha;
-  }
-  max_b = block_max(max_b);
-  max_new = block_max(max_new);
-  max_a = block_max(max_a);
-  if (threadIdx.x == 0) {
-    atomicMax(&state[S_MAXB], max_b);
-    atomicMax(&state[S_MAXNEW], max_new);
-    atomicMax(&state[S_MAXA], max_a);
-  }
-  // presence rows a, b, new of the chunks that matched, in that order
-  if (c < nc_used && bits[CB_MATCHED * NC + c]) {
-    presT[(size_t)a * NC + c] = (int8_t)bits[CB_STILL_A * NC + c];
-    presT[(size_t)b * NC + c] = (int8_t)bits[CB_STILL_B * NC + c];
-    presT[(size_t)nw * NC + c] = 1;
-  }
-}
-
-// Table steps 3-5 (bpe_giant.py:564-612), one thread per live row.
-__global__ void cols_kernel(int* __restrict__ hist, int v, int lim,
-                            const int* __restrict__ dl,
-                            const int* __restrict__ state,
-                            int* __restrict__ rowmax) {
-  if (!state[S_DO]) return;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= lim) return;
-  const int a = state[S_A], b = state[S_B], nw = state[S_NEW];
-  const int d = dl[r];
-  int* row = hist + (size_t)r * v;
-  if (d != 0) {
-    row[a] -= d;   // 3. column a -= dl
-    row[nw] += d;  //    column new += dl
-  }
-  const int old = rowmax[r];
-  int rm = r == b ? state[S_MAXB] : old;  // set by step 1
-  rm = max(rm, d);                        // 5. bounds
-  if (r == nw) rm = state[S_MAXNEW];
-  if (r == a) {
-    row[b] = 0;                           // 4. merged cell, last
-    rm = state[S_MAXA];
-  }
-  if (rm != old) rowmax[r] = rm;
+template <int L>
+cudaError_t launch(const GiantArgs& p, cudaStream_t s) {
+  int dev, sms, per_sm;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, giant_train_kernel<L>, THREADS, 0)) != cudaSuccess)
+    return err;
+  const int blocks = sms * (per_sm < BLOCKS_PER_SM ? per_sm : BLOCKS_PER_SM);
+  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
+  GiantArgs q = p;
+  void* args[] = {&q};
+  return cudaLaunchCooperativeKernel((const void*)giant_train_kernel<L>,
+                                     dim3(blocks), dim3(THREADS), args, 0,
+                                     s);
 }
 
 }  // namespace
 
+SHRED_PHASE_READER(shred_giant_phase_cycles)
+
 extern "C" {
 
-// Runs `steps` merges of the giant engine on `stream`.  tw int16 [L, W],
-// wcount int32 [W], hist int32 [v, v], presT int8 [v, NC] and rowmax
-// int32 [v] are updated in place; dl/dr int32 [v], bits int32 [3 * NC]
-// and state int32 [S_LEN] are scratch; records int32 [steps, 5] receives
-// (a, b, freq, did, n_refresh) per step.  Chunk c covers the columns
-// [c * cw, (c + 1) * cw); only chunks c < nc_used hold words.  Returns the
-// first CUDA error of a launch, or 0.
+// Runs `steps` merges of the giant engine on `stream` in one kernel
+// launch.  tw int16 [L, W], wcount int32 [W], hist int32 [v, v], presT
+// int8 [v, NC] and rowmax int32 [v] are updated in place (v a multiple of
+// 128); dl/dr int32 [2v], bits int32 [NC + NC % 2 + v / 16] (chunk bits,
+// then 8-byte group keys) and state int32 [16] are scratch; records int32 [steps, 5] receives (a, b, freq, did,
+// n_refresh) per step.  Chunk c covers the columns [c * cw, (c + 1) * cw);
+// only chunks c < nc_used hold words.  Returns the launch's CUDA error,
+// or 0.
 int shred_giant_train(int16_t* tw, const int* wcount, int* hist,
                       int8_t* presT, int* rowmax, int* dl, int* dr,
                       int* bits, int* state, int* records, int L, int W,
@@ -252,39 +425,20 @@ int shred_giant_train(int16_t* tw, const int* wcount, int* hist,
                       int min_freq, int n_done, int init_done, int allowed,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if ((L != 16 && L != 32 && L != 64) || cw % CORPUS_THREADS != 0 ||
+  if ((L != 16 && L != 32 && L != 64) || cw % THREADS != 0 || v % 128 ||
       (long long)NC * cw != W || nc_used < 1 || nc_used > NC)
     return (int)cudaErrorInvalidValue;
-  const int corpus_blocks = nc_used * (cw / CORPUS_THREADS);
-  for (int i = 0; i < steps; ++i) {
-    const int new_id = 256 + n_done + i;
-    const int lim = new_id + 1 < v ? new_id + 1 : v;
-    pick_kernel<<<1, PICK_THREADS, 0, s>>>(hist, rowmax, v, lim, i, new_id,
-                                           min_freq, allowed, init_done,
-                                           state, records, dl, dr, bits,
-                                           3 * NC);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (L == 16)
-      corpus_kernel<16><<<corpus_blocks, CORPUS_THREADS, 0, s>>>(
-          tw, wcount, W, cw, NC, presT, state, dl, dr, unk, bits);
-    else if (L == 32)
-      corpus_kernel<32><<<corpus_blocks, CORPUS_THREADS, 0, s>>>(
-          tw, wcount, W, cw, NC, presT, state, dl, dr, unk, bits);
-    else
-      corpus_kernel<64><<<corpus_blocks, CORPUS_THREADS, 0, s>>>(
-          tw, wcount, W, cw, NC, presT, state, dl, dr, unk, bits);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const int rows_n = lim > nc_used ? lim : nc_used;
-    rows_kernel<<<(rows_n + TABLE_THREADS - 1) / TABLE_THREADS,
-                  TABLE_THREADS, 0, s>>>(hist, v, lim, dl, dr, state, presT,
-                                         NC, nc_used, bits);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    cols_kernel<<<(lim + TABLE_THREADS - 1) / TABLE_THREADS, TABLE_THREADS,
-                  0, s>>>(hist, v, lim, dl, state, rowmax);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
+  if (steps < 1) return 0;
+  const GiantArgs p{tw, wcount, hist, presT, rowmax, dl, dr, bits,
+                    reinterpret_cast<unsigned long long*>(bits + NC + NC % 2),
+                    reinterpret_cast<unsigned long long*>(state), state + 8,
+                    records, W, v, NC, cw, nc_used, steps, unk, min_freq,
+                    n_done, init_done, allowed};
+  cudaError_t err = L == 16   ? launch<16>(p, s)
+                    : L == 32 ? launch<32>(p, s)
+                              : launch<64>(p, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -38,8 +38,8 @@ import torch
 
 from .. import checkpoint as ckpt
 from .. import serialization
-from ..config import BPEConfig
-from ..errors import ConfigError, TrainingError
+from ..config import BPEConfig, resolve_device
+from ..errors import TrainingError
 from ..ops import bpe_giant, bpe_hist, bpe_ops
 from ..parallel import hist as par_hist
 from ..parallel import mesh as par_mesh
@@ -58,13 +58,9 @@ class BPETrainer:
             target_vocab_size=target_vocab_size, unk_id=unk_id,
             character_coverage=character_coverage,
             min_pair_freq=min_pair_freq, **kwargs).validate()
-        self.device = torch.device(device)
-        if (self.config.backend == "cuda" and self.device.type == "cuda"
-                and not torch.cuda.is_available()):
-            raise ConfigError(
-                "backend='cuda' needs a CUDA device and none is available; "
-                "pass device='cpu' to run the device engines on the CPU, "
-                "or backend='cpu' for the native engine")
+        self.device = (resolve_device(device)
+                       if self.config.backend == "cuda"
+                       else torch.device(device))
         # data-parallel training: a 1-D DeviceMesh or a ProcessGroup;
         # alternatively shards=N in the config uses the default group
         self.mesh = mesh

@@ -20,7 +20,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 
 import torch
 
@@ -34,9 +33,12 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# the persistent kernels read data that other blocks of the same launch
+# wrote: their global loads bypass the SMs' incoherent L1 caches
+SOURCE_FLAGS = {s: ["-Xptxas", "-dlcm=cg"]
+                for s in ("hist_fused.cu", "giant.cu")}
 
 _lib = None
-build_seconds: float | None = None   # wall time of this process's build
 
 
 def _nvcc() -> str:
@@ -59,6 +61,7 @@ def lib_path() -> str:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return os.path.join(BUILD_DIR, f"libshred_cuda-{h.hexdigest()[:16]}.so")
 
 
@@ -75,45 +78,52 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def build(extra_flags: tuple[str, ...] = ()) -> tuple[str, str]:
+def build(extra_flags: tuple[str, ...] = (),
+          out: str | None = None) -> tuple[str, str]:
     """Compile the kernel library unless it is already built: one nvcc
     per source, all at once, then one link.  Returns (path, compiler
     output); extra_flags (e.g. ``-Xptxas -v``) force a rebuild so their
-    output is shown."""
-    global build_seconds
-    out = lib_path()
-    if os.path.exists(out) and not extra_flags:
-        return out, ""
+    output is shown.  ``out`` builds to another path (a library built
+    with other defines)."""
+    if out is None:
+        out = lib_path()
+        if os.path.exists(out) and not extra_flags:
+            return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
-        log = _run_all([[_nvcc(), *NVCC_FLAGS, *extra_flags, "-c", "-o", o,
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(s, []),
+                         *extra_flags, "-c", "-o", o,
                          os.path.join(CSRC_DIR, s)]
                         for s, o in zip(SOURCES, objs)])
         so = os.path.join(tmp, "lib.so")
         log += _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", so, *objs]])
         os.replace(so, out)
-    build_seconds = time.perf_counter() - t0
     return out, log
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load the kernel library at ``path`` and declare its C functions."""
+    L = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    L.shred_hist_fused_train.argtypes = [p] * 7 + [i] * 9 + [p]
+    L.shred_hist_fused_train.restype = i
+    L.shred_giant_train.argtypes = [p] * 10 + [i] * 12 + [p]
+    L.shred_giant_train.restype = i
+    L.shred_hist_merge_step.argtypes = [p] * 4 + [i] * 3 + [p]
+    L.shred_hist_merge_step.restype = i
+    L.shred_hist_merge_step_sparse.argtypes = [p] * 5 + [i] * 4 + [p]
+    L.shred_hist_merge_step_sparse.restype = i
+    L.shred_cuda_error_string.argtypes = [i]
+    L.shred_cuda_error_string.restype = ctypes.c_char_p
+    return L
+
+
 def lib() -> ctypes.CDLL:
+    """The kernel library, built at first use."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(build()[0])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        L.shred_hist_fused_train.argtypes = [p] * 8 + [i] * 9 + [p]
-        L.shred_hist_fused_train.restype = i
-        L.shred_giant_train.argtypes = [p] * 10 + [i] * 12 + [p]
-        L.shred_giant_train.restype = i
-        L.shred_hist_merge_step.argtypes = [p] * 4 + [i] * 3 + [p]
-        L.shred_hist_merge_step.restype = i
-        L.shred_hist_merge_step_sparse.argtypes = [p] * 5 + [i] * 4 + [p]
-        L.shred_hist_merge_step_sparse.restype = i
-        L.shred_cuda_error_string.argtypes = [i]
-        L.shred_cuda_error_string.restype = ctypes.c_char_p
-        _lib = L
+        _lib = bind(build()[0])
     return _lib
 
 
@@ -143,7 +153,8 @@ def hist_fused_train(tw: torch.Tensor, wcount: torch.Tensor,
     could not merge on (the done flag is sticky).
 
     CPU tensors run :func:`hist_fused_train_plain`; CUDA tensors run
-    ``csrc/hist_fused.cu`` (bound by launch latency per merge, see its
+    ``csrc/hist_fused.cu``: one persistent launch for all ``steps``
+    (bound by the grid barriers of each merge's chain, see its
     header)."""
     L, W = tw.shape
     v = hist.shape[0]
@@ -168,20 +179,21 @@ def hist_fused_train(tw: torch.Tensor, wcount: torch.Tensor,
             init_done=init_done, allowed=allowed, steps=steps)
     if tw.device.type != "cuda":
         raise ValueError(f"unsupported device {tw.device}")
+    if v % 4:
+        raise ValueError(f"the kernel needs v a multiple of 4, got {v}")
     dev = tw.device
     i32 = dict(dtype=torch.int32, device=dev)
-    rowmax = torch.empty(v, **i32)
-    dl = torch.empty(v, **i32)
-    dr = torch.empty(v, **i32)
-    state = torch.zeros(8, **i32)
+    rowmax = torch.empty(2 * v, **i32)       # (max, arg) per row
+    dl = torch.empty(2 * v, **i32)           # two buffers used in turn
+    dr = torch.empty(2 * v, **i32)
     records = torch.empty((steps, 4), **i32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib().shred_hist_fused_train(
             tw.data_ptr(), wcount.data_ptr(), hist.data_ptr(),
             rowmax.data_ptr(), dl.data_ptr(), dr.data_ptr(),
-            state.data_ptr(), records.data_ptr(), L, W, v, steps, unk,
-            min_freq, n_done, init_done, allowed, stream)
+            records.data_ptr(), L, W, v, steps, unk, min_freq, n_done,
+            init_done, allowed, stream)
     _check(rc)
     hist_fused_train.launches += 1
     return records
@@ -288,8 +300,9 @@ def giant_train_step(tw: torch.Tensor, wcount: torch.Tensor,
     that could not merge on (the done flag is sticky).
 
     CPU tensors run :func:`giant_train_step_plain`; CUDA tensors run
-    ``csrc/giant.cu`` (bound by launch latency and its one-block pick,
-    see its header)."""
+    ``csrc/giant.cu``: one persistent launch for all ``steps`` (bound by
+    the grid barriers of each merge's chain and the pick's row reads, see
+    its header)."""
     L, W = tw.shape
     v, NC = presT.shape
     if tw.dtype != torch.int16 or presT.dtype != torch.int8 or any(
@@ -297,10 +310,10 @@ def giant_train_step(tw: torch.Tensor, wcount: torch.Tensor,
         raise TypeError("tw must be int16, presT int8, wcount, hist and "
                         "rowmax int32")
     if wcount.shape != (W,) or hist.shape != (v, v) \
-            or rowmax.shape != (v,) or W % NC:
+            or rowmax.shape != (v,) or W % NC or v % 128:
         raise ValueError(
-            f"shape mismatch: tw {tuple(tw.shape)}, wcount "
-            f"{tuple(wcount.shape)}, hist {tuple(hist.shape)}, presT "
+            f"shape mismatch (v a multiple of 128): tw {tuple(tw.shape)}, "
+            f"wcount {tuple(wcount.shape)}, hist {tuple(hist.shape)}, presT "
             f"{tuple(presT.shape)}, rowmax {tuple(rowmax.shape)}")
     tensors = (tw, wcount, hist, presT, rowmax)
     if not all(x.is_contiguous() for x in tensors):
@@ -327,10 +340,11 @@ def giant_train_step(tw: torch.Tensor, wcount: torch.Tensor,
         raise ValueError(f"unsupported device {tw.device}")
     dev = tw.device
     i32 = dict(dtype=torch.int32, device=dev)
-    dl = torch.empty(v, **i32)
-    dr = torch.empty(v, **i32)
-    bits = torch.empty(3 * NC, **i32)
-    state = torch.zeros(8, **i32)
+    dl = torch.empty(2 * v, **i32)           # two buffers used in turn
+    dr = torch.empty(2 * v, **i32)
+    # chunk bits | 8-byte group keys
+    bits = torch.empty(NC + NC % 2 + v // 16, **i32)
+    state = torch.empty(16, **i32)           # row-read keys, maxima slots
     records = torch.empty((steps, 5), **i32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from ..config import resolve_device
 from ._kernels import PAD
 from .bpe_hist import drive_calls, init_hist
 
@@ -108,12 +109,12 @@ def init_tables(tw: torch.Tensor, wc: torch.Tensor, unk_id: int, v: int,
     return hist, rowmax
 
 
-def giant_state_from_jax(tw, wc, hist4, presT, rowmax, device="cpu"):
+def giant_state_from_jax(tw, wc, hist4, presT, rowmax, device="cuda"):
     """The JAX giant kernel's arrays (tw int16 [L, W], wc [1, W], hist4
     [v, v/128, 128], presT int8 [v, NC], rowmax [v/128, 128]) as the
     port's tensors (tw, wc [W], hist [v, v], presT, rowmax [v]): the
     same row-major bytes."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     hist4 = np.asarray(hist4, np.int32)
     return (torch.tensor(np.asarray(tw, np.int16), device=dev),
             torch.tensor(np.asarray(wc, np.int32).reshape(-1), device=dev),
@@ -137,7 +138,7 @@ def giant_train(tokens: np.ndarray, word_id: np.ndarray,
                 max_word_len: int = 64, steps_per_call: int = 4096,
                 progress_cb=None, lazy_final: bool = False,
                 chunk_width: int | None = None, n_prev_merges: int = 0,
-                device="cpu"):
+                device="cuda"):
     """Full driver: one upload, one kernel call per steps_per_call
     merges.  Returns (merges [M, 2], freqs [M], final tokens, final
     word_id) in the original word order, with a callable for the last two
@@ -148,7 +149,8 @@ def giant_train(tokens: np.ndarray, word_id: np.ndarray,
 
     Checkpoint resume: pass the REPLAYED corpus and ``n_prev_merges``;
     ``target_merges`` counts the previous merges too and only new merges
-    are returned."""
+    are returned.  Runs on ``device``, the card by default."""
+    dev = resolve_device(device)
     if chunk_width is None:
         # the JAX package widens the chunks for large word sets
         n_words = int(word_id.max()) + 1 if len(word_id) else 0
@@ -164,7 +166,6 @@ def giant_train(tokens: np.ndarray, word_id: np.ndarray,
                              cw=cw)
     if lay is None:
         return None
-    dev = torch.device(device)
     tw = torch.tensor(lay.tw, device=dev)           # trained in place
     wc = torch.tensor(lay.wc.reshape(-1), device=dev)
     presT = torch.tensor(lay.presT, device=dev)

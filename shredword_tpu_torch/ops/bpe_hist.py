@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from ..config import resolve_device
 from ._kernels import CHUNK, PAD
 
 MAX_V = 4096      # largest table of the fused engine; hist_train routes
@@ -91,7 +92,7 @@ def init_hist(tw: torch.Tensor, wcount: torch.Tensor, unk_id: int,
     return hist.view(v, v)
 
 
-def state_from_jax(tw, wcount, hist, device="cpu", presence=None):
+def state_from_jax(tw, wcount, hist, device="cuda", presence=None):
     """The JAX package's hist-engine arrays as the port's tensors.
 
     Accepts the ``HistCorpus`` layout (tw [L, W], wcount [1, W]) and the
@@ -104,7 +105,7 @@ def state_from_jax(tw, wcount, hist, device="cpu", presence=None):
     if tw.ndim == 3:
         nc, L, fc = tw.shape
         tw = tw.transpose(1, 0, 2).reshape(L, nc * fc)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     out = (torch.tensor(np.asarray(tw, np.int16), device=dev),
            torch.tensor(np.asarray(wcount, np.int32).reshape(-1),
                         device=dev),
@@ -207,7 +208,7 @@ def _drive_state(ts: HistTrainState, call: Callable, *, target_merges: int,
 def fused_hist_train(c: HistCorpus, v: int, *, target_merges: int,
                      unk_id: int, min_pair_freq: int, steps_per_call: int,
                      progress_cb: Callable | None = None, n_prev: int = 0,
-                     device="cpu") -> HistTrainState:
+                     device="cuda") -> HistTrainState:
     """Drive the fused merge loop to target_merges, steps_per_call
     merges per kernel call (see :func:`drive_calls`)."""
     ts = hist_train_init(c, unk_id, target_merges, v, device=device)
@@ -307,10 +308,10 @@ def loop_call(ts: HistTrainState, step: Callable, *, target_merges: int,
 
 
 def hist_train_init(c: HistCorpus, unk_id: int, max_merges: int, v: int,
-                    device="cpu") -> HistTrainState:
+                    device="cuda") -> HistTrainState:
     """State of the per-merge loops: the layout on device, its exact
     table, empty records; callers seed n_merges on resume."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     tw = torch.tensor(np.asarray(c.tw, np.int16), device=dev)
     wc = torch.tensor(np.asarray(c.wcount, np.int32).reshape(-1),
                       device=dev)
@@ -369,7 +370,7 @@ def make_train_loop_sparse(v: int, L: int, W: int, *, target_merges: int,
 
 def _sparse_drive(c: HistCorpus, v: int, unk_id: int, min_pair_freq: int,
                   target_merges: int, max_steps: int, progress_cb=None,
-                  device="cpu") -> HistTrainState:
+                  device="cuda") -> HistTrainState:
     ts = hist_train_init(c, unk_id, target_merges, v, device=device)
     (tw, wc), hist = ts.corpus, ts.hist
     presT = torch.tensor(build_presence(c.tw, v), device=hist.device)
@@ -391,7 +392,7 @@ def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
                min_pair_freq: int = 2, max_word_len: int = 64,
                max_steps_per_call: int | None = None, sparse: bool = False,
                progress_cb=None, lazy_final: bool = False,
-               n_prev_merges: int = 0, device="cpu"):
+               n_prev_merges: int = 0, device="cuda"):
     """Full driver.  Returns (merges [M, 2], freqs [M], final flat tokens,
     final word_id), with a callable for the last two when lazy_final,
     or None if a word exceeds max_word_len.  wcount is per word.
@@ -406,7 +407,11 @@ def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
 
     Checkpoint resume: pass the REPLAYED corpus and ``n_prev_merges``;
     ``target_merges`` counts the previous merges too and only new merges
-    are returned."""
+    are returned.
+
+    Runs on ``device``, the card by default; without one, pass
+    ``device="cpu"`` (the kernels' plain versions)."""
+    device = resolve_device(device)
     v = -(-(256 + target_merges) // 128) * 128
     if v > MAX_V:
         # beyond the fused engine's table: the giant engine (lazy row-max

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 
 class CorpusState(NamedTuple):
     tokens: torch.Tensor    # int32 [N]
@@ -39,8 +41,8 @@ class TrainState(NamedTuple):
     done: bool
 
 
-def make_state(tokens, word_id, wcount, device="cpu") -> CorpusState:
-    dev = torch.device(device)
+def make_state(tokens, word_id, wcount, device="cuda") -> CorpusState:
+    dev = resolve_device(device)
 
     def as_t(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)

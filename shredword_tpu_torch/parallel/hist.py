@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..config import resolve_device
 from ..ops import _kernels, bpe_hist
 from . import mesh as _mesh
 
@@ -65,7 +66,7 @@ def local_shard(c: bpe_hist.HistCorpus, rank: int,
 
 
 def shard_state_from_jax(tw, wcount, hist, rank: int, n_shards: int,
-                         device="cpu"):
+                         device="cuda"):
     """Rank ``rank``'s per-shard state (tw int16 [L, W / n], wcount
     int32 [W / n], hist int32 [v, v]) from the JAX sharded engine's
     global arrays."""
@@ -110,7 +111,7 @@ def sharded_hist_train(tokens: np.ndarray, word_id: np.ndarray,
                        wcount: np.ndarray, *, mesh, target_merges: int,
                        unk_id: int = -1, min_pair_freq: int = 2,
                        max_steps_per_call: int = 512,
-                       n_prev_merges: int = 0, device="cpu"):
+                       n_prev_merges: int = 0, device="cuda"):
     """Sharded driver, called by every rank of ``mesh`` (a 1-D
     DeviceMesh or a ProcessGroup) with the same corpus.  wcount is per
     word.  Returns (merges, freqs), the same on every rank, or None if
@@ -119,7 +120,8 @@ def sharded_hist_train(tokens: np.ndarray, word_id: np.ndarray,
 
     Checkpoint resume: the caller replays the first ``n_prev_merges``
     merges into ``tokens``; new ids continue at 256 + n_prev.  Only new
-    merges are returned."""
+    merges are returned.  Runs on ``device``, the card by default."""
+    device = resolve_device(device)
     v = -(-(256 + target_merges) // 128) * 128
     if v > bpe_hist.MAX_V:
         return None

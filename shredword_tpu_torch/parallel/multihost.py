@@ -11,9 +11,13 @@ process per card:
     # train.py
     from shredword_tpu_torch import BPETrainer
     from shredword_tpu_torch.parallel import multihost
-    multihost.initialize()                  # env:// from torchrun
+    multihost.initialize()                  # env:// from torchrun, NCCL
     t = BPETrainer(..., shards=multihost.world_size(),
                    device=f"cuda:{multihost.local_rank()}")
+
+Nothing here picks the CPU on its own: NCCL and "cuda" are the
+defaults, and ranks on the CPU pass ``backend="gloo"`` and
+``global_mesh("cpu")``.
 """
 
 from __future__ import annotations
@@ -23,20 +27,24 @@ import os
 import torch
 import torch.distributed as dist
 
+from ..errors import ConfigError
 from ..utils import logging as log
 from . import mesh as _mesh
 
 
 def initialize(init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None,
-               backend: str | None = None) -> None:
-    """Initialize the default process group (NCCL where there is a card,
-    else gloo); without arguments the ``env://`` variables that torchrun
-    sets.  Idempotent."""
+               backend: str = "nccl") -> None:
+    """Initialize the default process group on ``backend`` (NCCL unless
+    the caller asks for another; ranks on the CPU pass ``"gloo"``);
+    without the other arguments the ``env://`` variables that torchrun
+    sets.  NCCL without a card raises ConfigError.  Idempotent."""
     if dist.is_initialized():
         return
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise ConfigError("backend='nccl' needs a CUDA device and none is "
+                          "available; pass backend='gloo' for ranks on "
+                          "the CPU")
     kw = {} if world_size is None else dict(world_size=world_size,
                                             rank=rank)
     dist.init_process_group(backend, init_method=init_method, **kw)
@@ -56,13 +64,13 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", dist.get_rank()))
 
 
-def global_mesh():
+def global_mesh(device_type: str = "cuda"):
     """1-D DeviceMesh (dim name "data") over every rank of the
-    initialized default group, on "cuda" where there is a card, else
-    "cpu"; the port's counterpart of the JAX package's ``make_mesh``."""
+    initialized default group, on ``device_type`` ("cuda" unless the
+    caller passes "cpu" for ranks on the CPU); the port's counterpart of
+    the JAX package's ``make_mesh``."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    device_type = "cuda" if torch.cuda.is_available() else "cpu"
     return init_device_mesh(device_type, (_mesh._world_size(),),
                             mesh_dim_names=("data",))
 

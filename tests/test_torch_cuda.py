@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from shredword_tpu_torch import BPETrainer
-from shredword_tpu_torch.ops import _kernels, bpe_hist
+from shredword_tpu_torch.ops import _kernels, bpe_giant, bpe_hist
 
 
-def _corpus(seed, n_words=400, alpha=6, max_len=12, unk=None):
+def _corpus(seed, n_words=400, alpha=6, max_len=12, unk=None,
+            equal_weights=False):
     rng = np.random.RandomState(seed)
     lens = rng.randint(1, max_len + 1, n_words)
     lens[:10] = max_len                                 # 'aaaa...' runs
@@ -25,6 +26,8 @@ def _corpus(seed, n_words=400, alpha=6, max_len=12, unk=None):
     if unk is not None:
         tokens[rng.rand(len(tokens)) < 0.05] = unk
     wc_word = rng.randint(1, 60, n_words).astype(np.int32)
+    if equal_weights:                                   # many tied counts
+        wc_word[:] = 1
     return tokens, word_id, wc_word
 
 
@@ -180,3 +183,106 @@ def test_sparse_hist_train_on_cuda_matches_cpu(cuda):
     for w, g, d in zip(want, got, dense):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, d)
+
+
+def _calls(kernel, plain, states, merges, steps, **kw):
+    """Drive the kernel on states[1] and its plain version on states[0]
+    with the same calls of `steps` merges; after every call the records
+    and every state tensor must be identical.  Returns the merges done."""
+    n_done, done = 0, 0
+    while n_done < merges and not done:
+        allowed = merges - n_done
+        ckw = dict(kw, n_done=n_done, init_done=done, allowed=allowed,
+                   steps=min(steps, allowed))
+        want = plain(*states[0], **ckw)
+        got = kernel(*states[1], **ckw)
+        assert torch.equal(got.cpu(), want)
+        for w, g in zip(*states):
+            assert torch.equal(g.cpu(), w)
+        n_new = int(want[:, 3].sum())
+        done = int(n_new < ckw["steps"])
+        n_done += n_new
+    return n_done
+
+
+# name: (corpus arguments, v, steps per call, merges, min_pair_freq)
+HIST_CALL_CASES = {
+    # equal weights: tied counts between rows and between columns
+    "ties_v384_L16_steps1": (dict(seed=40, n_words=1500, alpha=4,
+                                  equal_weights=True), 384, 1, 60, 2),
+    # few letters: frequent pairs whose column a is many rows' maximum
+    "frequent_v384_L16": (dict(seed=41, n_words=2000, alpha=3), 384, 16,
+                          128, 2),
+    # 'aaaa' runs: a == b
+    "runs_v384_L32": (dict(seed=42, n_words=1500, max_len=30, alpha=2),
+                      384, 9, 128, 2),
+    # more steps per call than the grid has blocks
+    "steps300_v768_L64": (dict(seed=43, n_words=2000, max_len=60, alpha=3),
+                          768, 300, 512, 2),
+    "min_freq_stop_v384": (dict(seed=44, n_words=1500), 384, 16, 128, 700),
+    "v4096_L16": (dict(seed=45, n_words=3000, alpha=12), 4096, 512, 3840,
+                  2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HIST_CALL_CASES))
+def test_hist_kernel_call_by_call(case, cuda):
+    """The persistent hist kernel against its plain version after every
+    call: records, tokens and the table."""
+    corpus_kw, v, steps, merges, minf = HIST_CALL_CASES[case]
+    c = _layout(**corpus_kw)
+    states = []
+    for dev in ("cpu", cuda):
+        tw = torch.tensor(c.tw, device=dev)
+        wc = torch.tensor(c.wcount.reshape(-1), device=dev)
+        states.append([tw, wc, bpe_hist.init_hist(tw, wc, -1, v)])
+    n0 = _kernels.hist_fused_train.launches
+    n = _calls(_kernels.hist_fused_train, _kernels.hist_fused_train_plain,
+               states, merges, steps, unk=-1, min_freq=minf)
+    assert _kernels.hist_fused_train.launches > n0
+    assert (n == merges) == (minf == 2) and n > 0
+
+
+# name: (corpus arguments, v, chunk width, steps per call, merges,
+#        min_pair_freq)
+GIANT_CALL_CASES = {
+    # one used chunk
+    "nc_used1_v1024": (dict(seed=50, n_words=400, alpha=6), 1024, 512, 16,
+                       300, 2),
+    # equal weights: equal bounds in different row groups; one merge a
+    # call, so lim crosses group edges call by call
+    "ties_v1024_steps1": (dict(seed=51, n_words=1500, alpha=4,
+                               equal_weights=True), 1024, 512, 1, 80, 2),
+    "runs_v1024_L32": (dict(seed=52, n_words=1500, max_len=30, alpha=2),
+                       1024, 512, 64, 500, 2),
+    "min_freq_stop_v1024": (dict(seed=53, n_words=1500), 1024, 512, 64, 700,
+                            300),
+    "v2048_cw1024": (dict(seed=54, n_words=3000, alpha=12), 2048, 1024,
+                     256, 1700, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GIANT_CALL_CASES))
+def test_giant_kernel_call_by_call(case, cuda):
+    """The persistent giant kernel against its plain version after every
+    call: all five record lanes (n_refresh too), tokens, table, presence
+    and the row-max bounds."""
+    corpus_kw, v, cw, steps, merges, minf = GIANT_CALL_CASES[case]
+    lay = bpe_giant.build_giant_layout(*_corpus(**corpus_kw), v, cw=cw)
+    nc_used = -(-lay.n_words // cw)
+    assert (nc_used == 1) == case.startswith("nc_used1")
+    states = []
+    for dev in ("cpu", cuda):
+        tw = torch.tensor(lay.tw, device=dev)
+        wc = torch.tensor(lay.wc.reshape(-1), device=dev)
+        hist, rowmax = bpe_giant.init_tables(tw, wc, -1, v)
+        states.append([tw, wc, hist, torch.tensor(lay.presT, device=dev),
+                       rowmax])
+    n0 = _kernels.giant_train_step.launches
+    n = _calls(_kernels.giant_train_step, _kernels.giant_train_step_plain,
+               states, merges, steps, unk=-1, min_freq=minf,
+               nc_used=nc_used)
+    assert _kernels.giant_train_step.launches > n0
+    assert (n == merges) == (minf == 2) and n > 0

@@ -45,7 +45,8 @@ def _jax_flat(tokens, word_id, wcount, target, unk, minf, n_prev):
 
 def _port_flat(tokens, word_id, wcount, target, unk, minf, n_prev,
                max_steps):
-    ts = bpe_ops.train_init(bpe_ops.make_state(tokens, word_id, wcount),
+    ts = bpe_ops.train_init(bpe_ops.make_state(tokens, word_id, wcount,
+                                               device="cpu"),
                             max(target, 1), n_prev_merges=n_prev)
     while True:
         n_before = ts.n_merges
@@ -91,7 +92,7 @@ def test_flat_matches_port_hist(case):
     wc_word = wcount[np.searchsorted(word_id, np.arange(word_id[-1] + 1))]
     merges, freqs, _, _ = bpe_hist.hist_train(
         tokens, word_id, wc_word, target_merges=target, unk_id=unk,
-        min_pair_freq=minf)
+        min_pair_freq=minf, device="cpu")
     got = _port_flat(tokens, word_id, wcount, target, unk, minf, 0, 64)
     np.testing.assert_array_equal(got[0], merges)
     np.testing.assert_array_equal(got[1], freqs)

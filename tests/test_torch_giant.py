@@ -42,7 +42,8 @@ def _replayed(seed, n_prev):
     passes it (ids up to 256 + n_prev)."""
     tokens, word_id, wc = _letters(seed, n_words=400)
     _, _, tokens, word_id = bpe_giant.giant_train(
-        tokens, word_id, wc, target_merges=n_prev, min_pair_freq=2)
+        tokens, word_id, wc, target_merges=n_prev, min_pair_freq=2,
+        device="cpu")
     return tokens, word_id, wc
 
 
@@ -93,13 +94,15 @@ def test_chunk_width_and_resume_agree():
     the uninterrupted one."""
     tokens, word_id, wc = _letters(12, n_words=400)
     full = [bpe_giant.giant_train(tokens, word_id, wc, target_merges=30,
-                                  chunk_width=cw, steps_per_call=8)
+                                  chunk_width=cw, steps_per_call=8,
+                                  device="cpu")
             for cw in (512, 1024)]
     np.testing.assert_array_equal(full[0][0], full[1][0])
     np.testing.assert_array_equal(full[0][2], full[1][2])
     rt, rw, _ = _replayed(12, 9)
     m, f, t, w = bpe_giant.giant_train(rt, rw, wc, target_merges=30,
-                                       n_prev_merges=9, steps_per_call=8)
+                                       n_prev_merges=9, steps_per_call=8,
+                                       device="cpu")
     np.testing.assert_array_equal(m, full[0][0][9:])
     np.testing.assert_array_equal(f, full[0][1][9:])
     np.testing.assert_array_equal(t, full[0][2])
@@ -143,7 +146,7 @@ def test_giant_step_for_step(case):
     hist4, rowmax = jax_giant._giant_init_tables(
         jnp.asarray(lay.tw), jnp.asarray(lay.wc), jnp.int32(unk), v=v)
     state = bpe_giant.giant_state_from_jax(lay.tw, lay.wc, hist4,
-                                           lay.presT, rowmax)
+                                           lay.presT, rowmax, device="cpu")
     hist_t, rowmax_t = bpe_giant.init_tables(state[0], state[1], unk, v)
     np.testing.assert_array_equal(hist_t.numpy(), state[2].numpy())
     np.testing.assert_array_equal(rowmax_t.numpy(), state[4].numpy())
@@ -203,7 +206,8 @@ def test_giant_declines_out_of_envelope(make, kw):
     tokens, word_id, wc = make()
     assert jax_giant.giant_train(tokens, word_id, wc, interpret=True,
                                  **kw) is None
-    assert bpe_giant.giant_train(tokens, word_id, wc, **kw) is None
+    assert bpe_giant.giant_train(tokens, word_id, wc, device="cpu",
+                                 **kw) is None
 
 
 def test_state_round_trip():
@@ -214,7 +218,7 @@ def test_state_round_trip():
               rng.integers(0, 99, (v, v // 128, 128)).astype(np.int32),
               rng.integers(0, 2, (v, NC)).astype(np.int8),
               rng.integers(0, 99, (v // 128, 128)).astype(np.int32))
-    state = bpe_giant.giant_state_from_jax(*arrays)
+    state = bpe_giant.giant_state_from_jax(*arrays, device="cpu")
     assert [t.shape for t in state] == [(L, W), (W,), (v, v), (v, NC), (v,)]
     for got, want in zip(bpe_giant.giant_state_to_jax(*state), arrays):
         assert got.dtype == want.dtype

@@ -87,7 +87,8 @@ def test_long_word_declines_layout():
     tokens = np.arange(100, dtype=np.int32) % 26 + 97
     word_id = np.zeros(100, np.int32)  # one 100-byte word
     assert bpe_hist.hist_train(tokens, word_id, np.ones(1, np.int32),
-                               target_merges=4, max_word_len=64) is None
+                               target_merges=4, max_word_len=64,
+                               device="cpu") is None
 
 
 def test_vocab_beyond_table_raises():
@@ -113,7 +114,7 @@ def test_hist_train_respects_explicit_steps_for_giant(monkeypatch):
                         lambda *a, **k: seen.append(k["steps_per_call"]))
     for steps in (64, None):
         assert bpe_hist.hist_train(tokens, word_id, wc_word,
-                                   target_merges=5000,
+                                   target_merges=5000, device="cpu",
                                    max_steps_per_call=steps) is None
     assert seen == [64, 4096]
 
@@ -152,7 +153,8 @@ def test_fused_step_for_step(variant, unk, minf):
     else:
         fused = jax_hist.make_fused_train_big(v, L, nc, steps, fc=fc,
                                               rb=128, interpret=True)
-    tw_t, wc_t, hist_t = bpe_hist.state_from_jax(tw3, wc3, hist)
+    tw_t, wc_t, hist_t = bpe_hist.state_from_jax(tw3, wc3, hist,
+                                                 device="cpu")
     np.testing.assert_array_equal(
         bpe_hist.init_hist(tw_t, wc_t, unk, v).numpy(), np.asarray(hist))
     tw_j, hist_j = jnp.asarray(tw3), hist
@@ -181,7 +183,8 @@ def test_state_round_trip_2d():
     tokens, word_id, wc_word = _rand_corpus(4)
     c = jax_hist.build_layout(tokens, word_id, wc_word, 64, min_len=16)
     hist = np.arange(384 * 384, dtype=np.int32).reshape(384, 384)
-    tw_t, wc_t, hist_t = bpe_hist.state_from_jax(c.tw, c.wcount, hist)
+    tw_t, wc_t, hist_t = bpe_hist.state_from_jax(c.tw, c.wcount, hist,
+                                                 device="cpu")
     assert tw_t.dtype == torch.int16 and wc_t.shape == (c.tw.shape[1],)
     for a, b in zip(bpe_hist.state_to_jax(tw_t, wc_t, hist_t),
                     (c.tw, c.wcount, hist)):

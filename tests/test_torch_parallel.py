@@ -69,10 +69,11 @@ def test_shard_layout_matches_jax(n_shards):
         np.testing.assert_array_equal(
             hist.local_shard(got, r, n_shards).tw, by_device[dev])
         tw_r, wc_r, _ = hist.shard_state_from_jax(want.tw, want.wcount,
-                                                  hist_t, r, n_shards)
+                                                  hist_t, r, n_shards,
+                                                  device="cpu")
         np.testing.assert_array_equal(tw_r.numpy(), by_device[dev])
     shards = [hist.shard_state_from_jax(want.tw, want.wcount, hist_t, r,
-                                        n_shards)[:2]
+                                        n_shards, device="cpu")[:2]
               for r in range(n_shards)]
     back = hist.shard_state_to_jax(shards, torch.tensor(hist_t))
     np.testing.assert_array_equal(back[0], np.asarray(want.tw))
@@ -88,7 +89,8 @@ def test_sharded_engine_matches_jax_and_single_device(ranks):
     jm, jf = jax_parallel.sharded_hist_train(
         tokens, word_id, wc, mesh=jax_parallel.make_mesh(2),
         interpret=True, max_steps_per_call=16, **kw)
-    sm, sf, _, _ = bpe_hist.hist_train(tokens, word_id, wc, **kw)
+    sm, sf, _, _ = bpe_hist.hist_train(tokens, word_id, wc, device="cpu",
+                                       **kw)
     np.testing.assert_array_equal(sm, jm)
     np.testing.assert_array_equal(sf, jf)
     assert len(jm) == 40
@@ -159,3 +161,44 @@ def test_shards_without_process_group_raise():
     t.load_corpus_bytes(b"hello world hello there\n" * 20)
     with pytest.raises(ConfigError, match="torchrun"):
         t.train()
+
+
+def test_multihost_defaults_to_nccl():
+    """initialize() picks no CPU backend on its own: NCCL without a card
+    raises and names gloo."""
+    from shredword_tpu_torch.errors import ConfigError
+    from shredword_tpu_torch.parallel import multihost
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: NCCL is available")
+    with pytest.raises(ConfigError, match="gloo"):
+        multihost.initialize("tcp://localhost:1", world_size=1, rank=0)
+    assert not torch.distributed.is_initialized()
+
+
+def test_global_mesh_on_cpu_under_gloo(tmp_path):
+    """global_mesh("cpu") over a one-rank gloo world initialized with an
+    explicit backend; the sharded engines take its group."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.parallel import mesh as par_mesh
+    from shredword_tpu_torch.parallel import multihost
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized here")
+    multihost.initialize(f"file://{tmp_path / 'store'}", world_size=1,
+                         rank=0, backend="gloo")
+    try:
+        m = multihost.global_mesh("cpu")
+        assert m.device_type == "cpu" and m.size() == 1
+        assert par_mesh.process_group(m).size() == 1
+        tokens, word_id, wc = _rand_arrays(n_words=200)
+        got = hist.sharded_hist_train(tokens, word_id, wc, mesh=m,
+                                      target_merges=20, unk_id=-1,
+                                      min_pair_freq=2, device="cpu")
+        want = bpe_hist.hist_train(tokens, word_id, wc, target_merges=20,
+                                   unk_id=-1, min_pair_freq=2, device="cpu")
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    finally:
+        dist.destroy_process_group()

@@ -76,7 +76,8 @@ def test_merge_step_matches_jax(case):
     step = _jax_step(v, L, W)
     tw_j = jnp.asarray(c.tw)
     tw_t, wc_t, _ = bpe_hist.state_from_jax(c.tw, c.wcount,
-                                            np.zeros((v, v), np.int32))
+                                            np.zeros((v, v), np.int32),
+                                            device="cpu")
     hist = bpe_hist.init_hist(tw_t, wc_t, unk, v)
     a0, b0 = divmod(int(hist.view(-1).argmax()), v)
     pairs = [(a0, b0), (97, 97), (256, 97), (98, 97), (97, UNK),
@@ -153,7 +154,7 @@ def test_train_loop_matches_jax(unk, minf, max_steps, target, n_prev):
         unk, max(target, 1), v)._replace(n_merges=jnp.int32(n_prev))
     loop = bpe_hist.make_train_loop(v, L, W, target_merges=target,
                                     max_steps=max_steps)
-    ts = bpe_hist.hist_train_init(c, unk, target, v)._replace(
+    ts = bpe_hist.hist_train_init(c, unk, target, v, device="cpu")._replace(
         n_merges=n_prev)
     np.testing.assert_array_equal(ts.hist.numpy(), np.asarray(js.hist))
     for _ in range(8):
@@ -192,7 +193,8 @@ def test_presence_matches_jax():
     assert got.dtype == np.int8 and got.shape == (v, c.tw.shape[1] // 512)
     np.testing.assert_array_equal(got, want[:, 0, :].T)
     tw_t, wc_t, hist_t, pres_t = bpe_hist.state_from_jax(
-        c.tw, c.wcount, np.zeros((v, v), np.int32), presence=want)
+        c.tw, c.wcount, np.zeros((v, v), np.int32), device="cpu",
+        presence=want)
     np.testing.assert_array_equal(pres_t.numpy(), got)
     back = bpe_hist.state_to_jax(tw_t, wc_t, hist_t, presT=pres_t)
     np.testing.assert_array_equal(back[3], want)
@@ -211,7 +213,7 @@ def test_sparse_step_matches_jax(unk):
     pres_j = jnp.asarray(jax_hist.build_presence(c.tw, v))
     tw_j = jnp.asarray(c.tw)
     tw_t, wc_t, _, pres_t = bpe_hist.state_from_jax(
-        c.tw, c.wcount, np.zeros((v, v), np.int32),
+        c.tw, c.wcount, np.zeros((v, v), np.int32), device="cpu",
         presence=np.asarray(pres_j))
     pairs = [(ord("x"), ord("y")), (97, 97), (ord("y"), ord("z")),
              (ord("y"), ord("x")), (ord("z"), ord("x")), (256, 97),
@@ -247,8 +249,8 @@ def test_sparse_train_loop_matches_dense_loop():
                                      max_steps=9)
     sparse = bpe_hist.make_train_loop_sparse(v, L, W, target_merges=target,
                                              max_steps=9)
-    td = bpe_hist.hist_train_init(c, -1, target, v)
-    tsp = bpe_hist.hist_train_init(c, -1, target, v)
+    td = bpe_hist.hist_train_init(c, -1, target, v, device="cpu")
+    tsp = bpe_hist.hist_train_init(c, -1, target, v, device="cpu")
     pres = torch.tensor(bpe_hist.build_presence(c.tw, v))
     for _ in range(5):
         td = dense(td, -1, 2)
@@ -270,8 +272,9 @@ def test_sparse_hist_train_matches_jax_and_dense(seed):
     kw = dict(target_merges=30, unk_id=-1, min_pair_freq=2)
     want = jax_hist.hist_train(tokens, word_id, wc_word, interpret=True,
                                sparse=True, _cache={}, **kw)
-    got = bpe_hist.hist_train(tokens, word_id, wc_word, sparse=True, **kw)
-    dense = bpe_hist.hist_train(tokens, word_id, wc_word, **kw)
+    got = bpe_hist.hist_train(tokens, word_id, wc_word, sparse=True,
+                              device="cpu", **kw)
+    dense = bpe_hist.hist_train(tokens, word_id, wc_word, device="cpu", **kw)
     for w, g, d in zip(want, got, dense):
         np.testing.assert_array_equal(g, np.asarray(w))
         np.testing.assert_array_equal(g, d)
@@ -282,7 +285,7 @@ def test_sparse_hist_train_resume_and_progress():
     the JAX package); without, progress_cb sees every merge."""
     tokens, word_id, wc_word = _rand_corpus(7, n_words=200)
     kw = dict(target_merges=30, unk_id=-1, min_pair_freq=2,
-              max_steps_per_call=8)
+              max_steps_per_call=8, device="cpu")
     seen = []
     got = bpe_hist.hist_train(tokens, word_id, wc_word, sparse=True,
                               progress_cb=lambda m, f: seen.append(len(m)),

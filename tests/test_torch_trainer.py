@@ -262,3 +262,58 @@ def test_import_and_train_without_jax(tmp_path):
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "merges" in r.stdout and (tmp_path / "m.vocab").exists()
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+
+
+def _entry_calls():
+    from shredword_tpu_torch.ops import bpe_giant, bpe_hist, bpe_ops
+    from shredword_tpu_torch.parallel import hist as par_hist
+
+    tokens = np.array([97, 98, 97, 98], np.int32)
+    word_id = np.array([0, 0, 1, 1], np.int32)
+    wc = np.ones(2, np.int32)
+    kw = dict(target_merges=4, min_pair_freq=1)
+    c = bpe_hist.build_layout(tokens, word_id, wc, 64)
+    table = np.zeros((384, 384), np.int32)
+    return {
+        "hist_train": lambda: bpe_hist.hist_train(tokens, word_id, wc, **kw),
+        "giant_train": lambda: bpe_giant.giant_train(tokens, word_id, wc,
+                                                     **kw),
+        "sharded_hist_train": lambda: par_hist.sharded_hist_train(
+            tokens, word_id, wc, mesh=None, **kw),
+        "fused_hist_train": lambda: bpe_hist.fused_hist_train(
+            c, 384, target_merges=4, unk_id=-1, min_pair_freq=1,
+            steps_per_call=4),
+        "hist_train_init": lambda: bpe_hist.hist_train_init(c, -1, 4, 384),
+        "make_state": lambda: bpe_ops.make_state(tokens, word_id, wc),
+        "state_from_jax": lambda: bpe_hist.state_from_jax(c.tw, c.wcount,
+                                                          table),
+        "giant_state_from_jax": lambda: bpe_giant.giant_state_from_jax(
+            c.tw, c.wcount, table.reshape(384, 3, 128),
+            np.zeros((384, 1), np.int8), np.zeros((3, 128), np.int32)),
+        "shard_state_from_jax": lambda: par_hist.shard_state_from_jax(
+            c.tw, c.wcount, table, 0, 1),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_entry_calls()))
+def test_entry_point_defaults_to_the_card(entry):
+    """Called without ``device``, every op entry point runs on the card:
+    on a host without one it raises ConfigError instead of running on
+    the CPU."""
+    _no_card()
+    with pytest.raises(ConfigError, match="device='cpu'"):
+        _entry_calls()[entry]()
+
+
+def test_resolve_device_passes_the_cpu_through():
+    from shredword_tpu_torch.config import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    _no_card()
+    with pytest.raises(ConfigError, match="CUDA"):
+        resolve_device("cuda:0")

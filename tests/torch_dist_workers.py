@@ -95,13 +95,14 @@ def scenarios(corpus: str, arrays, tmp_dir: str) -> dict:
     tokens, word_id, wc_word = arrays
     out["engine"] = hist.sharded_hist_train(
         tokens, word_id, wc_word, mesh=dist.group.WORLD, target_merges=40,
-        unk_id=-1, min_pair_freq=2, max_steps_per_call=16)
+        unk_id=-1, min_pair_freq=2, max_steps_per_call=16, device="cpu")
     out["engine_resumed"] = hist.sharded_hist_train(
         *arrays_after(arrays, out["engine"][0][:9]), mesh=dist.group.WORLD,
-        target_merges=40, unk_id=-1, min_pair_freq=2, n_prev_merges=9)
+        target_merges=40, unk_id=-1, min_pair_freq=2, n_prev_merges=9,
+        device="cpu")
     out["shards"] = _trained(corpus, tmp_dir, "shards", shards=2)
     out["mesh"] = _trained(corpus, tmp_dir, "mesh",
-                           mesh=multihost.global_mesh())
+                           mesh=multihost.global_mesh("cpu"))
     cp = os.path.join(tmp_dir, f"half.r{dist.get_rank()}.ckpt")
     half = _trainer(corpus, shards=2)
     out["half"] = half.train(max_merges=12)
