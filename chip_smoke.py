@@ -39,28 +39,35 @@ Phases (any failure exits non-zero, and no result line is printed):
      port's flat engine on the card; whole-run ms per merge as in 3
   7. engine "giant" at the headline configuration (vocab 768): the bytes
      must equal the JAX golden digest, so hist == giant == flat there;
-     then one train() at vocab 768, 4096 and 32768 under torch.profiler:
-     kernel launches per wrapper call (must be 1) and the device busy
-     share
-  8. the per-merge step (K4) against its plain version on the card, step
-     for step inside the per-merge train loop, on seeded random corpora at
-     vocab 768 and 4096 (tokens, dl, dr and match counts identical), then
-     the first 128 merges of that loop on the bench layout, kernel and
-     plain, at vocab 768 and 4096, and the kernel's device time per step
-     with the device kept ahead of the host
-  9. the same for the sparse step (K5), presence included, plus a
-     min_pair_freq stop
+     then, over a world-size-1 NCCL group that phases 7-11 share, one
+     train() at vocab 768, 4096 and 32768, one hist_train(sparse=True)
+     and one sharded train() (NCCL world 1) at vocab 768 under
+     torch.profiler: kernel launches per wrapper call (the persistent
+     kernels: 1; K4's chain: its merges + 2) and the device busy share
+  8. K4's chain (hist_sharded_train: one cooperative launch and one
+     all_reduce per merge) against its plain version on the card, call by
+     call with a call past the end, on seeded random corpora at vocab 768
+     and 4096 (records, tokens and tables identical), then the first 128
+     merges in one call on the bench layout at vocab 768 and 4096: the
+     device ms per merge (the call enqueued behind a spin kernel), the
+     whole loop ms per merge (the host enqueueing it), the plain
+     version's, the launches of the call, and the bound from what the
+     merges move on this data (counted in a rerun)
+  9. the same for K5 (hist_sparse_train: one persistent launch per call),
+     presence included, plus a min_pair_freq stop
  10. hist_train(sparse=True) at the headline configuration: merges and
-     frequencies equal the dense engine's
+     frequencies equal the dense engine's; its whole-run ms per merge
  11. sharded BPETrainer at the headline configuration through the public
-     API: world size 1 on NCCL, then 2 gloo ranks on cuda:0 (spawned):
-     bytes equal the JAX golden digest; 2 ranks at vocab 4096: bytes equal
-     the fused hist engine's.  Each rank's first all_reduce (the
-     communicator's set-up) is timed apart from train()
- 12. the phase clocks: the hist kernel at vocab 768 and 4096 and the giant
-     kernel at 32768 (first 128 merges and the whole run), as the main
-     path calls them, once with each build from equal states: records and
-     state must be identical; prints the µs per merge of each phase
+     API: world size 1 on NCCL (its whole-run ms per merge), then 2 gloo
+     ranks on cuda:0 (spawned): bytes equal the JAX golden digest; 2
+     ranks at vocab 4096: bytes equal the fused hist engine's.  Each
+     group's first all_reduce (the communicator's set-up) is timed apart
+     from train()
+ 12. the phase clocks: the hist kernel at vocab 768 and 4096, K5 and K4's
+     chain at 768 and the giant kernel at 32768 (first 128 merges and the
+     whole run), as the main path calls them, once with each build from
+     equal states: records and state must be identical; prints the µs
+     per merge of each phase
 
 The corpus is generated here (make_corpus, the JAX bench's generator) and
 checked against its known digest.  The last lines of standard output are
@@ -105,11 +112,13 @@ CORPUS_SHA256 = ("0d4249769060f86272db067c48fda469"
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 RANK_TIMEOUT = 600
-# the phases of csrc/hist_fused.cu and csrc/giant.cu, in the order of their
-# enums; a "sync" phase is the wait in the grid barrier that ends the
-# phase before it
+# the phases of csrc/hist_table.cuh's loop (hist_fused.cu, and hist_step.cu's
+# sparse kernel) and of csrc/giant.cu, in the order of their enums; a "sync"
+# phase is the wait in the grid barrier that ends the phase before it
 HIST_PHASES = ["init", "init sync", "pick scan", "pick", "corpus",
                "corpus sync", "update rows", "update", "update sync"]
+# csrc/hist_step.cu's chain, per launch (one merge each)
+CHAIN_PHASES = ["apply rows", "apply", "apply sync", "pick", "corpus"]
 GIANT_PHASES = ["init", "init sync", "pick scan", "row read", "row sync",
                 "corpus", "corpus sync", "update rows", "update others",
                 "update", "update sync", "bounds"]
@@ -391,7 +400,7 @@ def reset_counts() -> None:
     from shredword_tpu_torch.ops import _kernels
 
     for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
-              _kernels.hist_merge_step, _kernels.hist_merge_step_sparse):
+              _kernels.hist_sharded_train, _kernels.hist_sparse_train):
         k.launches = 0
 
 
@@ -578,29 +587,32 @@ def phase_giant_vs_plain(device: torch.device, bench_layout) -> dict:
 # ---------------------------------------------------------------------
 
 class Timed:
-    """A step function that records CUDA events around each call (no
-    synchronisation inside the loop).  The per-merge loop is host-bound,
-    so the device waits for the host between the events and their span
-    is the host's time to enqueue the call; with ``lead`` a spin kernel
-    runs first, the call is enqueued while it spins, and the span is the
-    device's time for the call alone."""
+    """A function that records CUDA events around each call (no
+    synchronisation inside the loop).  Where the host enqueues more slowly
+    than the device runs, the device waits for the host between the
+    events and their span is the host's time to enqueue the call; with
+    ``lead`` cycles a spin kernel runs first, the call is enqueued while
+    it spins, and the span is the device's time for the call alone (when
+    the spin outlasts the enqueue: ``enqueue_ms`` is the host's time for
+    each call)."""
 
-    LEAD_CYCLES = 400_000          # ~0.2 ms at the H100's clock
-
-    def __init__(self, fn, lead: bool = False, keep: bool = False):
+    def __init__(self, fn, lead: int = 0, keep: bool = False):
         self.fn = fn
         self.lead = lead
         self.keep = keep
         self.events = []
+        self.enqueue_ms = []
         self.outs = []       # what fn returned, when keep
 
     def __call__(self, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if self.lead:
-            torch.cuda._sleep(self.LEAD_CYCLES)
+            torch.cuda._sleep(self.lead)
         start.record()
+        t0 = time.perf_counter()
         out = self.fn(*args, **kw)
+        self.enqueue_ms.append((time.perf_counter() - t0) * 1e3)
         end.record()
         self.events.append((start, end))
         if self.keep:
@@ -623,89 +635,86 @@ class Timed:
         return sum(s.elapsed_time(e) for s, e in self.events[:calls])
 
 
-def loop_train(step):
-    """The per-merge train loop (bpe_hist.merge_steps) with corpus step
-    `step`, in hist_fused_train's interface: state (tw, wc, hist[, presT])
-    updated in place, int32 [steps, 4] records."""
+SPIN_CYCLES = {"sparse": 2_000_000,     # ~1 ms: one launch to enqueue
+               "step": 60_000_000}      # ~30 ms: 130 launches, 128 reduces
+
+
+def step_kernels(sparse: bool):
+    """(name, wrapper, plain version, extra keywords) of K5 or of K4's
+    chain; K4 reduces over the initialized process group, as sharded
+    training does."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.ops import _kernels
+
+    if sparse:
+        return ("sparse", _kernels.hist_sparse_train,
+                _kernels.hist_sparse_train_plain, {})
+    return ("step", _kernels.hist_sharded_train,
+            _kernels.hist_sharded_train_plain, dict(reduce=dist.all_reduce))
+
+
+def step_state(layout, v, unk, device, sparse: bool) -> list[torch.Tensor]:
     from shredword_tpu_torch.ops import bpe_hist
 
-    def train(tw, wc, hist, *pres, **kw):
-        v = hist.shape[0]
-        return bpe_hist.merge_steps(
-            hist, lambda scal: step(tw, wc, *pres, scal, v=v), **kw)
-
-    return train
-
-
-def lockstep(layout, v, device, *, sparse, unk, min_freq, merges, steps):
-    """The kernel and its plain version in one per-merge loop: every
-    merge runs both on their own corpus copies with the same scalars, and
-    the deltas, match counts, tokens (and presence) must be identical.
-    The table follows the kernel.  Returns (max abs difference, merges
-    done)."""
-    from shredword_tpu_torch.ops import _kernels, bpe_hist
-
-    tw_k, wc, hist = hist_state(layout, v, unk, device)
-    tw_p = tw_k.clone()
-    pres = ()
+    st = hist_state(layout, v, unk, device)
     if sparse:
-        p = torch.tensor(bpe_hist.build_presence(layout.tw, v), device=device)
-        pres = (p, p.clone())
-        kernel = _kernels.hist_merge_step_sparse
-        plain = _kernels.hist_merge_step_sparse_plain
+        st.append(torch.tensor(bpe_hist.build_presence(layout.tw, v),
+                               device=device))
+    return st
+
+
+def step_cost(layout, v, device, *, sparse: bool, merges: int) -> dict:
+    """bound() per merge of the first `merges` merges of K5 or K4 on the
+    bench layout at vocab v, from what they move on this run's data,
+    counted in a rerun of one merge per call: the corpus pass reads every
+    token (K4) or the flagged chunks' tokens and the presence of a and b
+    in every chunk (K5, which also writes three presence bytes per flagged
+    chunk), and reads the weights and writes the tokens of the columns
+    that hold the pair; the update reads and writes every table cell that
+    changes; the record; K4 also writes dl | dr (int32 [2v]) for the
+    all-reduce and reads it back.  The tables and presence before and
+    after each merge show what changed.  A compare per token read."""
+    from shredword_tpu_torch.ops import bpe_hist
+
+    _, kernel, _, _ = step_kernels(sparse)
+    st = step_state(layout, v, HEADLINE["unk_id"], device, sparse)
+    tw, hist = st[0], st[2]
+    L, W = tw.shape
+    nc = W // bpe_hist.CHUNK
+    matched = flagged = cells = 0
+    for i in range(merges):
+        tw0, hist0 = tw.clone(), hist.clone()
+        pres0 = st[3].clone() if sparse else None
+        rec = kernel(*st, unk=HEADLINE["unk_id"],
+                     min_freq=HEADLINE["min_pair_freq"], n_done=i,
+                     init_done=0, allowed=1, steps=1)[0].tolist()
+        check(rec[3] == 1, "the step kernels merge through the window")
+        a, b = rec[:2]
+        matched += int(((tw0[:-1] == a) & (tw0[1:] == b)).any(0).sum())
+        cells += int((hist != hist0).sum())
+        if sparse:
+            flagged += int(((pres0[a] != 0) & (pres0[b] != 0)).sum())
+    mc, ch = matched / merges, flagged / merges
+    nbytes = mc * (2 * L + 4) + 8 * cells / merges + 16
+    if sparse:
+        read = ch * L * bpe_hist.CHUNK
+        nbytes += 2 * read + 2 * nc + 3 * ch
     else:
-        kernel = _kernels.hist_merge_step
-        plain = _kernels.hist_merge_step_plain
-    err = 0
-
-    def step(scal):
-        nonlocal err
-        dk = kernel(tw_k, wc, *pres[:1], scal, v=v)
-        dp = plain(tw_p, wc, *pres[1:], scal, v=v)
-        for a, b in [(dk, dp), (tw_k, tw_p)] + ([pres] if pres else []):
-            err = max(err, max_abs_diff(a, b))
-        return dk
-
-    def call(n_done, init_done, allowed, steps):
-        return bpe_hist.merge_steps(hist, step, unk=unk, min_freq=min_freq,
-                                    n_done=n_done, init_done=init_done,
-                                    allowed=allowed, steps=steps)
-
-    got, _, _ = bpe_hist.drive_calls(call, target_merges=merges, n_prev=0,
-                                     steps_per_call=steps)
-    if sparse:   # the presence stayed exact
-        exact = torch.tensor(bpe_hist.build_presence(tw_k.cpu().numpy(), v),
-                             device=device)
-        err = max(err, max_abs_diff(pres[0], exact))
-    return err, len(got)
-
-
-def counting(step):
-    """``step`` wrapped to count, before each merge it runs, the columns
-    that hold the pair (the ones the kernel rewrites and reads weights
-    for) and, for the sparse step, the chunks whose presence holds a and
-    b (the ones it reads): this run's data-dependent work."""
-    work = dict(matched=0, flagged=0)
-
-    def counted(tw, wc, *rest, v):
-        a, b, _, _, do = rest[-1].tolist()
-        if do:
-            work["matched"] += int(((tw[:-1] == a) & (tw[1:] == b))
-                                   .any(0).sum())
-            if len(rest) > 1:
-                p = rest[0]
-                work["flagged"] += int(((p[a] != 0) & (p[b] != 0)).sum())
-        return step(tw, wc, *rest, v=v)
-
-    return counted, work
+        read = L * W
+        nbytes += 2 * read + 2 * 4 * 2 * v
+    return dict(**bound(nbytes, read), matched=mc, flagged=ch,
+                cells=cells / merges)
 
 
 def phase_step_vs_plain(device, bench_layout, *, sparse: bool) -> dict:
-    """K4 (sparse=False) or K5 against its plain version; returns the
-    JSON timing record at vocab 768."""
-    from shredword_tpu_torch.ops import _kernels, bpe_hist
+    """K4's chain (sparse=False, over the world-size-1 NCCL group) or K5
+    against its plain version, call by call; then timed over the first
+    TIMED_MERGES merges on the bench layout at vocab 768 and 4096.
+    Returns the JSON timing record at vocab 768."""
+    from shredword_tpu_torch.ops import bpe_hist
 
-    name = "sparse" if sparse else "step"
+    name, kernel, plain, extra = step_kernels(sparse)
     unk = 122                                           # the byte 'z'
     cases = [(768, 2, 300, 128), (4096, 2, 400, 96)]
     if sparse:
@@ -713,72 +722,53 @@ def phase_step_vs_plain(device, bench_layout, *, sparse: bool) -> dict:
     for v, min_freq, merges, steps in cases:
         tokens, word_id, wc_word = random_corpus(v + 7, 20000, unk)
         layout = bpe_hist.build_layout(tokens, word_id, wc_word, 64)
-        err, n = lockstep(layout, v, device, sparse=sparse, unk=unk,
-                          min_freq=min_freq, merges=merges, steps=steps)
+        calls = Timed(kernel, keep=True)
+        n0 = kernel.launches
+        err, _, _, n = run_both(
+            lambda *st, **kw: calls(*st, **extra, **kw), plain,
+            lambda: step_state(layout, v, unk, device, sparse), device,
+            unk=unk, min_freq=min_freq, merges=merges, steps=steps)
+        per_call = (kernel.launches - n0) / len(calls.events)
         print(f"[{name}] random corpus v={v} min_freq={min_freq}: {n} "
-              f"merges in calls of {steps}, max |kernel - plain| = {err}")
+              f"merges in calls of {steps}, {per_call:.2f} launches per "
+              f"call, max |kernel - plain| = {err}")
         check(err == 0 and 0 < n and (n == merges) == (min_freq == 2),
               f"{name} kernel == plain at v={v}")
-    kernel = (_kernels.hist_merge_step_sparse if sparse
-              else _kernels.hist_merge_step)
-    plain = (_kernels.hist_merge_step_sparse_plain if sparse
-             else _kernels.hist_merge_step_plain)
     L, W = bench_layout.tw.shape
-    nc = W // bpe_hist.CHUNK
+    kw = dict(unk=HEADLINE["unk_id"], min_freq=HEADLINE["min_pair_freq"])
     timing = {}
     for v in (768, 4096):
-        tk, tp = Timed(kernel), Timed(plain)
-
         def state(v=v):
-            st = hist_state(bench_layout, v, HEADLINE["unk_id"], device)
-            if sparse:
-                st.append(torch.tensor(
-                    bpe_hist.build_presence(bench_layout.tw, v),
-                    device=device))
-            return st
+            return step_state(bench_layout, v, kw["unk"], device, sparse)
 
-        err, loop_k, loop_p, n = run_both(
-            loop_train(tk), loop_train(tp), state, device,
-            unk=HEADLINE["unk_id"], min_freq=HEADLINE["min_pair_freq"],
-            merges=TIMED_MERGES, steps=TIMED_MERGES)
+        err, loop_k, ms_p, n = run_both(
+            lambda *st, **ckw: kernel(*st, **extra, **ckw), plain, state,
+            device, merges=TIMED_MERGES, steps=TIMED_MERGES, **kw)
         check(err == 0 and n == TIMED_MERGES, f"{name} bench layout v={v}")
-        # the first n calls merged; run_both's past-the-end call follows
-        span_k, ms_p = tk.ms(n) / n, tp.ms(n) / n
-        # the kernel's device time: the same merges again, the device kept
-        # ahead of the host
-        td = Timed(kernel, lead=True)
-        again = dict(unk=HEADLINE["unk_id"],
-                     min_freq=HEADLINE["min_pair_freq"], n_done=0,
-                     init_done=0, allowed=n, steps=n)
-        loop_train(td)(*state(), **again)
-        ms_k = td.ms(n) / n
-        # the same merges once more, untimed, to count the work they need
-        counted, work = counting(kernel)
-        loop_train(counted)(*state(), **again)
-        mc = work["matched"] / n               # columns rewritten per merge
-        # per merge: scal and dl | dr | nm; the matched columns' weights
-        # read and tokens written; every token (K4) or the flagged chunks'
-        # tokens (K5) read, one compare each; K5 also reads presence of a
-        # and b for every chunk and writes three bytes per flagged chunk
-        common = 20 + 4 * (2 * v + 1) + mc * (2 * L + 4)
+        # the same merges again, the device kept ahead of the host
+        td = Timed(kernel, lead=SPIN_CYCLES[name])
+        n0 = kernel.launches
+        td(*state(), n_done=0, init_done=0, allowed=n, steps=n, **extra,
+           **kw)
+        launches = kernel.launches - n0
+        ms_k, enq = td.ms() / n, td.enqueue_ms[0]
+        spin_ms = elapsed_ms(lambda: torch.cuda._sleep(SPIN_CYCLES[name]),
+                             device)
+        check(enq < spin_ms, f"{name}: the spin outlasts the enqueue")
+        cost = step_cost(bench_layout, v, device, sparse=sparse, merges=n)
+        extra_txt = f", {cost['matched']:.1f} columns matched"
         if sparse:
-            ch = work["flagged"] / n           # chunks read per merge
-            cost = bound(common + 2 * nc + ch * (2 * L * bpe_hist.CHUNK + 3),
-                         ch * L * bpe_hist.CHUNK)
-            extra = f", {ch:.2f} of {nc} chunks read per merge"
-        else:
-            cost = bound(common + 2 * L * W, L * W)
-            extra = ""
-        extra += f", {mc:.1f} columns matched per merge"
-        timing[v] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, **cost,
-                         library_ms=None)
-        print(f"[{name}] bench layout {(L, W)} v={v}: first {n} merges of "
-              f"the per-merge loop, kernel step {ms_k:.6f} ms/merge on the "
-              f"device ({span_k:.4f} with the host enqueueing it), plain "
-              f"step {ms_p:.4f} ms/merge (bound {cost['bound_ms']:.6f} ms, "
-              f"{cost['bound_by']}{extra}); whole loop {loop_k / n:.4f} "
-              f"ms/merge with the kernel, {loop_p / n:.4f} with the plain "
-              f"step; max |kernel - plain| = {err}")
+            extra_txt += f", {cost['flagged']:.2f} of {W // 512} chunks read"
+        timing[v] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p / n,
+                         bound_ms=cost["bound_ms"],
+                         bound_by=cost["bound_by"], library_ms=None)
+        print(f"[{name}] bench layout {(L, W)} v={v}: first {n} merges in "
+              f"one call of {launches} launches; device {ms_k:.6f} ms/merge (enqueued in "
+              f"{enq:.3f} ms under a {spin_ms:.3f} ms spin), whole loop "
+              f"{loop_k / n:.6f} ms/merge, plain {ms_p / n:.4f} ms/merge; "
+              f"bound {cost['bound_ms']:.8f} ms ({cost['bound_by']}"
+              f"{extra_txt}, {cost['cells']:.1f} table cells changed per "
+              f"merge); max |kernel - plain| = {err}")
     return timing[768]
 
 
@@ -798,45 +788,79 @@ def busy_us(events) -> float:
 
 
 def phase_profile(corpus, device) -> None:
-    """One train() per main-path vocab under torch.profiler: the kernel
-    launches per wrapper call (the persistent kernels: 1) and the device
-    busy share of train()."""
+    """One train() per main-path vocab, hist_train(sparse=True) and the
+    sharded BPETrainer over the world-size-1 NCCL group at vocab 768,
+    each under torch.profiler: the kernel launches per wrapper call (the
+    persistent kernels: 1; K4's chain: its merges + 2) and the device
+    busy share of the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from shredword_tpu_torch import BPETrainer
-    from shredword_tpu_torch.ops import _kernels
+    from shredword_tpu_torch.ops import _kernels, bpe_hist
+    from shredword_tpu_torch.parallel import multihost
 
-    for vocab, cfg, wrapper, kernel in (
-            (768, HEADLINE, "hist_fused_train", "hist_train_kernel"),
-            (4096, HEADLINE, "hist_fused_train", "hist_train_kernel"),
-            (GIANT_VOCAB, GIANT, "giant_train_step", "giant_train_kernel")):
-        t = BPETrainer(target_vocab_size=vocab, backend="cuda",
-                       device=device, **cfg)
+    arrays = token_arrays(corpus, device, HEADLINE)
+    sparse_kw = dict(target_merges=768 - 256, unk_id=HEADLINE["unk_id"],
+                     min_pair_freq=HEADLINE["min_pair_freq"], device=device,
+                     lazy_final=True, sparse=True)
+    # tag, configuration (None: hist_train(sparse=True)), trainer
+    # keywords, wrapper, kernel name prefix
+    runs = [("vocab 768", (768, HEADLINE), {}, "hist_fused_train",
+             "hist_train_kernel"),
+            ("vocab 4096", (4096, HEADLINE), {}, "hist_fused_train",
+             "hist_train_kernel"),
+            (f"vocab {GIANT_VOCAB}", (GIANT_VOCAB, GIANT), {},
+             "giant_train_step", "giant_train_kernel"),
+            ("hist_train(sparse=True) vocab 768", None, {},
+             "hist_sparse_train", "sparse_train_kernel"),
+            ("sharded NCCL world 1 vocab 768", (768, HEADLINE),
+             dict(mesh=multihost.global_mesh()), "hist_sharded_train",
+             "chain_")]
+    for tag, cfg, tkw, wrapper, kernel in runs:
+        fn = getattr(_kernels, wrapper)
+        calls = Timed(fn)
+        t = None
+        if cfg is not None:
+            vocab, conf = cfg
+            t = BPETrainer(target_vocab_size=vocab, backend="cuda",
+                           device=device, **conf, **tkw)
         try:
-            t.load_corpus(corpus)
+            if t is not None:
+                t.load_corpus(corpus)
             torch.cuda.synchronize(device)
-            calls = getattr(_kernels, wrapper).launches
+            n0 = fn.launches
+            setattr(_kernels, wrapper, calls)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                t.train()
+                if t is None:
+                    merges = len(bpe_hist.hist_train(*arrays,
+                                                     **sparse_kw)[0])
+                else:
+                    merges = t.train()
                 torch.cuda.synchronize(device)
                 wall_us = (time.perf_counter() - t0) * 1e6
-            calls = getattr(_kernels, wrapper).launches - calls
         finally:
-            t.destroy()
+            setattr(_kernels, wrapper, fn)
+            if t is not None:
+                t.destroy()
+        launches, n_calls = fn.launches - n0, len(calls.events)
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         ours = [e for e in dev if kernel in e.name]
-        tag = f"[profile] vocab {vocab}"
-        check(len(dev) > 0, f"the profiler saw device events, vocab {vocab}")
-        print(f"{tag}: {len(ours)} {kernel} launches in {calls} {wrapper} "
-              f"calls ({len(ours) / max(calls, 1):.2f} per call), "
+        print(f"[profile] {tag}: {merges} merges, {len(ours)} {kernel}* "
+              f"launches in {n_calls} {wrapper} calls "
+              f"({len(ours) / max(n_calls, 1):.2f} per call), "
               f"{len(dev)} device events, device busy "
-              f"{busy_us(dev) / wall_us:.3f} of train() "
+              f"{busy_us(dev) / wall_us:.3f} of the run "
               f"({wall_us / 1e3:.2f} ms under the profiler), "
-              f"{kernel} {busy_us(ours) / 1e3:.2f} ms")
-        check(len(ours) == calls > 0, f"one {kernel} launch per call")
+              f"{kernel}* {busy_us(ours) / 1e3:.2f} ms")
+        check(len(dev) > 0, f"the profiler saw device events, {tag}")
+        chain = wrapper == "hist_sharded_train"
+        want = merges + 2 * n_calls if chain else n_calls
+        check(len(ours) == launches == want > 0,
+              f"{tag}: " + ("merges + 2 launches of the chain per call"
+                            if chain else "one kernel launch per call"))
 
 
 # ---------------------------------------------------------------------
@@ -845,25 +869,34 @@ def phase_profile(corpus, device) -> None:
 
 def phase_sparse_train(corpus, device) -> int:
     """hist_train(sparse=True) at the headline configuration; returns the
-    sparse step's launches in that run."""
+    K5 kernel's launches in that run (every count is set to 0 just before
+    it and read just after)."""
     from shredword_tpu_torch.ops import _kernels, bpe_hist
 
     tokens, word_id, wc_word = token_arrays(corpus, device, HEADLINE)
     kw = dict(target_merges=768 - 256, unk_id=HEADLINE["unk_id"],
               min_pair_freq=HEADLINE["min_pair_freq"], device=device,
               lazy_final=True)
+    timer = Timed(_kernels.hist_sparse_train)
     reset_counts()
     torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    sm, sf, _ = bpe_hist.hist_train(tokens, word_id, wc_word, sparse=True,
-                                    **kw)
-    torch.cuda.synchronize(device)
-    secs = time.perf_counter() - t0
-    launches = _kernels.hist_merge_step_sparse.launches
+    _kernels.hist_sparse_train = timer
+    try:
+        t0 = time.perf_counter()
+        sm, sf, _ = bpe_hist.hist_train(tokens, word_id, wc_word,
+                                        sparse=True, **kw)
+        torch.cuda.synchronize(device)
+        secs = time.perf_counter() - t0
+    finally:
+        _kernels.hist_sparse_train = timer.fn
+    launches = _kernels.hist_sparse_train.launches
     dm, df, _ = bpe_hist.hist_train(tokens, word_id, wc_word, **kw)
     print(f"[sparse] hist_train(sparse=True) vocab 768: {len(sm)} merges in "
-          f"{secs:.4f} s, {launches} hist_merge_step_sparse calls")
-    check(launches > 0, "the sparse path launched hist_merge_step_sparse")
+          f"{secs:.4f} s, {launches} hist_sparse_train launches in "
+          f"{len(timer.events)} calls, merge loop "
+          f"{timer.ms() / len(sm):.6f} ms per merge over the whole run "
+          f"(CUDA events around each call)")
+    check(launches > 0, "the sparse path launched hist_sparse_train")
     check(len(sm) == 512 and np.array_equal(sm, dm)
           and np.array_equal(sf, df), "sparse == dense merges and freqs")
     return launches
@@ -908,7 +941,7 @@ def sharded_rank(rank, world, store, corpus, vocab, out_dir, result, dev):
         n, secs, raw, _, model, vocab_b = train_and_save(
             corpus, out_dir, vocab, device, tag=f"_gloo{world}r{rank}",
             shards=world)
-        launches = _kernels.hist_merge_step.launches
+        launches = _kernels.hist_sharded_train.launches
     finally:
         dist.destroy_process_group()
     with open(result, "w") as f:
@@ -946,29 +979,31 @@ def run_gloo_ranks(corpus, out_dir, vocab, device, world=2) -> list[dict]:
 
 
 def phase_sharded(corpus, out_dir, device, golden, fused_4096,
-                  backend="nccl") -> int:
-    """Sharded BPETrainer through the public API; returns the per-merge
-    step's launches in the world-size-1 NCCL run at the headline."""
-    import torch.distributed as dist
-
+                  setup: float) -> int:
+    """Sharded BPETrainer through the public API over the initialized
+    world-size-1 NCCL group (its first all_reduce took `setup` s), then
+    in 2 spawned gloo ranks; returns the K4 chain's launches in the NCCL
+    run at the headline."""
     from shredword_tpu_torch.ops import _kernels
     from shredword_tpu_torch.parallel import multihost
 
-    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
-                         rank=0, backend=backend)
+    timer = Timed(_kernels.hist_sharded_train)
+    reset_counts()
+    _kernels.hist_sharded_train = timer
     try:
-        setup = first_collective(device)
-        reset_counts()
         n, secs, raw, _, model, vocab_b = train_and_save(
             corpus, out_dir, 768, device, tag="_nccl1",
             mesh=multihost.global_mesh())
-        launches = _kernels.hist_merge_step.launches
     finally:
-        dist.destroy_process_group()
-    print(f"[sharded] {backend} world 1, vocab 768: first all_reduce "
+        _kernels.hist_sharded_train = timer.fn
+    launches = _kernels.hist_sharded_train.launches
+    print(f"[sharded] nccl world 1, vocab 768: first all_reduce "
           f"{setup:.4f} s, then {n} merges, train {secs:.4f} s, "
-          f"{raw / 1e6 / secs:.3f} MB/s, {launches} hist_merge_step calls")
-    check(launches > 0, "sharded training launched hist_merge_step")
+          f"{raw / 1e6 / secs:.3f} MB/s, {launches} hist_sharded_train "
+          f"launches in {len(timer.events)} calls, merge loop "
+          f"{timer.ms() / n:.6f} ms per merge over the whole run (CUDA "
+          f"events around each call; the host enqueues the chain)")
+    check(launches > 0, "sharded training launched hist_sharded_train")
     check(hashlib.sha256(model).hexdigest() == golden["model_sha256"]
           and hashlib.sha256(vocab_b).hexdigest() == golden["vocab_sha256"]
           and n == golden["merges"], "NCCL world 1 == JAX golden digest")
@@ -981,7 +1016,7 @@ def phase_sharded(corpus, out_dir, device, golden, fused_4096,
                   f"first all_reduce {res['setup']:.4f} s, then "
                   f"{res['n']} merges, train {res['secs']:.4f} s, "
                   f"{res['raw'] / 1e6 / res['secs']:.3f} MB/s, "
-                  f"{res['launches']} hist_merge_step calls")
+                  f"{res['launches']} hist_sharded_train launches")
             check(res["launches"] > 0 and (res["model"], res["vocab"])
                   == want[vocab], f"2 gloo ranks, vocab {vocab}: bytes")
         print(f"[sharded] 2 gloo ranks, vocab {vocab}: bytes equal the "
@@ -1032,7 +1067,8 @@ def phase_clocks(device, clocked: str, hist_layout, giant_layout) -> None:
     from shredword_tpu_torch.ops import _kernels
 
     lib = _kernels.bind(clocked)
-    for name in ("shred_hist_phase_cycles", "shred_giant_phase_cycles"):
+    for name in ("shred_hist_phase_cycles", "shred_giant_phase_cycles",
+                 "shred_step_phase_cycles"):
         getattr(lib, name).argtypes = [ctypes.c_void_p]
         getattr(lib, name).restype = ctypes.c_int
     plain = _kernels.lib()
@@ -1042,9 +1078,18 @@ def phase_clocks(device, clocked: str, hist_layout, giant_layout) -> None:
     hist = ("hist_fused_train", "shred_hist_phase_cycles", HIST_PHASES, hkw)
     giant = ("giant_train_step", "shred_giant_phase_cycles", GIANT_PHASES,
              gkw)
+    sparse = ("hist_sparse_train", "shred_step_phase_cycles", HIST_PHASES,
+              hkw)
+    chain = ("hist_sharded_train", "shred_step_phase_cycles", CHAIN_PHASES,
+             hkw)
     cases = [(f"hist v {v}", hist, v - 256, 512,
               lambda v=v: hist_state(hist_layout, v, hkw["unk"], device))
              for v in (768, 4096)]
+    cases += [(f"{what} v 768", kernel, 512, 512,
+               lambda sp=sp: step_state(hist_layout, 768, hkw["unk"], device,
+                                        sp))
+              for what, kernel, sp in (("sparse", sparse, True),
+                                       ("chain", chain, False))]
     cases += [(f"giant v {GIANT_VOCAB} {what}", giant, merges, steps,
                lambda: giant_state(giant_layout, GIANT_VOCAB, gkw["unk"],
                                    device))
@@ -1069,7 +1114,10 @@ def phase_clocks(device, clocked: str, hist_layout, giant_layout) -> None:
         n = int(recs_c[:, 3].sum())
         check(err == 0 and n == merges,
               f"the phase-clock build equals the plain build, {tag}")
-        per_us = cycles[0].sum() / (ms * 1e3)          # cycles per µs
+        if wrapper != "hist_sharded_train":
+            per_us = cycles[0].sum() / (ms * 1e3)      # cycles per µs
+        # else the chain's host gaps lie between its launches: the clock
+        # rate of the persistent kernel before it
         print(f"[clocks] {tag}: {n} merges, clocked kernel {ms / n:.6f} ms "
               f"per merge, {len(cycles)} blocks at {per_us / 1e3:.3f} GHz, "
               f"records and state equal the plain build's")
@@ -1084,7 +1132,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
     from shredword_tpu_torch.ops import bpe_giant, bpe_hist
+    from shredword_tpu_torch.parallel import multihost
 
     device = torch.device("cuda", 0)
     card, clocked = phase_env()
@@ -1115,21 +1166,28 @@ def main() -> int:
             kernel="giant_train_step")[0]
         phase_main_path(corpus, tmp, 768, device, engine="giant",
                         kernel="giant_train_step", golden=golden)
-        phase_profile(corpus, device)
-        timing["step"] = phase_step_vs_plain(device, bench_layout,
-                                             sparse=False)
-        timing["sparse"] = phase_step_vs_plain(device, bench_layout,
-                                               sparse=True)
-        launches["sparse"] = phase_sparse_train(corpus, device)
-        launches["step"] = phase_sharded(corpus, tmp, device, golden,
-                                         fused_4096)
+        # the world-size-1 NCCL group of phases 7, 8 and 11
+        multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                             rank=0)
+        try:
+            setup = first_collective(device)
+            phase_profile(corpus, device)
+            timing["step"] = phase_step_vs_plain(device, bench_layout,
+                                                 sparse=False)
+            timing["sparse"] = phase_step_vs_plain(device, bench_layout,
+                                                   sparse=True)
+            launches["sparse"] = phase_sparse_train(corpus, device)
+            launches["step"] = phase_sharded(corpus, tmp, device, golden,
+                                             fused_4096, setup)
+        finally:
+            dist.destroy_process_group()
     phase_clocks(device, clocked, bench_layout, giant_layout)
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),
             (f"giant_train@v{GIANT_VOCAB}", "giant.cu", GIANT_VOCAB),
-            ("hist_merge_step@v768", "hist_step.cu", "step"),
-            ("hist_merge_step_sparse@v768", "hist_step.cu", "sparse")]
+            ("hist_sharded_train@v768", "hist_step.cu", "step"),
+            ("hist_sparse_train@v768", "hist_step.cu", "sparse")]
     kernels = [dict(name=name, route="cuda", source=src + f,
                     replaces=TPU_KERNEL[key], launches=launches[key],
                     **timing[key]) for name, f, key in rows]

@@ -36,7 +36,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # the persistent kernels read data that other blocks of the same launch
 # wrote: their global loads bypass the SMs' incoherent L1 caches
 SOURCE_FLAGS = {s: ["-Xptxas", "-dlcm=cg"]
-                for s in ("hist_fused.cu", "giant.cu")}
+                for s in ("hist_fused.cu", "giant.cu", "hist_step.cu")}
 
 _lib = None
 
@@ -110,10 +110,12 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_hist_fused_train.restype = i
     L.shred_giant_train.argtypes = [p] * 10 + [i] * 12 + [p]
     L.shred_giant_train.restype = i
-    L.shred_hist_merge_step.argtypes = [p] * 4 + [i] * 3 + [p]
-    L.shred_hist_merge_step.restype = i
-    L.shred_hist_merge_step_sparse.argtypes = [p] * 5 + [i] * 4 + [p]
-    L.shred_hist_merge_step_sparse.restype = i
+    L.shred_hist_sparse_train.argtypes = [p] * 8 + [i] * 10 + [p]
+    L.shred_hist_sparse_train.restype = i
+    L.shred_hist_chain_init.argtypes = [p] * 4 + [i] + [p]
+    L.shred_hist_chain_init.restype = i
+    L.shred_hist_chain_step.argtypes = [p] * 7 + [i] * 10 + [p]
+    L.shred_hist_chain_step.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
     return L
@@ -137,6 +139,56 @@ def _check(rc: int) -> None:
 # fused hist-engine merge loop
 # ---------------------------------------------------------------------
 
+def _check_hist_args(tw, wcount, hist, *, n_done, allowed, steps) -> None:
+    """The checks every hist-table wrapper makes: tw int16 [L, W],
+    wcount int32 [W], hist int32 [v, v], contiguous, on one device."""
+    L, W = tw.shape
+    v = hist.shape[0]
+    if tw.dtype != torch.int16 or wcount.dtype != torch.int32 \
+            or hist.dtype != torch.int32:
+        raise TypeError("tw must be int16, wcount and hist int32")
+    if wcount.shape != (W,) or hist.shape != (v, v):
+        raise ValueError(f"shape mismatch: tw {tuple(tw.shape)}, wcount "
+                         f"{tuple(wcount.shape)}, hist {tuple(hist.shape)}")
+    if not (tw.is_contiguous() and wcount.is_contiguous()
+            and hist.is_contiguous()):
+        raise ValueError("tw, wcount and hist must be contiguous")
+    if L not in (16, 32, 64):
+        raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
+    if 256 + n_done + min(steps, allowed) > v:
+        raise ValueError("merge ids would exceed the table size v")
+    if not (tw.device == wcount.device == hist.device):
+        raise ValueError("tw, wcount and hist must share one device")
+    if tw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tw.device}")
+    if tw.device.type == "cuda" and v % 4:
+        raise ValueError(f"the kernel needs v a multiple of 4, got {v}")
+
+
+def _launch_scratch(v: int, steps: int, dev,
+                    rowmax=None) -> tuple[torch.Tensor, ...]:
+    """rowmax int32 [2v] ((max, arg) per row; the caller's when given),
+    two delta buffers int32 [2, 2v] and records int32 [steps, 4] for a
+    hist-table kernel."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    if rowmax is None:
+        rowmax = torch.empty(2 * v, **i32)
+    elif rowmax.dtype != torch.int32 or rowmax.shape != (2 * v,) \
+            or rowmax.device != dev or not rowmax.is_contiguous():
+        raise ValueError(f"rowmax must be contiguous int32 [{2 * v}] on "
+                         f"{dev}")
+    return (rowmax, torch.empty((2, 2 * v), **i32),
+            torch.empty((steps, 4), **i32))
+
+
+def table_rowmax_plain(hist: torch.Tensor) -> torch.Tensor:
+    """int32 [2v]: the (max, smallest column holding it) of every row of
+    hist int32 [v, v], interleaved, as the hist-table kernels keep it."""
+    m = hist.amax(1)
+    arg = (hist == m[:, None]).int().argmax(1).int()
+    return torch.stack([m, arg], 1).reshape(-1)
+
+
 def hist_fused_train(tw: torch.Tensor, wcount: torch.Tensor,
                      hist: torch.Tensor, *, unk: int, min_freq: int,
                      n_done: int, init_done: int, allowed: int,
@@ -156,42 +208,20 @@ def hist_fused_train(tw: torch.Tensor, wcount: torch.Tensor,
     ``csrc/hist_fused.cu``: one persistent launch for all ``steps``
     (bound by the grid barriers of each merge's chain, see its
     header)."""
+    kw = dict(n_done=n_done, allowed=allowed, steps=steps)
+    _check_hist_args(tw, wcount, hist, **kw)
+    if tw.device.type == "cpu":
+        return hist_fused_train_plain(tw, wcount, hist, unk=unk,
+                                      min_freq=min_freq,
+                                      init_done=init_done, **kw)
     L, W = tw.shape
     v = hist.shape[0]
-    if tw.dtype != torch.int16 or wcount.dtype != torch.int32 \
-            or hist.dtype != torch.int32:
-        raise TypeError("tw must be int16, wcount and hist int32")
-    if wcount.shape != (W,) or hist.shape != (v, v):
-        raise ValueError(f"shape mismatch: tw {tuple(tw.shape)}, wcount "
-                         f"{tuple(wcount.shape)}, hist {tuple(hist.shape)}")
-    if not (tw.is_contiguous() and wcount.is_contiguous()
-            and hist.is_contiguous()):
-        raise ValueError("tw, wcount and hist must be contiguous")
-    if L not in (16, 32, 64):
-        raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
-    if 256 + n_done + min(steps, allowed) > v:
-        raise ValueError("merge ids would exceed the table size v")
-    if not (tw.device == wcount.device == hist.device):
-        raise ValueError("tw, wcount and hist must share one device")
-    if tw.device.type == "cpu":
-        return hist_fused_train_plain(
-            tw, wcount, hist, unk=unk, min_freq=min_freq, n_done=n_done,
-            init_done=init_done, allowed=allowed, steps=steps)
-    if tw.device.type != "cuda":
-        raise ValueError(f"unsupported device {tw.device}")
-    if v % 4:
-        raise ValueError(f"the kernel needs v a multiple of 4, got {v}")
-    dev = tw.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    rowmax = torch.empty(2 * v, **i32)       # (max, arg) per row
-    dl = torch.empty(2 * v, **i32)           # two buffers used in turn
-    dr = torch.empty(2 * v, **i32)
-    records = torch.empty((steps, 4), **i32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    rowmax, d, records = _launch_scratch(v, steps, tw.device)
+    with torch.cuda.device(tw.device):
+        stream = torch.cuda.current_stream(tw.device).cuda_stream
         rc = lib().shred_hist_fused_train(
             tw.data_ptr(), wcount.data_ptr(), hist.data_ptr(),
-            rowmax.data_ptr(), dl.data_ptr(), dr.data_ptr(),
+            rowmax.data_ptr(), d[0].data_ptr(), d[1].data_ptr(),
             records.data_ptr(), L, W, v, steps, unk, min_freq, n_done,
             init_done, allowed, stream)
     _check(rc)
@@ -202,34 +232,60 @@ def hist_fused_train(tw: torch.Tensor, wcount: torch.Tensor,
 hist_fused_train.launches = 0
 
 
-def hist_fused_train_plain(tw, wcount, hist, *, unk, min_freq, n_done,
-                           init_done, allowed, steps) -> torch.Tensor:
-    """Plain PyTorch version of :func:`hist_fused_train`: the closed-form
-    select/compact/delta pass over the whole [L, W] corpus and the
-    apply_hist_updates table update, one merge at a time."""
-    v = hist.shape[0]
-    records = torch.zeros((steps, 4), dtype=torch.int32, device=tw.device)
-    done = bool(init_done)
+def apply_hist_updates(hist: torch.Tensor, a: int, b: int, new: int,
+                       dl: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
+    """The five exact table updates of a merge, in place and in the JAX
+    order (bpe_hist.py:251-259): column a -= dl, column new += dl, row
+    b -= dr, row new += dr, cell (a, b) = 0.  The order matters when
+    a == b or a neighbour is a or b."""
+    hist[:, a] -= dl
+    hist[:, new] += dl
+    hist[b, :] -= dr
+    hist[new, :] += dr
+    hist[a, b] = 0
+    return hist
+
+
+def merge_steps(hist: torch.Tensor, step, *, min_freq: int, n_done: int,
+                init_done: int, allowed: int, steps: int) -> torch.Tensor:
+    """The plain version of every hist-table kernel's merge loop:
+    ``steps`` greedy merges, each the pick, ``step(a, b, new) -> (dl,
+    dr)`` (the corpus pass; int32 [v] each) and
+    :func:`apply_hist_updates`.
+
+    The pick is the JAX one (``make_train_loop``): the argmax over the
+    thresholded flat table, ties to the smallest flat index, i.e. the
+    smallest row of the largest thresholded row maximum, then its
+    smallest column.  Merge step i creates id 256 + n_done + i.  Returns
+    int32 [steps, 4] records (a, b, freq, did): from the first step that
+    cannot merge on, (0, 0, freq, 0), as nothing changes any more."""
+    records = torch.zeros((steps, 4), dtype=torch.int32, device=hist.device)
     for i in range(steps):
         rm = hist.amax(1)
         rm = torch.where(rm >= min_freq, rm, 0)
         m = int(rm.max())
-        do = m > 0 and not done and i < allowed
-        if not do:
-            # nothing changes any more: every later step picks the same
+        if not (m > 0 and not init_done and i < allowed):
             records[i:, 2] = m
             break
         a = int((rm == m).nonzero()[0, 0])          # smallest row
         b = int((hist[a] == m).nonzero()[0, 0])     # then smallest column
         new = 256 + n_done + i
         records[i] = torch.tensor([a, b, m, 1], dtype=torch.int32)
-        dl, dr, _ = merge_pass_plain(tw, wcount, a, b, new, unk, v)
-        hist[:, a] -= dl
-        hist[:, new] += dl
-        hist[b, :] -= dr
-        hist[new, :] += dr
-        hist[a, b] = 0
+        apply_hist_updates(hist, a, b, new, *step(a, b, new))
     return records
+
+
+def hist_fused_train_plain(tw, wcount, hist, *, unk, min_freq, n_done,
+                           init_done, allowed, steps) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_fused_train`: the closed-form
+    select/compact/delta pass over the whole [L, W] corpus inside
+    :func:`merge_steps`."""
+    v = hist.shape[0]
+    return merge_steps(
+        hist, lambda a, b, new: merge_pass_plain(tw, wcount, a, b, new, unk,
+                                                 v)[:2],
+        min_freq=min_freq, n_done=n_done, init_done=init_done,
+        allowed=allowed, steps=steps)
 
 
 def _shift_down(x: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -432,93 +488,12 @@ def giant_train_step_plain(tw, wcount, hist, presT, rowmax, *, unk,
 
 
 # ---------------------------------------------------------------------
-# per-merge hist step (one given merge over the corpus) and its sparse
-# variant
+# the sparse merge loop (K5) and the sharded merge chain (K4)
 # ---------------------------------------------------------------------
 
-def _check_step_args(tw, wcount, scal, v):
+def _check_presence(tw, hist, presT) -> None:
     L, W = tw.shape
-    if tw.dtype != torch.int16 or wcount.dtype != torch.int32 \
-            or scal.dtype != torch.int32:
-        raise TypeError("tw must be int16, wcount and scal int32")
-    if wcount.shape != (W,) or scal.shape != (5,):
-        raise ValueError(f"shape mismatch: tw {tuple(tw.shape)}, wcount "
-                         f"{tuple(wcount.shape)}, scal {tuple(scal.shape)}")
-    if not (tw.is_contiguous() and wcount.is_contiguous()):
-        raise ValueError("tw and wcount must be contiguous")
-    if L not in (16, 32, 64):
-        raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
-    if v < 256:
-        raise ValueError(f"table size v must be >= 256, got {v}")
-    if not (tw.device == wcount.device == scal.device):
-        raise ValueError("tw, wcount and scal must share one device")
-    if tw.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {tw.device}")
-
-
-def hist_merge_step(tw: torch.Tensor, wcount: torch.Tensor,
-                    scal: torch.Tensor, *, v: int) -> torch.Tensor:
-    """One given merge (a, b) -> new over the corpus, tw in place.
-
-    Replaces ``shredword_tpu.ops.bpe_hist._merge_kernel``
-    (``make_merge_step``): tw int16 [L, W] (one word per column, PAD
-    after it), wcount int32 [W], scal int32 [5] = (a, b, new, unk, do) on
-    tw's device: the TPU kernel's ``scal`` plus a do flag that the train
-    loop computes on the device (do == 0 changes nothing, as the JAX
-    loop's ``lax.cond`` skips the step).  Ids must be below v.  Returns
-    int32 [2v + 1] = dl ‖ dr ‖ nm: the left and right neighbour weights
-    of the merged occurrences and their number (dl ‖ dr is the one
-    buffer the sharded engine all-reduces).
-
-    CPU tensors run :func:`hist_merge_step_plain`; CUDA tensors run
-    ``csrc/hist_step.cu``."""
-    _check_step_args(tw, wcount, scal, v)
-    if tw.device.type == "cpu":
-        return hist_merge_step_plain(tw, wcount, scal, v=v)
-    L, W = tw.shape
-    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
-    with torch.cuda.device(tw.device):
-        stream = torch.cuda.current_stream(tw.device).cuda_stream
-        rc = lib().shred_hist_merge_step(
-            tw.data_ptr(), wcount.data_ptr(), scal.data_ptr(),
-            out.data_ptr(), L, W, v, stream)
-    _check(rc)
-    hist_merge_step.launches += 1
-    return out
-
-
-hist_merge_step.launches = 0
-
-
-def hist_merge_step_plain(tw, wcount, scal, *, v) -> torch.Tensor:
-    """Plain PyTorch version of :func:`hist_merge_step`: the closed-form
-    select/compact/delta pass over the whole [L, W] corpus."""
-    a, b, new, unk, do = scal.tolist()
-    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
-    if do:
-        dl, dr, nm = merge_pass_plain(tw, wcount, a, b, new, unk, v)
-        out[:v], out[v:2 * v], out[2 * v] = dl, dr, nm
-    return out
-
-
-def hist_merge_step_sparse(tw: torch.Tensor, wcount: torch.Tensor,
-                           presT: torch.Tensor, scal: torch.Tensor, *,
-                           v: int) -> torch.Tensor:
-    """:func:`hist_merge_step` over only the CHUNK-column chunks whose
-    presence holds both a and b; tw and presT in place.
-
-    Replaces ``shredword_tpu.ops.bpe_hist._merge_kernel_sparse``
-    (``make_merge_step_sparse``).  presT int8 [v, NC], W = NC * CHUNK:
-    1 iff the id occurs in the chunk, exact (``bpe_hist.build_presence``;
-    the JAX package keeps int32 [NC, 8, v] with 8 equal rows).  Every
-    chunk that holds a and b gets its presence rewritten after the merge,
-    as the TPU kernel does; the other chunks are not read.  Returns
-    int32 [2v + 1] = dl ‖ dr ‖ nm.
-
-    CPU tensors run :func:`hist_merge_step_sparse_plain`; CUDA tensors
-    run ``csrc/hist_step.cu``."""
-    _check_step_args(tw, wcount, scal, v)
-    L, W = tw.shape
+    v = hist.shape[0]
     if presT.dtype != torch.int8 or presT.shape != (v, W // CHUNK) \
             or W % CHUNK or not presT.is_contiguous():
         raise ValueError(f"presT must be contiguous int8 [v, W / {CHUNK}] "
@@ -526,33 +501,153 @@ def hist_merge_step_sparse(tw: torch.Tensor, wcount: torch.Tensor,
                          f"{tuple(tw.shape)}, presT {tuple(presT.shape)}")
     if presT.device != tw.device:
         raise ValueError("tw and presT must share one device")
+
+
+def hist_sparse_train(tw: torch.Tensor, wcount: torch.Tensor,
+                      hist: torch.Tensor, presT: torch.Tensor, *, unk: int,
+                      min_freq: int, n_done: int, init_done: int,
+                      allowed: int, steps: int,
+                      rowmax: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`hist_fused_train` whose corpus pass reads only the
+    CHUNK-column chunks whose presence holds both a and b; tw, hist and
+    presT in place, the same records.
+
+    Replaces the loop of ``shredword_tpu.ops.bpe_hist.make_train_loop_sparse``
+    around ``_merge_kernel_sparse`` (``make_merge_step_sparse``).  presT
+    int8 [v, NC], W = NC * CHUNK: 1 iff the id occurs in the chunk, exact
+    (``bpe_hist.build_presence``; the JAX package keeps int32 [NC, 8, v]
+    with 8 equal rows).  Every chunk that holds a and b gets the presence
+    of a, b and new rewritten after the merge, as the TPU kernel does; the
+    other chunks are not read.
+
+    CPU tensors run :func:`hist_sparse_train_plain`; CUDA tensors run
+    ``csrc/hist_step.cu``: one persistent launch for all ``steps``.  A
+    given ``rowmax`` (int32 [2v] on the card) holds the rows' (max, arg)
+    after the call."""
+    kw = dict(n_done=n_done, allowed=allowed, steps=steps)
+    _check_hist_args(tw, wcount, hist, **kw)
+    _check_presence(tw, hist, presT)
     if tw.device.type == "cpu":
-        return hist_merge_step_sparse_plain(tw, wcount, presT, scal, v=v)
-    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
+        records = hist_sparse_train_plain(tw, wcount, hist, presT, unk=unk,
+                                          min_freq=min_freq,
+                                          init_done=init_done, **kw)
+        if rowmax is not None:
+            rowmax.copy_(table_rowmax_plain(hist))
+        return records
+    L, W = tw.shape
+    v = hist.shape[0]
+    rowmax, d, records = _launch_scratch(v, steps, tw.device, rowmax)
     with torch.cuda.device(tw.device):
         stream = torch.cuda.current_stream(tw.device).cuda_stream
-        rc = lib().shred_hist_merge_step_sparse(
-            tw.data_ptr(), wcount.data_ptr(), presT.data_ptr(),
-            scal.data_ptr(), out.data_ptr(), L, W, v, W // CHUNK, stream)
+        rc = lib().shred_hist_sparse_train(
+            tw.data_ptr(), wcount.data_ptr(), hist.data_ptr(),
+            presT.data_ptr(), rowmax.data_ptr(), d[0].data_ptr(),
+            d[1].data_ptr(), records.data_ptr(), L, W, v, W // CHUNK, steps,
+            unk, min_freq, n_done, init_done, allowed, stream)
     _check(rc)
-    hist_merge_step_sparse.launches += 1
-    return out
+    hist_sparse_train.launches += 1
+    return records
 
 
-hist_merge_step_sparse.launches = 0
+hist_sparse_train.launches = 0
 
 
-def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
-                                 v) -> torch.Tensor:
-    """Plain PyTorch version of :func:`hist_merge_step_sparse`: the
-    flagged chunks' columns are gathered, run through
-    :func:`merge_pass_plain` and scattered back, and their presence is
-    rebuilt over every id, as the TPU kernel rebuilds it
-    (bpe_hist.py:330-339)."""
-    a, b, new, unk, do = scal.tolist()
-    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
-    if not do:
-        return out
+def hist_sparse_train_plain(tw, wcount, hist, presT, *, unk, min_freq,
+                            n_done, init_done, allowed,
+                            steps) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_sparse_train`:
+    :func:`sparse_pass_plain` inside :func:`merge_steps`."""
+    v = hist.shape[0]
+    return merge_steps(
+        hist, lambda a, b, new: sparse_pass_plain(tw, wcount, presT, a, b,
+                                                  new, unk, v)[:2],
+        min_freq=min_freq, n_done=n_done, init_done=init_done,
+        allowed=allowed, steps=steps)
+
+
+def hist_sharded_train(tw: torch.Tensor, wcount: torch.Tensor,
+                       hist: torch.Tensor, *, reduce=None, unk: int,
+                       min_freq: int, n_done: int, init_done: int,
+                       allowed: int, steps: int,
+                       rowmax: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`hist_fused_train` on one rank's column block of the corpus
+    with the replicated table: every merge's deltas dl ‖ dr (int32 [2v])
+    go through ``reduce`` (in place, e.g. ``torch.distributed.all_reduce``
+    over the ranks; None for a single rank) before the table update, so
+    every rank keeps the same table and picks alike.  tw and hist in
+    place, the same records.
+
+    Replaces the loop of ``shredword_tpu.parallel.hist`` (and of
+    ``shredword_tpu.ops.bpe_hist.make_train_loop``) around
+    ``_merge_kernel`` (``make_merge_step``).
+
+    CPU tensors run :func:`hist_sharded_train_plain`; CUDA tensors run
+    ``csrc/hist_step.cu``'s chain: one launch that builds the rows'
+    (max, arg), then per merge one cooperative launch and ``reduce`` on
+    the current stream, then one launch that applies the last merge;
+    nothing waits for the device.  Every launch counts.  A given
+    ``rowmax`` holds the rows' (max, arg) after the call."""
+    kw = dict(n_done=n_done, allowed=allowed, steps=steps)
+    _check_hist_args(tw, wcount, hist, **kw)
+    if tw.device.type == "cpu":
+        records = hist_sharded_train_plain(tw, wcount, hist, reduce=reduce,
+                                           unk=unk, min_freq=min_freq,
+                                           init_done=init_done, **kw)
+        if rowmax is not None:
+            rowmax.copy_(table_rowmax_plain(hist))
+        return records
+    L, W = tw.shape
+    v = hist.shape[0]
+    rowmax, d, records = _launch_scratch(v, steps, tw.device, rowmax)
+    state = torch.empty(8, dtype=torch.int32, device=tw.device)
+    bufs = d.unbind(0)
+    k = lib()
+    with torch.cuda.device(tw.device):
+        stream = torch.cuda.current_stream(tw.device).cuda_stream
+        _check(k.shred_hist_chain_init(hist.data_ptr(), rowmax.data_ptr(),
+                                       d.data_ptr(), state.data_ptr(), v,
+                                       stream))
+        hist_sharded_train.launches += 1
+        head = (tw.data_ptr(), wcount.data_ptr(), hist.data_ptr(),
+                rowmax.data_ptr(), d.data_ptr(), state.data_ptr(),
+                records.data_ptr(), L, W, v)
+        tail = (steps, unk, min_freq, n_done, init_done, allowed, stream)
+        for i in range(steps + 1):
+            _check(k.shred_hist_chain_step(*head, i, *tail))
+            hist_sharded_train.launches += 1
+            if reduce is not None and i < steps:
+                reduce(bufs[i & 1])
+    return records
+
+
+hist_sharded_train.launches = 0
+
+
+def hist_sharded_train_plain(tw, wcount, hist, *, reduce=None, unk,
+                             min_freq, n_done, init_done, allowed,
+                             steps) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_sharded_train`:
+    :func:`merge_pass_plain` on this rank's columns, ``reduce`` of dl ‖ dr,
+    inside :func:`merge_steps`."""
+    v = hist.shape[0]
+
+    def step(a, b, new):
+        dl, dr, _ = merge_pass_plain(tw, wcount, a, b, new, unk, v)
+        if reduce is None:
+            return dl, dr
+        d = torch.cat([dl, dr])
+        reduce(d)
+        return d[:v], d[v:]
+
+    return merge_steps(hist, step, min_freq=min_freq, n_done=n_done,
+                       init_done=init_done, allowed=allowed, steps=steps)
+
+
+def sparse_pass_plain(tw, wcount, presT, a, b, new, unk, v):
+    """:func:`merge_pass_plain` over only the chunks whose presence holds
+    a and b: their columns are gathered, merged and scattered back, and
+    their presence is rebuilt over every id, as the TPU kernel rebuilds
+    it (bpe_hist.py:330-339); returns (dl, dr, nm)."""
     L = tw.shape[0]
     chunks = ((presT[a] != 0) & (presT[b] != 0)).nonzero()[:, 0]
     cols = (chunks[:, None] * CHUNK
@@ -565,5 +660,37 @@ def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
     ok = (t >= 0) & (t < v)
     presT[:, chunks] = 0
     presT[t[ok], which[ok]] = 1
-    out[:v], out[v:2 * v], out[2 * v] = dl, dr, nm
+    return dl, dr, nm
+
+
+def _step_out(tw, pass_, scal, v) -> torch.Tensor:
+    """int32 [2v + 1] = dl ‖ dr ‖ nm of ``pass_(a, b, new, unk)`` for scal
+    = (a, b, new, unk, do); zeros when do == 0."""
+    a, b, new, unk, do = scal.tolist()
+    out = torch.zeros(2 * v + 1, dtype=torch.int32, device=tw.device)
+    if do:
+        dl, dr, nm = pass_(a, b, new, unk)
+        out[:v], out[v:2 * v], out[2 * v] = dl, dr, nm
     return out
+
+
+def hist_merge_step_plain(tw, wcount, scal, *, v) -> torch.Tensor:
+    """One given merge over the corpus, tw in place: the plain form of
+    ``shredword_tpu.ops.bpe_hist._merge_kernel`` (``make_merge_step``),
+    the corpus pass of :func:`hist_sharded_train`.  scal int32 [5] =
+    (a, b, new, unk, do); do == 0 changes nothing, as the JAX loop's
+    ``lax.cond`` skips the step.  Returns int32 [2v + 1] = dl ‖ dr ‖ nm:
+    the left and right neighbour weights of the merged occurrences and
+    their number."""
+    return _step_out(tw, lambda a, b, new, unk: merge_pass_plain(
+        tw, wcount, a, b, new, unk, v), scal, v)
+
+
+def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
+                                 v) -> torch.Tensor:
+    """:func:`hist_merge_step_plain` over only the chunks whose presence
+    holds a and b, tw and presT in place: the plain form of
+    ``_merge_kernel_sparse`` (``make_merge_step_sparse``), the corpus pass
+    of :func:`hist_sparse_train`."""
+    return _step_out(tw, lambda a, b, new, unk: sparse_pass_plain(
+        tw, wcount, presT, a, b, new, unk, v), scal, v)

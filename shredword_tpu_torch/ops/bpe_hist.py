@@ -9,15 +9,15 @@
            ``_kernels.hist_fused_train`` (CUDA on the card, its plain
            PyTorch version on the CPU); the host reads 16 bytes of
            record per merge once per call.  The main path.
-  per-merge  ``merge_steps``: the pick and the table update as PyTorch
-           ops on the device and the corpus pass as one kernel per merge
-           (``_kernels.hist_merge_step``, K4), with no host round trip
-           inside a call; the per-shard step of sharded training
-           (``parallel/hist.py``).  With the chunk-skipping step
-           (``hist_merge_step_sparse``, K5) it runs behind
-           ``hist_train(sparse=True)``.  ``make_train_loop`` and
-           ``make_train_loop_sparse`` are the JAX package's per-call
-           forms of the same loops.
+  sparse   ``hist_train(sparse=True)``: the same loop with a corpus pass
+           over only the chunks whose presence holds the pair
+           (``_kernels.hist_sparse_train``, K5, one persistent launch
+           per call)
+  sharded  ``parallel/hist.py``: the merge chain on one rank's columns
+           with an all-reduce of the deltas per merge
+           (``_kernels.hist_sharded_train``, K4, one launch per merge).
+           ``make_train_loop`` and ``make_train_loop_sparse`` are the
+           JAX package's per-call forms of the K4 and K5 loops.
 
 Merge sequences, frequencies and final corpora are identical to the JAX
 package's hist engine and to the flat engine (lex tie-break, greedy
@@ -228,78 +228,21 @@ def fused_hist_train(c: HistCorpus, v: int, *, target_merges: int,
 # per-merge train loops (K4, K5)
 # ---------------------------------------------------------------------
 
-def apply_hist_updates(hist: torch.Tensor, a, b, new, dl: torch.Tensor,
-                       dr: torch.Tensor, do=1) -> torch.Tensor:
-    """The five exact table updates of a merge, in place and in the JAX
-    order (bpe_hist.py:251-259): column a -= dl, column new += dl, row
-    b -= dr, row new += dr, cell (a, b) = 0.  The order matters when
-    a == b or a neighbour is a or b.  a, b, new and do may be ints or
-    int tensors on hist's device (then nothing waits for the device);
-    do == 0 keeps the cell (the merge did not run, so dl and dr are 0)."""
-    v = hist.shape[0]
-    a, b, new, do = (torch.as_tensor(x, device=hist.device).reshape(1)
-                     .long() for x in (a, b, new, do))
-    hist.index_add_(1, a, -dl.view(v, 1))
-    hist.index_add_(1, new, dl.view(v, 1))
-    hist.index_add_(0, b, -dr.view(1, v))
-    hist.index_add_(0, new, dr.view(1, v))
-    flat = hist.view(-1)
-    cell = a * v + b
-    flat.index_copy_(0, cell, flat[cell] * (1 - do).to(hist.dtype))
-    return hist
-
-
-def merge_steps(hist: torch.Tensor, step: Callable, *, unk: int,
-                min_freq: int, n_done: int, init_done: int, allowed: int,
-                steps: int) -> torch.Tensor:
-    """``steps`` greedy merges with the pick and the table update as
-    PyTorch ops on hist's device and the corpus pass in ``step``; the
-    scalars (a, b, new, count, done) stay on the device, so nothing waits
-    for it inside a call, as in the JAX ``while_loop``.
-
-    The pick is the JAX one (``make_train_loop``): the argmax over the
-    thresholded flat table, ties to the smallest flat index.
-    ``step(scal)`` merges scal = int32 [5] (a, b, new, unk, do) over the
-    corpus and returns int32 dl ‖ dr (‖ nm) of length >= 2v.  Merge step
-    i creates id 256 + n_done + i.  Returns int32 [steps, 4] records
-    (a, b, freq, did) on hist's device, with the :func:`drive_calls`
-    contract: did == 0 from the first step that could not merge on."""
-    v = hist.shape[0]
-    if 256 + n_done + min(steps, allowed) > v:
-        raise ValueError("merge ids would exceed the table size v")
-    dev = hist.device
-    flat = hist.view(-1)
-    # ids of steps that cannot merge are clamped: they only index zeros
-    news = torch.arange(256 + n_done, 256 + n_done + steps,
-                        dtype=torch.int32).clamp_(max=v - 1).to(dev)
-    unk_t = torch.tensor(unk, dtype=torch.int32).to(dev)
-    done = torch.tensor(bool(init_done)).to(dev)
-    records = torch.empty((steps, 4), dtype=torch.int32, device=dev)
-    for i in range(steps):
-        cnt, best = torch.where(flat >= min_freq, flat, 0).max(0)
-        do = (cnt > 0) & ~done if i < allowed else torch.zeros_like(done)
-        done = ~do
-        best = best.int()
-        scal = torch.stack([best // v, best % v, news[i], unk_t, do.int()])
-        d = step(scal)
-        apply_hist_updates(hist, scal[0], scal[1], scal[2], d[:v],
-                           d[v:2 * v], scal[4])
-        records[i] = torch.stack([scal[0], scal[1], cnt, scal[4]])
-    return records
-
-
-def loop_call(ts: HistTrainState, step: Callable, *, target_merges: int,
-              max_steps: int, unk_id: int,
+def loop_call(ts: HistTrainState, kernel: Callable, *extra,
+              target_merges: int, max_steps: int, unk_id: int,
               min_pair_freq: int) -> HistTrainState:
     """One call of a per-merge train loop: up to max_steps merges of
-    :func:`merge_steps`, stopping at done or target_merges like the JAX
-    loop's ``cond_fn``; the records are read once."""
+    ``kernel`` (:func:`_kernels.hist_sharded_train` or
+    :func:`_kernels.hist_sparse_train`, with ``extra`` state after the
+    table) on ts's corpus and table, stopping at done or target_merges
+    like the JAX loop's ``cond_fn``; the records are read once."""
     k = min(max_steps, target_merges - ts.n_merges)
     if ts.done or k <= 0:
         return ts
-    rows = merge_steps(ts.hist, step, unk=unk_id, min_freq=min_pair_freq,
-                       n_done=ts.n_merges, init_done=0, allowed=k,
-                       steps=k).cpu().numpy()
+    (tw, wc), hist = ts.corpus, ts.hist
+    rows = kernel(tw, wc, hist, *extra, unk=unk_id, min_freq=min_pair_freq,
+                  n_done=ts.n_merges, init_done=0, allowed=k,
+                  steps=k).cpu().numpy()
     did = rows[:, 3] != 0
     n0, n = ts.n_merges, int(did.sum())
     ts.merges[n0:n0 + n] = rows[did, :2]
@@ -333,37 +276,32 @@ def make_train_loop(v: int, L: int, W: int, *, target_merges: int,
                     max_steps: int) -> Callable:
     """The per-merge train loop (JAX ``make_train_loop``):
     ``train_loop(ts, unk_id, min_pair_freq) -> ts`` runs up to max_steps
-    merges, each a pick, one K4 corpus pass
-    (:func:`_kernels.hist_merge_step`) and :func:`apply_hist_updates`."""
+    merges of the K4 chain (:func:`_kernels.hist_sharded_train` on one
+    rank)."""
 
     def train_loop(ts: HistTrainState, unk_id: int,
                    min_pair_freq: int) -> HistTrainState:
         _check_loop_state(ts, v, L, W)
-        tw, wc = ts.corpus
-        return loop_call(
-            ts, lambda scal: _kernels.hist_merge_step(tw, wc, scal, v=v),
-            target_merges=target_merges, max_steps=max_steps, unk_id=unk_id,
-            min_pair_freq=min_pair_freq)
+        return loop_call(ts, _kernels.hist_sharded_train,
+                         target_merges=target_merges, max_steps=max_steps,
+                         unk_id=unk_id, min_pair_freq=min_pair_freq)
 
     return train_loop
 
 
 def make_train_loop_sparse(v: int, L: int, W: int, *, target_merges: int,
                            max_steps: int) -> Callable:
-    """:func:`make_train_loop` with the chunk-skipping K5 corpus pass
-    (:func:`_kernels.hist_merge_step_sparse`):
+    """:func:`make_train_loop` with the chunk-skipping K5 loop
+    (:func:`_kernels.hist_sparse_train`):
     ``train_loop(ts, presT, unk_id, min_pair_freq) -> ts``, presT int8
     [v, W / CHUNK] updated in place."""
 
     def train_loop(ts: HistTrainState, presT: torch.Tensor, unk_id: int,
                    min_pair_freq: int) -> HistTrainState:
         _check_loop_state(ts, v, L, W)
-        tw, wc = ts.corpus
-        return loop_call(
-            ts, lambda scal: _kernels.hist_merge_step_sparse(
-                tw, wc, presT, scal, v=v),
-            target_merges=target_merges, max_steps=max_steps, unk_id=unk_id,
-            min_pair_freq=min_pair_freq)
+        return loop_call(ts, _kernels.hist_sparse_train, presT,
+                         target_merges=target_merges, max_steps=max_steps,
+                         unk_id=unk_id, min_pair_freq=min_pair_freq)
 
     return train_loop
 
@@ -375,13 +313,10 @@ def _sparse_drive(c: HistCorpus, v: int, unk_id: int, min_pair_freq: int,
     (tw, wc), hist = ts.corpus, ts.hist
     presT = torch.tensor(build_presence(c.tw, v), device=hist.device)
 
-    def step(scal):
-        return _kernels.hist_merge_step_sparse(tw, wc, presT, scal, v=v)
-
     def call(n_done, init_done, allowed, steps):
-        return merge_steps(hist, step, unk=unk_id, min_freq=min_pair_freq,
-                           n_done=n_done, init_done=init_done,
-                           allowed=allowed, steps=steps)
+        return _kernels.hist_sparse_train(
+            tw, wc, hist, presT, unk=unk_id, min_freq=min_pair_freq,
+            n_done=n_done, init_done=init_done, allowed=allowed, steps=steps)
 
     return _drive_state(ts, call, target_merges=target_merges, n_prev=0,
                         steps_per_call=max_steps, progress_cb=progress_cb)
@@ -401,7 +336,7 @@ def hist_train(tokens: np.ndarray, word_id: np.ndarray, wcount: np.ndarray,
     return None (see ``bpe_giant.giant_train``).  The default cadence is
     512 merges per call for the fused and sparse engines and 4096 for the
     giant one; an explicit ``max_steps_per_call`` reaches each unchanged.
-    ``sparse`` trains with the chunk-skipping per-merge loop (K5) when
+    ``sparse`` trains with the chunk-skipping loop (K5) when
     nothing is resumed, as the JAX package does; otherwise the fused
     kernel runs.
 

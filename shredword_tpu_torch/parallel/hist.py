@@ -4,16 +4,16 @@
 Layout: the by-word matrix [L, W] is cut along the word axis into one
 column block per rank (words never span ranks: no halo exchange); each
 rank holds its block on its own device and a replica of the pair table.
-Every merge, on every rank (SPMD):
+Every merge, on every rank (SPMD), in ``_kernels.hist_sharded_train``
+(K4's chain, one kernel launch per merge on the card):
 
   1. PICK   : argmax over the replicated table, identical on every rank,
               so the chosen pair needs no broadcast
-  2. LOCAL  : the per-merge step K4 (``_kernels.hist_merge_step``) on
-              this rank's block -> dl ‖ dr int32 [2v]
+  2. LOCAL  : the corpus pass on this rank's block -> dl ‖ dr int32 [2v]
   3. REDUCE : one ``all_reduce(SUM)`` of that buffer (the JAX package's
               two ``psum``s); integer sums are bit-identical whatever
               the rank order
-  4. APPLY  : ``bpe_hist.apply_hist_updates`` on the replicated table
+  4. APPLY  : the table update on the replicated table
 
 Nothing waits for the device inside a call: only 2v int32 cross the
 interconnect per merge, and the records are read once per call.
@@ -24,7 +24,6 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from ..config import resolve_device
@@ -91,18 +90,14 @@ def build_sharded_hist_loop(group, ts: bpe_hist.HistTrainState, *,
     training ts.corpus (this rank's block [L, W / n]) and ts.hist (the
     replicated table) in place."""
     (tw, wc), hist = ts.corpus, ts.hist
-    v = hist.shape[0]
 
-    def step(scal):
-        d = _kernels.hist_merge_step(tw, wc, scal, v=v)
-        dist.all_reduce(d[:2 * v], group=group)
-        return d
+    def reduce(d):
+        dist.all_reduce(d, group=group)
 
     def call(n_done, init_done, allowed, steps):
-        return bpe_hist.merge_steps(hist, step, unk=unk_id,
-                                    min_freq=min_pair_freq, n_done=n_done,
-                                    init_done=init_done, allowed=allowed,
-                                    steps=steps)
+        return _kernels.hist_sharded_train(
+            tw, wc, hist, reduce=reduce, unk=unk_id, min_freq=min_pair_freq,
+            n_done=n_done, init_done=init_done, allowed=allowed, steps=steps)
 
     return call
 

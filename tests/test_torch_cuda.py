@@ -136,10 +136,11 @@ LOOP_CASES = {
 @pytest.mark.parametrize("sparse", [False, True])
 @pytest.mark.parametrize("case", sorted(LOOP_CASES))
 def test_step_loops_match_plain(case, sparse, cuda):
-    """The per-merge train loops with K4 (make_train_loop) or K5
-    (make_train_loop_sparse) on the card against the same loops on the
-    CPU (the steps' plain versions), call by call: merges, counters,
-    tokens, tables and presence."""
+    """The per-merge train loops with K4 (make_train_loop: the chain of
+    hist_sharded_train on one rank) or K5 (make_train_loop_sparse:
+    hist_sparse_train) on the card against the same loops on the CPU
+    (their plain versions), call by call: merges, counters, tokens,
+    tables and presence."""
     corpus_kw, unk, minf, steps, target = LOOP_CASES[case]
     c = _layout(**corpus_kw)
     L, W = c.tw.shape
@@ -147,8 +148,8 @@ def test_step_loops_match_plain(case, sparse, cuda):
     make = (bpe_hist.make_train_loop_sparse if sparse
             else bpe_hist.make_train_loop)
     loop = make(v, L, W, target_merges=target, max_steps=steps)
-    kernel = (_kernels.hist_merge_step_sparse if sparse
-              else _kernels.hist_merge_step)
+    kernel = (_kernels.hist_sparse_train if sparse
+              else _kernels.hist_sharded_train)
     n0 = kernel.launches
     states = []
     for dev in ("cpu", cuda):
@@ -285,4 +286,84 @@ def test_giant_kernel_call_by_call(case, cuda):
                states, merges, steps, unk=-1, min_freq=minf,
                nc_used=nc_used)
     assert _kernels.giant_train_step.launches > n0
+    assert (n == merges) == (minf == 2) and n > 0
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """A one-rank NCCL process group on the card for the sharded chain."""
+    import socket
+
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.parallel import multihost
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized here")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"tcp://localhost:{port}", world_size=1, rank=0)
+    yield dist
+    dist.destroy_process_group()
+
+
+# the call-by-call cases of the K4/K5 loops: HIST_CALL_CASES at v <= 1024
+CHAIN_CALL_CASES = {
+    **{k: c for k, c in HIST_CALL_CASES.items() if c[1] <= 768},
+    "v1024_L16": (dict(seed=46, n_words=3000, alpha=12), 1024, 128, 700, 2),
+}
+
+
+def _table_calls(kernel, plain, states, merges, steps, **kw):
+    """_calls for the hist-table wrappers, checking after every call the
+    kernel's rows (max, arg) against the plain recomputation from its
+    table too."""
+    hist = states[1][2]
+    rowmax = torch.empty(2 * hist.shape[0], dtype=torch.int32,
+                         device=hist.device)
+
+    def checked(*state, **ckw):
+        recs = kernel(*state, rowmax=rowmax, **ckw)
+        assert torch.equal(rowmax, _kernels.table_rowmax_plain(hist))
+        return recs
+
+    return _calls(checked, plain, states, merges, steps, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["sparse", "sharded_nccl1"])
+@pytest.mark.parametrize("case", sorted(CHAIN_CALL_CASES))
+def test_step_kernels_call_by_call(case, chain, cuda, request):
+    """The K5 loop (hist_sparse_train) and the K4 chain (hist_sharded_train
+    with an all_reduce over a one-rank NCCL group) against their plain
+    versions after every call: records, tokens, table, presence and the
+    rows' (max, arg)."""
+    corpus_kw, v, steps, merges, minf = CHAIN_CALL_CASES[case]
+    c = _layout(**corpus_kw)
+    states = []
+    for dev in ("cpu", cuda):
+        tw = torch.tensor(c.tw, device=dev)
+        wc = torch.tensor(c.wcount.reshape(-1), device=dev)
+        states.append([tw, wc, bpe_hist.init_hist(tw, wc, -1, v)])
+        if chain == "sparse":
+            states[-1].append(torch.tensor(bpe_hist.build_presence(c.tw, v),
+                                           device=dev))
+    if chain == "sparse":
+        kernel, plain = _kernels.hist_sparse_train, \
+            _kernels.hist_sparse_train_plain
+        kw = {}
+    else:
+        dist = request.getfixturevalue("nccl_world1")
+        kernel, plain = _kernels.hist_sharded_train, \
+            _kernels.hist_sharded_train_plain
+        kw = dict(reduce=dist.all_reduce)
+    n0 = kernel.launches
+
+    def run(*state, **ckw):
+        return kernel(*state, **kw, **ckw)
+
+    n = _table_calls(run, plain, states, merges, steps, unk=-1,
+                     min_freq=minf)
+    assert kernel.launches > n0
     assert (n == merges) == (minf == 2) and n > 0

@@ -10,12 +10,14 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import jax
+import jax.numpy as jnp
 import torch_dist_workers as workers
 from shredword_tpu import parallel as jax_parallel
+from shredword_tpu.ops import bpe_hist as jax_hist
 from shredword_tpu.parallel import hist as jax_par_hist
 from shredword_tpu.models.bpe import BPETrainer as JaxTrainer
 from shredword_tpu_torch import BPETrainer
-from shredword_tpu_torch.ops import bpe_hist
+from shredword_tpu_torch.ops import _kernels, bpe_hist
 from shredword_tpu_torch.parallel import hist
 
 
@@ -101,6 +103,53 @@ def test_sharded_engine_matches_jax_and_single_device(ranks):
         m2, f2 = r["engine_resumed"]
         np.testing.assert_array_equal(np.concatenate([jm[:9], m2]), jm)
         np.testing.assert_array_equal(np.concatenate([jf[:9], f2]), jf)
+
+
+@pytest.mark.parametrize("case", sorted(workers.CHAIN_CASES))
+def test_sharded_wrapper_matches_jax_mesh_and_single_device(ranks, case):
+    """hist_sharded_train in 2 gloo ranks (each on its column block, the
+    deltas all-reduced), call by call, against the JAX sharded loop on a
+    2-device mesh (interpret mode) and the single-device loop on the
+    whole layout: records, the table and the concatenated tokens after
+    every call."""
+    minf, steps, target = workers.CHAIN_CASES[case]
+    tokens, word_id, wc = _rand_arrays()
+    c = jax_par_hist.shard_layout(tokens, word_id, wc, 2)
+    L, W = c.tw.shape
+    v = -(-(256 + target) // 128) * 128
+    jloop = jax_par_hist.build_sharded_hist_loop(
+        jax_parallel.make_mesh(2), v, L, W, target_merges=target,
+        max_steps=steps, interpret=True)
+    jwc = jnp.asarray(c.wcount)
+    js = [jnp.asarray(c.tw).astype(jnp.int16),
+          jax_hist.init_hist(c, jnp.int32(-1), v=v),
+          jnp.zeros((target, 2), jnp.int32), jnp.zeros(target, jnp.int32),
+          jnp.int32(0), jnp.bool_(False)]
+    tw1, wc1, _ = bpe_hist.state_from_jax(c.tw, c.wcount, np.zeros(1),
+                                          device="cpu")
+    h1 = bpe_hist.init_hist(tw1, wc1, -1, v)
+    calls = [r["chain"][case] for r in ranks]
+    assert len(calls[0]) == len(calls[1]) >= 2
+    n = 0
+    for (recs, tw_0, table), (recs_1, tw_1, table_1) in zip(*calls):
+        js = list(jloop(js[0], jwc, *js[1:], jnp.int32(-1), jnp.int32(minf)))
+        one = _kernels.hist_sharded_train(
+            tw1, wc1, h1, unk=-1, min_freq=minf, n_done=n, init_done=0,
+            allowed=target - n, steps=len(recs)).numpy()
+        np.testing.assert_array_equal(recs, one)
+        np.testing.assert_array_equal(recs_1, one)
+        did = recs[:, 3] != 0
+        n_j = int(js[4])
+        np.testing.assert_array_equal(recs[did, :2], np.asarray(js[2])[n:n_j])
+        np.testing.assert_array_equal(recs[did, 2], np.asarray(js[3])[n:n_j])
+        for t in (table, table_1, h1.numpy()):
+            np.testing.assert_array_equal(t, np.asarray(js[1]))
+        tw = np.concatenate([tw_0, tw_1], axis=1)
+        np.testing.assert_array_equal(tw, np.asarray(js[0]))
+        np.testing.assert_array_equal(tw, tw1.numpy())
+        n = n_j
+    assert bool(js[5]) == (case == "min_freq_stop")
+    assert n == (24 if case == "min_freq_stop" else target)
 
 
 @pytest.mark.parametrize("route", ["shards", "mesh"])

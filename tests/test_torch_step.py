@@ -1,8 +1,10 @@
 """Differential tests of the per-merge hist step (K4) and its sparse
-variant (K5): the port's plain PyTorch versions on the CPU against the
-JAX package's Pallas kernels in interpret mode, step for step.  Every
-value is an exact integer, so tokens, deltas, counts, presence, tables
-and merge sequences must be identical."""
+variant (K5), and of the loops around them (the sharded chain
+``hist_sharded_train`` and the sparse loop ``hist_sparse_train``): the
+port's plain PyTorch versions on the CPU against the JAX package's Pallas
+kernels in interpret mode, step for step and call by call.  Every value
+is an exact integer, so tokens, deltas, counts, presence, tables and
+merge sequences must be identical."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,8 +88,8 @@ def test_merge_step_matches_jax(case):
         new = 256 + i
         tw_j, dl, dr, nm = step(tw_j, jnp.asarray(c.wcount),
                                 jnp.array([a, b, new, unk], jnp.int32))
-        out = _kernels.hist_merge_step(tw_t, wc_t, _scal(a, b, new, unk),
-                                       v=v)
+        out = _kernels.hist_merge_step_plain(tw_t, wc_t,
+                                             _scal(a, b, new, unk), v=v)
         np.testing.assert_array_equal(tw_t.numpy(), np.asarray(tw_j))
         np.testing.assert_array_equal(out[:v].numpy(), np.asarray(dl)[:, 0])
         np.testing.assert_array_equal(out[v:2 * v].numpy(),
@@ -96,8 +98,8 @@ def test_merge_step_matches_jax(case):
     assert int(np.asarray(nm)[0, 0]) == 0       # (120, 121) never occurs
     # do == 0 changes nothing
     before = tw_t.clone()
-    out = _kernels.hist_merge_step(tw_t, wc_t, _scal(97, 97, 300, unk, 0),
-                                   v=v)
+    out = _kernels.hist_merge_step_plain(tw_t, wc_t,
+                                         _scal(97, 97, 300, unk, 0), v=v)
     assert torch.equal(tw_t, before) and not out.any()
 
 
@@ -116,16 +118,11 @@ def test_apply_hist_updates_matches_jax():
             dr[x] = rng.randint(1, 50)
         want = np.asarray(jax_hist.apply_hist_updates(
             jnp.asarray(hist), a, b, new, jnp.asarray(dl), jnp.asarray(dr)))
-        got = bpe_hist.apply_hist_updates(
-            torch.tensor(hist), a, b, new, torch.tensor(dl),
-            torch.tensor(dr))
+        table = torch.tensor(hist)
+        got = _kernels.apply_hist_updates(table, a, b, new,
+                                          torch.tensor(dl), torch.tensor(dr))
+        assert got is table                              # in place
         np.testing.assert_array_equal(got.numpy(), want)
-        # do == 0 with zero deltas leaves the table as it is
-        same = bpe_hist.apply_hist_updates(
-            torch.tensor(hist), torch.tensor(a), torch.tensor(b),
-            torch.tensor(new), torch.zeros(v, dtype=torch.int32),
-            torch.zeros(v, dtype=torch.int32), torch.tensor(0))
-        np.testing.assert_array_equal(same.numpy(), hist)
 
 
 _JAX_LOOPS = {}
@@ -224,7 +221,7 @@ def test_sparse_step_matches_jax(unk):
         tw_j, pres_j, dl, dr, nm = step(
             tw_j, jnp.asarray(c.wcount), pres_j, flags,
             jnp.array([a, b, new, unk], jnp.int32))
-        out = _kernels.hist_merge_step_sparse(
+        out = _kernels.hist_merge_step_sparse_plain(
             tw_t, wc_t, pres_t, _scal(a, b, new, unk), v=v)
         np.testing.assert_array_equal(tw_t.numpy(), np.asarray(tw_j))
         np.testing.assert_array_equal(
@@ -301,25 +298,89 @@ def test_sparse_hist_train_resume_and_progress():
     assert len(resumed[0]) == 25
 
 
+# name: (unk id, min_pair_freq, steps per call, target merges)
+SPARSE_CALL_CASES = {
+    "steps8": (-1, 2, 8, 30),
+    "unk_steps5": (ord("b"), 2, 5, 24),
+    "min_freq_stop": (-1, 1500, 6, 40),    # stops after 23 merges
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_CALL_CASES))
+def test_sparse_wrapper_matches_jax_loop(case):
+    """hist_sparse_train (the K5 wrapper, CPU: its plain version) against
+    JAX make_train_loop_sparse (interpret mode), call by call as
+    drive_calls makes them: the merges of each call's records, tokens,
+    table and presence; then a call past the end changes nothing and
+    merges nothing."""
+    unk, minf, steps, target = SPARSE_CALL_CASES[case]
+    c = _sparse_layout()
+    L, W = c.tw.shape
+    v = 384
+    jloop = jax_hist.make_train_loop_sparse(
+        v, L, W, target_merges=target, max_steps=steps, interpret=True)
+    js = [jnp.asarray(c.tw), jnp.asarray(jax_hist.build_presence(c.tw, v)),
+          jax_hist.init_hist(jax_hist.HistCorpus(jnp.asarray(c.tw),
+                                                 jnp.asarray(c.wcount)),
+                             jnp.int32(unk), v=v),
+          jnp.zeros((target, 2), jnp.int32), jnp.zeros(target, jnp.int32),
+          jnp.int32(0), jnp.bool_(False)]
+    ts = bpe_hist.hist_train_init(c, unk, target, v, device="cpu")
+    (tw, wc), hist = ts.corpus, ts.hist
+    pres = torch.tensor(bpe_hist.build_presence(c.tw, v))
+    kw = dict(unk=unk, min_freq=minf)
+    n, done = 0, 0
+    while n < target and not done:
+        allowed = target - n
+        recs = _kernels.hist_sparse_train(
+            tw, wc, hist, pres, n_done=n, init_done=0, allowed=allowed,
+            steps=min(steps, allowed), **kw).numpy()
+        js = list(jloop(js[0], jnp.asarray(c.wcount), *js[1:],
+                        jnp.int32(unk), jnp.int32(minf)))
+        did = recs[:, 3] != 0
+        assert list(did) == sorted(did, reverse=True)   # did is sticky
+        n_j = int(js[5])
+        np.testing.assert_array_equal(recs[did, :2],
+                                      np.asarray(js[3])[n:n_j])
+        np.testing.assert_array_equal(recs[did, 2], np.asarray(js[4])[n:n_j])
+        n, done = n_j, int(did.sum() < len(recs))
+        assert done == bool(js[6])
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(js[0]))
+        np.testing.assert_array_equal(
+            bpe_hist.state_to_jax(tw, wc, hist, presT=pres)[3],
+            np.asarray(js[1]))
+        np.testing.assert_array_equal(hist.numpy(), np.asarray(js[2]))
+    assert (n < target) == (case == "min_freq_stop") and n > 0
+    before = [x.clone() for x in (tw, hist, pres)]
+    recs = _kernels.hist_sparse_train(tw, wc, hist, pres, n_done=n,
+                                      init_done=1, allowed=0, steps=4, **kw)
+    assert not recs[:, 3].any() and (recs[:, 2] == recs[0, 2]).all()
+    assert all(torch.equal(x, y) for x, y in zip(before, (tw, hist, pres)))
+
+
 def test_step_wrappers_reject_bad_input():
     tw = torch.full((16, 1024), bpe_hist.PAD, dtype=torch.int16)
     wc = torch.zeros(1024, dtype=torch.int32)
-    scal = _scal(97, 98, 256, -1)
+    hist = torch.zeros((384, 384), dtype=torch.int32)
     pres = torch.zeros((384, 2), dtype=torch.int8)
-    with pytest.raises(TypeError):
-        _kernels.hist_merge_step(tw.int(), wc, scal, v=384)
-    with pytest.raises(ValueError, match="L must be"):
-        _kernels.hist_merge_step(tw[:12].contiguous(), wc, scal, v=384)
-    with pytest.raises(ValueError, match="shape"):
-        _kernels.hist_merge_step(tw, wc, scal[:4], v=384)
+    kw = dict(unk=-1, min_freq=2, n_done=0, init_done=0, allowed=8,
+              steps=8)
+    for wrapper, extra in ((_kernels.hist_sharded_train, ()),
+                           (_kernels.hist_sparse_train, (pres,))):
+        with pytest.raises(TypeError):
+            wrapper(tw.int(), wc, hist, *extra, **kw)
+        with pytest.raises(ValueError, match="L must be"):
+            wrapper(tw[:12].contiguous(), wc, hist, *extra, **kw)
+        with pytest.raises(ValueError, match="shape"):
+            wrapper(tw, wc, hist[:, :100].contiguous(), *extra, **kw)
+        with pytest.raises(ValueError, match="exceed"):
+            wrapper(tw, wc, hist, *extra, **{**kw, "n_done": 127})
+        recs = wrapper(tw, wc, hist, *extra, **kw)       # nothing to merge
+        assert recs.shape == (8, 4) and not recs.any()
     with pytest.raises(ValueError, match="presT"):
-        _kernels.hist_merge_step_sparse(tw, wc, pres[:, :1], scal, v=384)
+        _kernels.hist_sparse_train(tw, wc, hist, pres[:, :1], **kw)
     with pytest.raises(ValueError, match="presT"):
-        _kernels.hist_merge_step_sparse(tw[:, :1000].contiguous(),
-                                        wc[:1000], pres, scal, v=384)
-    assert not _kernels.hist_merge_step_sparse(tw, wc, pres, scal,
-                                               v=384).any()
-    with pytest.raises(ValueError, match="exceed"):
-        bpe_hist.merge_steps(torch.zeros((384, 384), dtype=torch.int32),
-                             None, unk=-1, min_freq=2, n_done=127,
-                             init_done=0, allowed=8, steps=8)
+        _kernels.hist_sparse_train(tw[:, :1000].contiguous(), wc[:1000],
+                                   hist, pres, **kw)
+    assert not _kernels.hist_merge_step_sparse_plain(
+        tw, wc, pres, _scal(97, 98, 256, -1), v=384).any()

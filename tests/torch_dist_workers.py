@@ -82,9 +82,44 @@ def _trained(corpus, tmp_dir, tag, *, max_merges=None, prev=None, **kw):
                 g.read())
 
 
+# name: (min_pair_freq, steps per call, target merges) of chain_calls
+CHAIN_CASES = {
+    "steps7": (2, 7, 30),
+    "min_freq_stop": (700, 16, 40),      # stops after 24 merges
+}
+
+
+def chain_calls(arrays, min_freq: int, steps: int, target: int) -> list:
+    """The sharded-call wrapper on this rank's column block, call by call
+    as drive_calls makes them: each call's records, this rank's tokens
+    and the table after it."""
+    from shredword_tpu_torch.ops import _kernels, bpe_hist
+    from shredword_tpu_torch.parallel import hist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    c = hist.shard_layout(*arrays, world)
+    v = -(-(256 + target) // 128) * 128
+    ts = bpe_hist.hist_train_init(hist.local_shard(c, rank, world), -1,
+                                  target, v, device="cpu")
+    dist.all_reduce(ts.hist)
+    (tw, wc), table = ts.corpus, ts.hist
+    out, n, done = [], 0, 0
+    while n < target and not done:
+        allowed = target - n
+        recs = _kernels.hist_sharded_train(
+            tw, wc, table, reduce=dist.all_reduce, unk=-1, min_freq=min_freq,
+            n_done=n, init_done=0, allowed=allowed,
+            steps=min(steps, allowed))
+        out.append((recs.numpy(), tw.numpy().copy(), table.numpy().copy()))
+        n_new = int(recs[:, 3].sum())
+        n, done = n + n_new, int(n_new < len(recs))
+    return out
+
+
 def scenarios(corpus: str, arrays, tmp_dir: str) -> dict:
     """Everything test_torch_parallel.py checks, in one start-up of the
-    ranks: the sharded engine on `arrays`, BPETrainer(shards=2) and
+    ranks: the sharded-call wrapper call by call (chain_calls) and the
+    sharded engine on `arrays`, BPETrainer(shards=2) and
     BPETrainer(mesh=...) on `corpus`, a sharded resume, a single-device
     checkpoint resumed sharded, the routes that raise, and the ranks'
     split of a work list."""
@@ -92,6 +127,8 @@ def scenarios(corpus: str, arrays, tmp_dir: str) -> dict:
     from shredword_tpu_torch.parallel import hist, multihost
 
     out = {"host_shard": multihost.host_shard(5)}
+    out["chain"] = {name: chain_calls(arrays, *case)
+                    for name, case in CHAIN_CASES.items()}
     tokens, word_id, wc_word = arrays
     out["engine"] = hist.sharded_hist_train(
         tokens, word_id, wc_word, mesh=dist.group.WORLD, target_merges=40,
