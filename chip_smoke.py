@@ -68,6 +68,25 @@ Phases (any failure exits non-zero, and no result line is printed):
      whole run), as the main path calls them, once with each build from
      equal states: records and state must be identical; prints the µs
      per merge of each phase
+ 13. encode, with the merges that phases 3, 4 and 6 trained (vocab 768
+     and 4096 on the dense rank table, 32768 on the hash table): the
+     encode kernel (csrc/encode.cu) against its two plain versions on
+     the card, on seeded corpus slices (1-64 bytes; then with chunks of
+     65-300 bytes), 'aaaa' runs, a byte no merge names and 'fhus': ids
+     and counts identical; then the main path as the JAX bench's
+     measure_encode runs it (bench.py:247-283) on the first 4,000,000
+     characters of the corpus: Tokenizer(merges, backend "cuda")
+     .encode_array must equal the native CPU encoder's ids and decode
+     must round-trip, encode_batch_arrays over 64 KB documents must equal
+     the per-document calls, and the GPT pattern on the first 1 MB must
+     equal the CPU ids; prints encode / decode MB/s (best of 3 after a
+     warm-up), the chunks and the distinct chunks, the kernel's device ms
+     per call over every chunk of the text (CUDA events), its plain
+     version's, its launches per call (torch.profiler), its bound from
+     the bytes it moves and the rank lookups it makes (counted in a
+     rerun), and, at 64 KB and 4 MB, whitespace and GPT chunks encoded
+     directly (the main path) against the route through the distinct
+     chunks (native dedup, device, native expansion), layer by layer
 
 The corpus is generated here (make_corpus, the JAX bench's generator) and
 checked against its known digest.  The last lines of standard output are
@@ -100,7 +119,8 @@ TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               4096: "shredword_tpu/ops/bpe_hist.py:690",    # _fused_kernel_big
               GIANT_VOCAB: "shredword_tpu/ops/bpe_giant.py:292",  # _giant_kernel
               "step": "shredword_tpu/ops/bpe_hist.py:262",  # _merge_kernel
-              "sparse": "shredword_tpu/ops/bpe_hist.py:288"}  # _merge_kernel_sparse
+              "sparse": "shredword_tpu/ops/bpe_hist.py:288",  # _merge_kernel_sparse
+              "encode": "shredword_tpu/ops/encode_ops.py:230"}  # _encode_core
 TIMED_MERGES = 128
 LATE_START = 16128   # the giant late window: new ids from 16384 on
 CORPUS_BYTES = 16_153_229
@@ -399,8 +419,11 @@ def train_and_save(corpus, out_dir, vocab, device, engine="auto",
 def reset_counts() -> None:
     from shredword_tpu_torch.ops import _kernels
 
+    from shredword_tpu_torch.ops import encode_ops
+
     for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
-              _kernels.hist_sharded_train, _kernels.hist_sparse_train):
+              _kernels.hist_sharded_train, _kernels.hist_sparse_train,
+              encode_ops.encode_core):
         k.launches = 0
 
 
@@ -1127,6 +1150,330 @@ def phase_clocks(device, clocked: str, hist_layout, giant_layout) -> None:
                   f" largest block {us[:, k].max():7.4f} µs per merge")
 
 
+# ---------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------
+
+ENCODE_CHARS = 4_000_000     # the JAX bench's encode text (bench.py:255)
+GPT_CHARS = 1_000_000
+DOC_CHARS = 65536            # encode_batch_arrays' documents (bench.py:270)
+KERNEL_REPS = 20
+FHUS = np.array([[117, 115], [104, 256], [102, 104]], np.int32)
+
+
+def merges_of(model: bytes) -> np.ndarray:
+    """The merges of a binary .model (int32 triples a, b, 256 + m)."""
+    return np.frombuffer(model, "<i4").reshape(-1, 3)[:, :2].copy()
+
+
+def encode_table(merges: np.ndarray, v: int, device):
+    from shredword_tpu_torch.ops import encode_ops
+
+    if v <= encode_ops.DENSE_V_MAX:
+        return encode_ops.build_rank_table(merges, v, device)
+    return encode_ops.build_merge_table(merges, device)
+
+
+def corpus_chunks(text: bytes, seed: int, n: int, n_long: int):
+    """(flat uint8, lens int32) of seeded slices of the corpus text: n of
+    1..64 bytes, then n_long of 65..300; 'aaaa' runs, and a byte no merge
+    names (0xff) in every 50th chunk."""
+    rng = np.random.RandomState(seed)
+    lens = np.concatenate([rng.randint(1, 65, n), rng.randint(65, 301,
+                                                              n_long)])
+    at = rng.randint(0, len(text) - 301, len(lens))
+    parts = [bytearray(text[a:a + n]) for a, n in zip(at, lens)]
+    for i, part in enumerate(parts):
+        if i < 20:
+            part[:] = b"a" * len(part)
+        elif i % 50 == 0:
+            part[len(part) // 2] = 0xFF
+    return (np.frombuffer(b"".join(parts), np.uint8).copy(),
+            lens.astype(np.int32))
+
+
+def encode_both(flat, lens, table, v, device, plain):
+    """(max |kernel - plain| over ids and counts, -1 if their shapes
+    differ; n ids) of encode_core on the card and `plain` on the same
+    card tensors."""
+    from shredword_tpu_torch.ops import encode_ops
+
+    df = torch.from_numpy(flat).to(device)
+    dl = torch.from_numpy(lens).to(device)
+    ik, ck = encode_ops.encode_core(df, dl, table, v=v)
+    ip, cp = plain(df, dl, table, v)
+    if ik.shape != ip.shape or ck.shape != cp.shape:
+        return -1, len(ik)
+    return max(max_abs_diff(ik, ip), max_abs_diff(ck, cp)), len(ik)
+
+
+def phase_encode_vs_plain(device, text: bytes, merges: dict) -> None:
+    """csrc/encode.cu against its two plain versions on the card, on
+    seeded corpus slices (chunks of at most 64 bytes against
+    encode_core_plain; with chunks of 65-300 bytes against
+    encode_flat_plain), and on 'fhus', at each vocab's table."""
+    from shredword_tpu_torch.ops import encode_ops
+
+    for v, m in merges.items():
+        table = encode_table(m, v, device)
+        for tag, (n, n_long), name, plain in (
+                ("chunks of 1-64 bytes", (20000, 0), "encode_core_plain",
+                 encode_ops.encode_core_plain),
+                ("with 30 chunks of 65-300 bytes", (3000, 30),
+                 "encode_flat_plain", encode_ops._flat_plain_counts)):
+            flat, lens = corpus_chunks(text, v + n_long, n, n_long)
+            err, n_ids = encode_both(flat, lens, table, v, device, plain)
+            print(f"[encode] v={v} {'dense' if v <= 4096 else 'hash'} "
+                  f"table, {len(lens)} {tag}: {len(flat)} bytes -> {n_ids} "
+                  f"ids, max |kernel - {name}| = {err}")
+            check(err == 0 and n_ids < len(flat),
+                  f"encode kernel == {name} at v={v}")
+    for table in (encode_table(FHUS, 259, device),
+                  encode_ops.build_merge_table(FHUS, device)):
+        ids, _ = encode_ops.encode_core(
+            torch.tensor(list(b"fhus"), dtype=torch.uint8, device=device),
+            torch.tensor([4], dtype=torch.int32, device=device), table, v=259)
+        check(encode_ops.ids_to_numpy(ids).tolist() == [102, 257],
+              "'fhus' -> [102, 257] (a created pair preempts)")
+
+
+def best_mbs(fn, nbytes: int, trials: int = 3) -> float:
+    """Best MB/s of `trials` calls of fn (each returns host data, so it
+    ends with the device's work done)."""
+    best = float("inf")
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return nbytes / 1e6 / best
+
+
+def encode_kernel_ms(df, dl, table, v: int, device) -> float:
+    """Device ms per call of csrc/encode.cu's two launches alone on these
+    inputs: KERNEL_REPS back-to-back calls between two CUDA events,
+    launched through the library directly (uncounted), the buffers and
+    the output offsets prepared once."""
+    from shredword_tpu_torch.ops import _kernels, encode_ops
+
+    ids, counts = encode_ops.encode_core(df, dl, table, v=v)
+    start = torch.cumsum(dl, 0, dtype=torch.int64) - dl
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    tok, rk = torch.empty_like(df, dtype=torch.int32), torch.empty_like(
+        df, dtype=torch.int32)
+    if isinstance(table, encode_ops.MergeTable):
+        targs = (None, table.ka.data_ptr(), table.kb.data_ptr(),
+                 table.rank.data_ptr(), v, table.capacity, table.max_probe)
+    else:
+        targs = (table.data_ptr(), None, None, None, v, 0, 0)
+    k = _kernels.lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    W = dl.shape[0]
+
+    def calls():
+        for _ in range(KERNEL_REPS):
+            check(k.shred_encode_chunks(
+                df.data_ptr(), start.data_ptr(), dl.data_ptr(), W, *targs,
+                tok.data_ptr(), rk.data_ptr(), counts.data_ptr(), None,
+                stream) == 0, "encode launch")
+            check(k.shred_encode_pack(
+                tok.data_ptr(), start.data_ptr(), counts.data_ptr(),
+                ends.data_ptr(), W, ids.data_ptr(), ids.element_size(),
+                stream) == 0, "pack launch")
+
+    calls()
+    return elapsed_ms(calls, device) / KERNEL_REPS
+
+
+def encode_profile(tok, text: str, device) -> tuple[float, float]:
+    """(encode_core kernel launches per encode_array call, device busy
+    share of the call) under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tok.encode_array(text)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in dev if "encode_kernel" in e.name
+            or "pack_kernel" in e.name]
+    check(len(dev) > 0, "the profiler saw device events, encode")
+    return len(ours), busy_us(dev) / wall_us
+
+
+def best_ms(fn, trials: int = 3):
+    """(best ms of `trials` calls of fn, its last result)."""
+    best, out = float("inf"), None
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best, out
+
+
+def gather_spans(flat: np.ndarray, off: np.ndarray,
+                 lens: np.ndarray) -> np.ndarray:
+    """The spans flat[off[i]:off[i] + lens[i]] concatenated."""
+    new_off = np.cumsum(lens) - lens
+    return flat[np.repeat(off - new_off, lens)
+                + np.arange(int(lens.sum()), dtype=np.int64)]
+
+
+def expand_ids(ids_u, cnt_u, inverse) -> np.ndarray:
+    """Every chunk's ids from each distinct chunk's (native memcpy)."""
+    from shredword_tpu_torch.runtime import native
+
+    uoff = np.zeros(len(cnt_u) + 1, np.int64)
+    np.cumsum(cnt_u, out=uoff[1:])
+    return native.expand_ids(ids_u, uoff, inverse, int(cnt_u[inverse].sum()))
+
+
+def encode_routes(text: str, merges: np.ndarray, v: int, device) -> list:
+    """Whitespace-keep and GPT chunks of `text` encoded two ways, each
+    layer timed alone (best of 3) and the ids checked equal to the
+    native CPU encoder's: directly (the chunk lengths, then one device
+    call over every chunk: upload, E1's two launches, downloads) and
+    through the distinct chunks (a native dedup pass, the gather of the
+    distinct chunks, one device call over them, the native expansion to
+    every chunk).  The GPT scanner's offsets are common to both routes
+    and not timed.  Returns the lines to print."""
+    from shredword_tpu_torch import Tokenizer, pretokenize
+    from shredword_tpu_torch.ops import encode_ops
+    from shredword_tpu_torch.runtime import native
+
+    data = text.encode()
+    flat = np.frombuffer(data, np.uint8)
+    table = encode_ops._get_table(merges, v, {}, device)
+    g_lens = np.diff(np.append(pretokenize.gpt_starts_bytes(data),
+                               len(data)))
+    g_off = np.cumsum(g_lens) - g_lens
+
+    def g_dedup():
+        inverse, uniq = native.dedup_spans(flat, g_off, g_lens)
+        return inverse, g_off[uniq], g_lens[uniq]
+
+    lines = []
+    for name, chunk, dedup, pattern in (
+            ("whitespace", lambda: encode_ops.ws_chunk_lens(flat),
+             lambda: native.ws_chunk_dedup(flat), ""),
+            ("gpt", lambda: g_lens, g_dedup, "gpt")):
+        want = Tokenizer(merges, pattern=pattern,
+                         backend="cpu").encode_array(text)
+        t_chunk, lens = best_ms(chunk)
+        t_dev, (ids, _) = best_ms(lambda: encode_ops._encode_contiguous(
+            flat, lens, table, v, device))
+        t_dedup, (inverse, uoff, ulen) = best_ms(dedup)
+        lens_u = ulen.astype(np.int64)
+        t_gather, sub = best_ms(lambda: gather_spans(flat, uoff, lens_u))
+        t_dev_u, (ids_u, cnt_u) = best_ms(
+            lambda: encode_ops._encode_contiguous(sub, lens_u, table, v,
+                                                  device))
+        t_expand, ids_d = best_ms(lambda: expand_ids(ids_u, cnt_u, inverse))
+        check(np.array_equal(ids, want) and np.array_equal(ids_d, want),
+              f"both encode routes == native cpu ids, {name}, v={v}")
+        if name == "gpt":
+            t_chunk = 0.0
+        lines.append(
+            f"{name} chunks of {len(data)} bytes: direct "
+            f"{t_chunk + t_dev:.3f} ms (chunk lengths {t_chunk:.3f}, device "
+            f"call over {len(lens)} chunks {t_dev:.3f}); through the "
+            f"distinct chunks {t_dedup + t_gather + t_dev_u + t_expand:.3f} "
+            f"ms (dedup {t_dedup:.3f}, gather {t_gather:.3f}, device call "
+            f"over {len(lens_u)} chunks {t_dev_u:.3f}, expand "
+            f"{t_expand:.3f})")
+    return lines
+
+
+def phase_encode_main(device, text: str, merges: np.ndarray, v: int) -> dict:
+    """The encode main path at vocab v, as bench.py:247-283 runs it, and
+    its measurements; returns the kernels-line record."""
+    from shredword_tpu_torch import Tokenizer
+    from shredword_tpu_torch.ops import encode_ops
+    from shredword_tpu_torch.runtime import native
+
+    tag = f"[encode] v={v}"
+    data = text.encode()
+    nbytes = len(data)
+    tok = Tokenizer(merges, backend="cuda", device=device)
+    cpu = Tokenizer(merges, backend="cpu")
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = tok.encode_array(text)
+    first_s = time.perf_counter() - t0
+    launches = encode_ops.encode_core.launches
+    want = cpu.encode_array(text)
+    check(launches > 0, f"the encode main path launched encode.cu, v={v}")
+    check(np.array_equal(ids, want), f"cuda ids == native cpu ids, v={v}")
+    check(tok.decode(ids) == text, f"decode round-trips, v={v}")
+    enc = best_mbs(lambda: tok.encode_array(text), nbytes)
+    cpu_mbs = best_mbs(lambda: cpu.encode_array(text), nbytes)
+    dec = best_mbs(lambda: tok.decode(ids), nbytes)
+    docs = [text[i:i + DOC_CHARS] for i in range(0, len(text), DOC_CHARS)]
+    batch = tok.encode_batch_arrays(docs)
+    check(all(np.array_equal(b, tok.encode_array(d))
+              for b, d in zip(batch, docs)),
+          f"encode_batch_arrays == per document, v={v}")
+    batch_mbs = best_mbs(lambda: tok.encode_batch_arrays(docs), nbytes)
+    gtext = text[:GPT_CHARS]
+    gpt = Tokenizer(merges, pattern="gpt", device=device)
+    gids = gpt.encode_array(gtext)
+    check(np.array_equal(gids, Tokenizer(merges, pattern="gpt",
+                                         backend="cpu").encode_array(gtext))
+          and gpt.decode(gids) == gtext, f"gpt pattern == cpu ids, v={v}")
+    per_call, busy = encode_profile(tok, text, device)
+    check(per_call == 2, f"two encode.cu launches per encode_array, v={v}")
+    routes = [line for n in (DOC_CHARS, len(text))
+              for line in encode_routes(text[:n], merges, v, device)]
+
+    # the kernel alone on the main path's call: every chunk of the text
+    flat = np.frombuffer(data, np.uint8)
+    lens = encode_ops.ws_chunk_lens(flat)
+    _, _, ulen = native.ws_chunk_dedup(flat)
+    table = encode_table(merges, v, device)
+    df = torch.from_numpy(flat.copy()).to(device)
+    dl = torch.from_numpy(lens.astype(np.int32)).to(device)
+    ms = encode_kernel_ms(df, dl, table, v, device)
+    plain = (encode_ops.encode_core_plain
+             if int(lens.max()) <= encode_ops.MAX_TW_LEN
+             else encode_ops._flat_plain_counts)
+    plain(df, dl, table, v)                                    # warm-up
+    out = {}
+    plain_ms = elapsed_ms(lambda: out.__setitem__(
+        "p", plain(df, dl, table, v)), device)
+    ik, ck = encode_ops.encode_core(df, dl, table, v=v)
+    err = max(max_abs_diff(ik, out["p"][0]), max_abs_diff(ck, out["p"][1]))
+    check(err == 0, f"kernel == plain on the main path's chunks, v={v}")
+    lookups = torch.zeros(1, dtype=torch.int64, device=device)
+    encode_ops.encode_core(df, dl, table, v=v, lookups=lookups)
+    n_look, n_ids, W = int(lookups), len(ik), len(lens)
+    # the bytes in; per chunk its length, offset and count; the ids out;
+    # each rank lookup reads one int32 (dense) or one probe of three
+    # (hash; at least one probe each); a compare per lookup
+    per_look = 4 if v <= encode_ops.DENSE_V_MAX else 12
+    cost = bound(nbytes + 16 * W + ik.element_size() * n_ids
+                 + per_look * n_look, n_look)
+    print(f"{tag}: {nbytes} bytes, {W} chunks ({len(ulen)} distinct, "
+          f"{int(ulen.sum())} bytes) -> {len(ids)} ids; encode "
+          f"{enc:.3f} MB/s (native cpu {cpu_mbs:.3f}), encode_batch_arrays "
+          f"of {len(docs)} documents {batch_mbs:.3f} MB/s, decode "
+          f"{dec:.3f} MB/s (best of 3 after a warm-up); {launches} "
+          f"encode.cu launches in the first call ({first_s:.4f} s with the "
+          f"rank table's build), {per_call} per call (profiler), device "
+          f"busy {busy:.4f} of the call")
+    for line in routes:
+        print(f"{tag}: {line}")
+    print(f"{tag}: kernel {ms:.6f} ms per call over the {W} chunks (CUDA "
+          f"events, {KERNEL_REPS} calls), plain ({plain.__name__}) "
+          f"{plain_ms:.4f} ms; {n_look} rank "
+          f"lookups, bound {cost['bound_ms']:.8f} ms ({cost['bound_by']}); "
+          f"max |kernel - plain| = {err}; gpt pattern on "
+          f"{len(gtext.encode())} bytes: {len(gids)} ids == cpu")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **cost, library_ms=None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1150,20 +1497,25 @@ def main() -> int:
         print(f"[env] corpus: {len(data)} bytes, sha256 {digest}")
         check(len(data) == CORPUS_BYTES and digest == CORPUS_SHA256,
               "the corpus is the JAX bench's")
+        enc_text = data[:ENCODE_CHARS].decode()
         del data
         bench_layout = bpe_hist.build_layout(
             *token_arrays(corpus, device, HEADLINE), 64)
         timing = phase_kernel_vs_plain(device, bench_layout)
-        launches = {768: phase_main_path(corpus, tmp, 768, device,
-                                         golden=golden)[0]}
+        launches = {}
+        launches[768], model_768, _ = phase_main_path(corpus, tmp, 768,
+                                                      device, golden=golden)
         launches[4096], *fused_4096 = phase_main_path(corpus, tmp, 4096,
                                                       device)
         giant_layout = bpe_giant.build_giant_layout(
             *token_arrays(corpus, device, GIANT), GIANT_VOCAB)
         timing[GIANT_VOCAB] = phase_giant_vs_plain(device, giant_layout)
-        launches[GIANT_VOCAB] = phase_main_path(
+        launches[GIANT_VOCAB], model_giant, _ = phase_main_path(
             corpus, tmp, GIANT_VOCAB, device, cfg=GIANT,
-            kernel="giant_train_step")[0]
+            kernel="giant_train_step")
+        # the merges that phases 3, 4 and 6 trained, for phase 13
+        merges = {768: merges_of(model_768), 4096: merges_of(fused_4096[0]),
+                  GIANT_VOCAB: merges_of(model_giant)}
         phase_main_path(corpus, tmp, 768, device, engine="giant",
                         kernel="giant_train_step", golden=golden)
         # the world-size-1 NCCL group of phases 7, 8 and 11
@@ -1182,6 +1534,9 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     phase_clocks(device, clocked, bench_layout, giant_layout)
+    phase_encode_vs_plain(device, enc_text.encode(), merges)
+    encode = {v: phase_encode_main(device, enc_text, m, v)
+              for v, m in merges.items()}
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),
@@ -1191,6 +1546,9 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src + f,
                     replaces=TPU_KERNEL[key], launches=launches[key],
                     **timing[key]) for name, f, key in rows]
+    kernels += [dict(name=f"encode@v{v}", route="cuda", source=src
+                     + "encode.cu", replaces=TPU_KERNEL["encode"], **rec)
+                for v, rec in encode.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """ctypes bindings of the port's native host runtime.
 
 The part of the JAX package's ``shredword_tpu/runtime/native.py`` that
-the port's trainer calls: corpus loading and dedup (``NativeCorpus``,
-``CorpusArrays``), the reference-faithful CPU trainer
-(``FaithfulTrainer``) and merge replay (``NativeEncoder``).  Handles are
-opaque ``c_void_p``; arrays cross the boundary as numpy buffers with
-explicit sizes.
+the port's trainer and tokenizer call: corpus loading and dedup
+(``NativeCorpus``, ``CorpusArrays``), the reference-faithful CPU trainer
+(``FaithfulTrainer``), the CPU encoder and merge replay
+(``NativeEncoder``), and the encoder's host helpers (``normalize``,
+``dedup_spans``, ``ws_chunk_dedup``, ``expand_ids``, ``expand_bytes``,
+``gpt_starts_bytes``).  Handles are opaque ``c_void_p``; arrays cross the
+boundary as numpy buffers with explicit sizes.
 """
 
 from __future__ import annotations
@@ -85,6 +87,24 @@ def _declare(L: ctypes.CDLL) -> None:
     L.shred_encoder_free.restype = None
     L.shred_apply_merges.argtypes = [p, p, p, i64, p, i64, p]
     L.shred_apply_merges.restype = i64
+    L.shred_encode_words.argtypes = [p, p, p, i64, i32, p, i64]
+    L.shred_encode_words.restype = i64
+    L.shred_encode_text.argtypes = [p, ctypes.c_char_p, i64, i32, p, i64,
+                                    i32]
+    L.shred_encode_text.restype = i64
+
+    L.shred_normalize.argtypes = [ctypes.c_char_p, i64, p, i64]
+    L.shred_normalize.restype = i64
+    L.shred_gpt_starts.argtypes = [ctypes.c_char_p, i64, p, p, i64]
+    L.shred_gpt_starts.restype = i64
+    L.shred_dedup_spans.argtypes = [p, p, p, i64, p, p]
+    L.shred_dedup_spans.restype = i64
+    L.shred_ws_chunk_dedup.argtypes = [p, i64, p, p, p, ctypes.POINTER(i64)]
+    L.shred_ws_chunk_dedup.restype = i64
+    L.shred_expand_ids.argtypes = [p, p, p, i64, p]
+    L.shred_expand_ids.restype = i64
+    L.shred_expand_bytes.argtypes = [p, p, p, i64, p]
+    L.shred_expand_bytes.restype = i64
 
 
 def _ptr(a: np.ndarray):
@@ -224,14 +244,50 @@ class FaithfulTrainer:
 
 
 class NativeEncoder:
-    """CPU merge replay over a merge table (checkpoint resume and the
-    sharded engine's final corpus)."""
+    """CPU encoder over a merge table: the tokenizer's ``cpu`` backend,
+    and merge replay (checkpoint resume and the sharded engine's final
+    corpus)."""
 
     def __init__(self, merges: np.ndarray):
         merges = np.ascontiguousarray(merges, dtype=np.int32)
         if merges.ndim != 2 or merges.shape[1] != 2:
             raise ValueError(f"merges must be [M, 2], got {merges.shape}")
         self._h = lib().shred_encoder_create(_ptr(merges), len(merges))
+
+    def encode_words(self, word_bytes: np.ndarray, offsets: np.ndarray,
+                     cache: bool = True) -> np.ndarray:
+        """int32 ids of the words word_bytes[offsets[i]:offsets[i + 1]],
+        concatenated (memoized per distinct word when ``cache``)."""
+        word_bytes = np.ascontiguousarray(word_bytes, dtype=np.uint8)
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        n_words = len(offsets) - 1
+        cap = max(int(offsets[-1]), 16)
+        out = np.empty(cap, dtype=np.int32)
+        n = lib().shred_encode_words(self._h, _ptr(word_bytes),
+                                     _ptr(offsets), n_words, int(cache),
+                                     _ptr(out), cap)
+        if n < 0:
+            out = np.empty(-n, dtype=np.int32)
+            n = lib().shred_encode_words(self._h, _ptr(word_bytes),
+                                         _ptr(offsets), n_words, int(cache),
+                                         _ptr(out), -n)
+        return out[:n].copy()
+
+    def encode_text(self, data: bytes, cache: bool = True,
+                    nthreads: int = 0) -> np.ndarray:
+        """Whole-text encode: native lossless whitespace chunking and
+        memoized word encode in one pass.  Large inputs fan out over
+        worker threads split at whitespace-run boundaries, bit-identical
+        to one thread; nthreads <= 0 picks the count."""
+        cap = max(len(data), 16)
+        out = np.empty(cap, dtype=np.int32)
+        n = lib().shred_encode_text(self._h, data, len(data), int(cache),
+                                    _ptr(out), cap, nthreads)
+        if n < 0:
+            out = np.empty(-n, dtype=np.int32)
+            n = lib().shred_encode_text(self._h, data, len(data),
+                                        int(cache), _ptr(out), -n, nthreads)
+        return out[:n].copy()
 
     def apply_merges(self, tokens: np.ndarray, offsets: np.ndarray
                      ) -> tuple[np.ndarray, np.ndarray]:
@@ -262,3 +318,105 @@ class NativeEncoder:
             self.free()
         except Exception:
             pass
+
+
+def normalize(data: bytes) -> bytes:
+    """SentencePiece-style normalization with the reference's exact
+    line semantics (normalize.cpp:24-59): ASCII lowercase, whitespace
+    runs -> U+2581, leading run dropped, trailing marker stripped."""
+    cap = len(data) * 3 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib().shred_normalize(data, len(data), _ptr(out), cap)
+    if n < 0:
+        out = np.empty(-n, dtype=np.uint8)
+        n = lib().shred_normalize(data, len(data), _ptr(out), -n)
+    return out[:n].tobytes()
+
+
+def dedup_spans(flat: np.ndarray, off: np.ndarray,
+                lens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Deduplicate byte spans (csrc/dedup.cpp).  Returns (inverse
+    int32[n], the dense unique id of each span in first-occurrence
+    order; uniq int64[u], the span index of each unique's first
+    occurrence)."""
+    n = len(lens)
+    flat = np.ascontiguousarray(flat, np.uint8)
+    off = np.ascontiguousarray(off, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    inverse = np.empty(n, np.int32)
+    uniq = np.empty(n, np.int64)
+    u = lib().shred_dedup_spans(_ptr(flat), _ptr(off), _ptr(lens), n,
+                                _ptr(inverse), _ptr(uniq))
+    return inverse, uniq[:u].copy()
+
+
+def ws_chunk_dedup(data) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Whitespace-keep chunking and dedup of a raw byte stream in one
+    pass (csrc/dedup.cpp).  Returns (inverse int32[n_chunks], the dense
+    unique id of each chunk in stream order; uniq_off int64[u] and
+    uniq_len int32[u], each unique chunk's byte span in ``data``)."""
+    arr = np.ascontiguousarray(np.frombuffer(data, np.uint8)
+                               if isinstance(data, (bytes, bytearray))
+                               else data, np.uint8)
+    n = len(arr)
+    if n == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.int64),
+                np.zeros(0, np.int32))
+    inverse = np.empty(n, np.int32)
+    uniq_off = np.empty(n, np.int64)
+    uniq_len = np.empty(n, np.int32)
+    n_chunks = ctypes.c_int64(0)
+    u = lib().shred_ws_chunk_dedup(_ptr(arr), n, _ptr(inverse),
+                                   _ptr(uniq_off), _ptr(uniq_len),
+                                   ctypes.byref(n_chunks))
+    if u < 0:
+        raise ValueError("a single delimiter-free run exceeds 2 GiB "
+                         "(int32 chunk-length limit)")
+    return (inverse[:n_chunks.value].copy(), uniq_off[:u].copy(),
+            uniq_len[:u].copy())
+
+
+def expand_ids(ids_u: np.ndarray, uoff: np.ndarray,
+               inverse: np.ndarray, total: int) -> np.ndarray:
+    """Expand per-unique-chunk id runs to the full stream (a memcpy
+    loop, csrc/dedup.cpp): the concatenation of ids_u[uoff[u]:uoff[u+1]]
+    for u in inverse; ``total`` is the sum of those run lengths."""
+    ids_u = np.ascontiguousarray(ids_u, np.int32)
+    uoff = np.ascontiguousarray(uoff, np.int64)
+    inverse = np.ascontiguousarray(inverse, np.int32)
+    out = np.empty(total, np.int32)
+    written = lib().shred_expand_ids(_ptr(ids_u), _ptr(uoff),
+                                     _ptr(inverse), len(inverse), _ptr(out))
+    if written != total:
+        raise ValueError(f"expand_ids wrote {written} ids, expected {total}")
+    return out
+
+
+def expand_bytes(flat: np.ndarray, off: np.ndarray, ids: np.ndarray,
+                 total: int) -> bytes:
+    """Piece-table byte expansion (decode's memcpy loop): the
+    concatenation of flat[off[i]:off[i+1]] for i in ids, which must be
+    in range and known."""
+    flat = np.ascontiguousarray(flat, np.uint8)
+    off = np.ascontiguousarray(off, np.int64)
+    ids = np.ascontiguousarray(ids, np.int32)
+    out = np.empty(total, np.uint8)
+    written = lib().shred_expand_bytes(_ptr(flat), _ptr(off), _ptr(ids),
+                                       len(ids), _ptr(out))
+    if written != total:
+        raise ValueError(f"expand_bytes wrote {written} bytes, expected "
+                         f"{total}")
+    return out.tobytes()
+
+
+def gpt_starts_bytes(data: bytes, cls_table: np.ndarray) -> np.ndarray:
+    """Chunk-start byte offsets of the GPT pre-split pattern (the native
+    single-pass scanner, csrc/pretok.cpp; classes from
+    ``ops.pretok_ops.class_table``)."""
+    if not data:
+        return np.zeros(0, np.int64)
+    cap = len(data) + 1
+    out = np.empty(cap, np.int64)
+    table = np.ascontiguousarray(cls_table, np.int8)
+    n = lib().shred_gpt_starts(data, len(data), _ptr(table), _ptr(out), cap)
+    return out[:n].copy()

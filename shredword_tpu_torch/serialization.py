@@ -1,11 +1,14 @@
-"""The reference's model and vocab formats (the JAX package's
-``shredword_tpu.serialization``, binary ``.model`` and ``.vocab`` part).
+"""The reference's model and vocab formats (the port's copy of the JAX
+package's ``shredword_tpu.serialization``).
 
 1. Binary ``.model``: little-endian int32 triples (first, second, 256+m)
    per merge (reference bpe_save, bpe.cpp:722-731).
 2. Text ``.vocab``: "<token-bytes> <frequency>\\n" per id 0..255+M with raw
    unescaped bytes (bpe.cpp:704-719); byte 0's token string is empty
    (C-string semantics, see docs/CONFORMANCE.md §3).
+3. Text ``shredword v1`` model: header + pattern + special tokens +
+   "a b" merge lines (base.py:111-149), what ``Tokenizer.save`` writes
+   when the model carries a pattern or special tokens.
 """
 
 from __future__ import annotations
@@ -59,3 +62,75 @@ def write_vocab(path: str, merges: np.ndarray, freqs: np.ndarray) -> None:
     with open(path, "wb") as f:
         for tok, fr in zip(toks, freqs):
             f.write(tok + b" " + str(int(fr)).encode() + b"\n")
+
+
+def write_model_v1(path: str, merges: np.ndarray, pattern: str = "",
+                   special_tokens: dict[str, int] | None = None) -> None:
+    special_tokens = special_tokens or {}
+    merges = np.asarray(merges, dtype=np.int64)
+    if "\n" in pattern or "\r" in pattern:
+        raise SerializationError(
+            "v1 model format is line-oriented; pattern may not contain "
+            "newlines")
+    for name in special_tokens:
+        if any(c in name for c in "\n\r"):
+            raise SerializationError(
+                f"special token {name!r} contains a newline; "
+                "not representable in the v1 format")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("shredword v1\n")
+        f.write(f"{pattern}\n")
+        f.write(f"{len(special_tokens)}\n")
+        for special, idx in special_tokens.items():
+            f.write(f"{special} {idx}\n")
+        for a, b in merges:
+            f.write(f"{a} {b}\n")
+
+
+def read_model_v1(path: str):
+    """Returns (merges int32[M,2], pattern, special_tokens)."""
+    with open(path, "r", encoding="utf-8") as f:
+        version = f.readline().strip()
+        if version != "shredword v1":
+            raise SerializationError(f"{path}: bad header {version!r}")
+        pattern = f.readline().rstrip("\n")
+        num_special = int(f.readline().strip())
+        special = {}
+        for _ in range(num_special):
+            # rsplit: special-token names may contain spaces
+            name, idx = f.readline().rstrip("\n").rsplit(" ", 1)
+            special[name] = int(idx)
+        merges = []
+        for line in f:
+            if not line.strip():
+                continue
+            a, b = map(int, line.split())
+            merges.append((a, b))
+    return (np.array(merges, dtype=np.int32).reshape(-1, 2), pattern, special)
+
+
+def convert(src: str, dst: str, **v1_kwargs) -> None:
+    """Convert between binary .model and shredword v1 text: reads either,
+    writes binary unless dst ends with ".v1.model" / ".txt"."""
+    try:
+        merges = read_model_binary(src)
+    except (SerializationError, ValueError):
+        merges, pattern, special = read_model_v1(src)
+        v1_kwargs.setdefault("pattern", pattern)
+        v1_kwargs.setdefault("special_tokens", special)
+    if dst.endswith((".v1.model", ".txt")):
+        write_model_v1(dst, merges, **v1_kwargs)
+    else:
+        if v1_kwargs.get("pattern") or v1_kwargs.get("special_tokens"):
+            raise SerializationError(
+                "binary .model cannot carry a pattern or special "
+                "tokens; convert to a .v1.model destination instead")
+        write_model_binary(dst, merges)
+
+
+def read_model_any(path: str):
+    """Read a model in either format.  Returns (merges, pattern, special)."""
+    try:
+        return read_model_binary(path), "", {}
+    except (SerializationError, ValueError, UnicodeDecodeError):
+        return read_model_v1(path)

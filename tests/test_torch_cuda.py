@@ -10,9 +10,10 @@ there with
 import numpy as np
 import pytest
 import torch
+from torch_encode_cases import FHUS, random_chunks, random_merges
 
-from shredword_tpu_torch import BPETrainer
-from shredword_tpu_torch.ops import _kernels, bpe_giant, bpe_hist
+from shredword_tpu_torch import BPETrainer, Tokenizer
+from shredword_tpu_torch.ops import _kernels, bpe_giant, bpe_hist, encode_ops
 
 
 def _corpus(seed, n_words=400, alpha=6, max_len=12, unk=None,
@@ -367,3 +368,66 @@ def test_step_kernels_call_by_call(case, chain, cuda, request):
                      min_freq=minf)
     assert kernel.launches > n0
     assert (n == merges) == (minf == 2) and n > 0
+
+
+# ---------------------------------------------------------------------
+# the encoder (csrc/encode.cu)
+# ---------------------------------------------------------------------
+
+# name: (v, n_long): the dense table below vocab 4097, the hash table
+# above; chunks over 64 bytes take the kernel's global-memory mode
+ENCODE_CASES = {"dense_v300": (300, 0), "dense_v768_long": (768, 12),
+                "dense_v4096": (4096, 0), "hash_v5000_long": (5000, 12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
+def test_encode_kernel_matches_plain(case, cuda):
+    v, n_long = ENCODE_CASES[case]
+    merges = random_merges(v, v - 256)
+    flat, lens = random_chunks(v + 1, 3000, n_long=n_long)
+    tables = {dev: (encode_ops.build_rank_table(merges, v, dev)
+                    if v <= encode_ops.DENSE_V_MAX
+                    else encode_ops.build_merge_table(merges, dev))
+              for dev in ("cpu", cuda)}
+    out = {}
+    for dev in ("cpu", cuda):
+        n0 = encode_ops.encode_core.launches
+        out[dev] = encode_ops.encode_core(
+            torch.from_numpy(flat).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev), tables[dev],
+            v=v)
+        assert encode_ops.encode_core.launches - n0 == (2 if dev == cuda
+                                                        else 0)
+    (ip, cp), (ik, ck) = out["cpu"], out[cuda]
+    assert ik.dtype == ip.dtype == torch.int16
+    torch.testing.assert_close(ck.cpu(), cp, rtol=0, atol=0)
+    torch.testing.assert_close(ik.cpu(), ip, rtol=0, atol=0)
+    assert len(ip) < len(flat) * 0.9                   # merges fired
+    lookups = torch.zeros(1, dtype=torch.int64, device=cuda)
+    encode_ops.encode_core(torch.from_numpy(flat).to(cuda),
+                           torch.from_numpy(lens.astype(np.int32)).to(cuda),
+                           tables[cuda], v=v, lookups=lookups)
+    assert int(lookups) >= int((lens - 1).sum())
+
+
+@pytest.mark.cuda
+def test_tokenizer_on_cuda_matches_cpu(cuda):
+    merges = random_merges(7, 600, alpha=26)
+    rng = np.random.RandomState(8)
+    words = ["".join(chr(97 + c) for c in rng.randint(0, 26, k))
+             for k in rng.randint(1, 12, 3000)]
+    text = " ".join(words) + "\n" + "x" * 150 + " aaaa aaa  \t fhus"
+    docs = [text[i:i + 4000] for i in range(0, len(text), 4000)]
+    for pattern in ("", "gpt", "word"):
+        want = Tokenizer(merges, pattern=pattern, backend="cpu")
+        tok = Tokenizer(merges, pattern=pattern, device=cuda)
+        n0 = encode_ops.encode_core.launches
+        ids = tok.encode_array(text)
+        assert encode_ops.encode_core.launches - n0 == 2    # one call
+        np.testing.assert_array_equal(ids, want.encode_array(text))
+        assert tok.decode(ids) == text
+        batch = tok.encode_batch_arrays(docs)
+        for d, got in zip(docs, batch):
+            np.testing.assert_array_equal(got, want.encode_array(d))
+    assert Tokenizer(FHUS, device=cuda).encode("fhus") == [102, 257]

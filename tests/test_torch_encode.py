@@ -1,0 +1,232 @@
+"""The port's encoder (shredword_tpu_torch.ops.encode_ops) against the JAX
+package's (shredword_tpu.ops.encode_ops) on the CPU: the rank tables,
+the plain versions of the encode kernel (csrc/encode.cu) against
+_encode_device, _encode_device_hash and encode_chunks, and the host
+entry points encode_stream and encode_ws_text.  Inputs are seeded numpy
+arrays; the outputs are integer ids, so every comparison is exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_encode_cases import FHUS, random_chunks, random_merges
+
+from shredword_tpu.ops import encode_ops as J
+from shredword_tpu.pretokenize import whitespace_keep_split
+from shredword_tpu_torch.ops import encode_ops as P
+
+
+def _tables(merges, v):
+    """(JAX table, port table on the CPU) as encode_stream picks them."""
+    if v <= P.DENSE_V_MAX:
+        return J.build_rank_table(merges, v), P.build_rank_table(merges, v,
+                                                                 "cpu")
+    return J.build_merge_table(merges), P.build_merge_table(merges, "cpu")
+
+
+@pytest.mark.parametrize("v", [300, 768, 4096, 5000])
+def test_tables_match_jax(v):
+    merges = random_merges(v, v - 256)
+    jd, pd = J.build_rank_table(merges, v), P.build_rank_table(merges, v,
+                                                               "cpu")
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+    jh, ph = J.build_merge_table(merges), P.build_merge_table(merges, "cpu")
+    assert ph.max_probe == jh.max_probe and ph.v == 256 + len(merges)
+    for got, want in ((ph.ka, jh.ka), (ph.kb, jh.kb), (ph.rank, jh.rank)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the hash lookup over every id pair a chunk can hold, and invalid ones
+    rng = np.random.RandomState(v)
+    a = rng.randint(-1, v, 4000).astype(np.int32)
+    b = rng.randint(-1, v, 4000).astype(np.int32)
+    a[:len(merges)], b[:len(merges)] = merges[:4000].T
+    valid = (a >= 0) & (b >= 0) & (rng.rand(4000) < 0.9)
+    want = J.lookup_ranks(jh, jnp.asarray(a), jnp.asarray(b),
+                          jnp.asarray(valid))
+    got = P.lookup_ranks_plain(ph, torch.from_numpy(a), torch.from_numpy(b),
+                               torch.from_numpy(valid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _jax_encode_device(flat, lens, table, v):
+    """(ids, counts) of the JAX package's _encode_device(_hash) over one
+    block of contiguous chunks."""
+    W = len(lens)
+    Wb = 1 << max(8, (W - 1).bit_length())
+    lens_w = np.zeros(Wb, np.uint8)
+    lens_w[:W] = lens
+    gb = np.full(16, W, np.int32)
+    gb[0] = 0
+    dflat = jnp.asarray(np.concatenate([flat, np.zeros(64, np.uint8)]))
+    kw = dict(v=v, L=64, out_cap=int(lens.sum()))
+    if isinstance(table, J.MergeTable):
+        ids, _, cnt = J._encode_device_hash(
+            dflat, None, jnp.asarray(lens_w), jnp.asarray(gb), table.ka,
+            table.kb, table.rank, max_probe=table.max_probe, **kw)
+    else:
+        ids, _, cnt = J._encode_device(dflat, None, jnp.asarray(lens_w),
+                                       jnp.asarray(gb), table, **kw)
+    cnt = np.asarray(cnt)[:W].astype(np.int64)
+    return np.asarray(ids)[:cnt.sum()].astype(np.int32), cnt
+
+
+@pytest.mark.parametrize("v", [300, 768, 5000])
+def test_encode_core_plain_matches_jax(v):
+    """encode_core_plain (dense below vocab 4097, hash above) against
+    _encode_device / _encode_device_hash, and encode_flat_plain with the
+    same table on the same chunks."""
+    merges = random_merges(v, v - 256)
+    flat, lens = random_chunks(v + 1, 700)
+    jt, pt = _tables(merges, v)
+    want_ids, want_counts = _jax_encode_device(flat, lens, jt, v)
+    tf, tl = torch.from_numpy(flat), torch.from_numpy(lens.astype(np.int32))
+    ids, counts = P.encode_core_plain(tf, tl, pt, v)
+    assert ids.dtype == P.out_dtype(v) == torch.int16
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(P.ids_to_numpy(ids), want_ids)
+    assert len(want_ids) < 0.9 * len(flat)              # merges fired
+    st = P.encode_flat_plain(tf.int(), torch.repeat_interleave(
+        torch.arange(len(lens), dtype=torch.int32), tl.long()), len(flat),
+        pt, num_chunks=len(lens), v=v)
+    np.testing.assert_array_equal(st.tokens[:st.length].numpy(), want_ids)
+    # the wrapper takes the plain version for CPU tensors
+    got = P.encode_core(tf, tl, pt, v=v)
+    np.testing.assert_array_equal(P.ids_to_numpy(got[0]), want_ids)
+    np.testing.assert_array_equal(got[1].numpy(), want_counts)
+
+
+@pytest.mark.parametrize("v", [300, 5000])
+def test_encode_flat_plain_matches_jax_encode_chunks(v):
+    """Chunks over 64 bytes: the JAX package's encode_chunks
+    (encode_flat) against the port's, which runs encode_flat_plain
+    through the encode_core wrapper on the CPU."""
+    merges = random_merges(v + 2, v - 256)
+    flat, lens = random_chunks(v + 3, 30, n_long=20)
+    starts = np.cumsum(lens) - lens
+    chunks = [flat[s:s + n].tobytes() for s, n in zip(starts, lens)]
+    jt, pt = J.build_merge_table(merges), P.build_merge_table(merges, "cpu")
+    want = J.encode_chunks(chunks, jt, return_chunk_ids=True)
+    got = P.encode_chunks(chunks, pt, return_chunk_ids=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert P.encode_chunks([], pt).shape == (0,)
+
+
+@pytest.mark.parametrize("v, n_base, n_chunks, dedup", [
+    (768, 150, 3000, True), (768, 150, 500, False), (768, 2500, 2600, False),
+    (5000, 150, 2500, True)])
+def test_encode_stream_matches_jax(v, n_base, n_chunks, dedup):
+    """Groups, with the JAX package on its dedup path (from
+    DEDUP_MIN_CHUNKS chunks on, when at most half of them are distinct)
+    or its direct one; the port encodes every chunk in either case."""
+    merges = random_merges(v + 4, v - 256)
+    base, base_lens = random_chunks(v + 5, n_base, max_len=12)
+    reps = np.random.RandomState(v).randint(0, n_base, n_chunks)
+    starts = np.cumsum(base_lens) - base_lens
+    flat = np.concatenate([base[starts[r]:starts[r] + base_lens[r]]
+                           for r in reps])
+    lens = base_lens[reps]
+    off = np.cumsum(lens) - lens
+    taken = (n_chunks >= J.DEDUP_MIN_CHUNKS
+             and J._try_dedup(flat, off, lens) is not None)
+    assert taken == dedup
+    bounds = np.array([0, 7, 7, n_chunks // 2, n_chunks], np.int64)
+    want = J.encode_stream(flat, lens, merges, v, bounds, {})
+    cache = {}
+    got = P.encode_stream(flat, lens, merges, v, bounds, cache,
+                          device="cpu")
+    assert len(got) == len(want) == 4 and len(got[1]) == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert list(cache) == [("table", v, "cpu")]
+    empty = P.encode_stream(flat[:0], lens[:0], merges, v, device="cpu")
+    assert len(empty) == 1 and empty[0].shape == (0,)
+
+
+def test_encode_ws_text_matches_jax():
+    merges = random_merges(11, 512, alpha=26)
+    rng = np.random.RandomState(12)
+    words = [(97 + rng.randint(0, 26, k)).astype(np.uint8).tobytes()
+             for k in rng.randint(1, 10, 400)]
+    seps = [b" ", b"  ", b"\n", b"\t "]
+    data = b"".join(words[i] + seps[i % 4] for i in rng.randint(0, 400, 5000))
+    flat = np.frombuffer(data, np.uint8)
+    want = J.encode_ws_text(flat, merges, 768, {})
+    got = P.encode_ws_text(flat, merges, 768, {}, device="cpu")
+    assert want is not None and len(want) < len(flat)      # merges fired
+    np.testing.assert_array_equal(got, want)
+    # a chunk over 64 bytes: the JAX package returns None and its
+    # Tokenizer splices the chunk in through encode_chunks; the port
+    # encodes it in the same call, to the same ids
+    long_data = data[:100] + b"x" * 65 + b"ab" * 40 + b" y"
+    long = np.frombuffer(long_data, np.uint8)
+    assert J.encode_ws_text(long, merges, 768, {}) is None
+    want = J.encode_chunks(whitespace_keep_split(long_data),
+                           J.build_merge_table(merges))
+    got = P.encode_ws_text(long, merges, 768, {}, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert P.encode_ws_text(flat[:0], merges, 768, device="cpu").shape == (0,)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ws_chunk_lens_match_whitespace_keep_split(seed):
+    """encode_ws_text's numpy chunking gives the chunks of the port's
+    whitespace_keep_split, whatever their length."""
+    from shredword_tpu_torch.pretokenize import whitespace_keep_split as split
+
+    rng = np.random.RandomState(seed)
+    alphabet = np.frombuffer(b"ab \t\r\n\x00\xff", np.uint8)
+    for n in (0, 1, 2, 300):
+        flat = alphabet[rng.randint(0, len(alphabet), n)]
+        flat[: n // 3] = 97 if seed else 32         # a long run
+        want = [len(c) for c in split(flat.tobytes())]
+        assert P.ws_chunk_lens(flat).tolist() == want
+
+
+def test_created_pair_preemption_and_overlap_runs():
+    """'fhus': a distant lowest-rank merge creates a pair that beats an
+    existing local minimum; 'aaaa' / 'aaa': overlapping runs."""
+    for merges, text, want in ((FHUS, b"fhus", [102, 257]),
+                               (np.array([[97, 97]], np.int32), b"aaaa",
+                                [256, 256]),
+                               (np.array([[97, 97]], np.int32), b"aaa",
+                                [256, 97])):
+        v = 256 + len(merges)
+        for table in (P.build_rank_table(merges, v, "cpu"),
+                      P.build_merge_table(merges, "cpu")):
+            flat = torch.frombuffer(bytearray(text), dtype=torch.uint8)
+            lens = torch.tensor([len(text)], dtype=torch.int32)
+            ids, counts = P.encode_core(flat, lens, table, v=v)
+            assert P.ids_to_numpy(ids).tolist() == want
+            st = P._flat_plain_counts(flat, lens, table, v)
+            assert P.ids_to_numpy(st[0]).tolist() == want
+
+
+def test_encode_core_rejects_bad_input():
+    merges = random_merges(1, 40)
+    v = 296
+    table = P.build_rank_table(merges, v, "cpu")
+    flat = torch.zeros(10, dtype=torch.uint8)
+    lens = torch.tensor([4, 6], dtype=torch.int32)
+    with pytest.raises(TypeError):
+        P.encode_core(flat.int(), lens, table, v=v)
+    with pytest.raises(TypeError):
+        P.encode_core(flat, lens.long(), table, v=v)
+    with pytest.raises(ValueError, match="dense table"):
+        P.encode_core(flat, lens, table[:-1], v=v)
+    with pytest.raises(ValueError, match="reach"):
+        P.encode_core(flat, lens, P.build_merge_table(merges, "cpu"), v=290)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.encode_core(torch.zeros(20, dtype=torch.uint8)[::2], lens, table,
+                      v=v)
+    with pytest.raises(ValueError, match="sum to at most"):
+        P.encode_core(flat, lens + 1, table, v=v)
+    with pytest.raises(ValueError, match=">= 0"):
+        P.encode_core(flat, torch.tensor([-1, 6], dtype=torch.int32),
+                      table, v=v)
+    ids, counts = P.encode_core(flat, lens[:0], table, v=v)
+    assert ids.shape == counts.shape == (0,)
+    assert P.out_dtype(65536) == torch.int16
+    assert P.out_dtype(65537) == torch.int32
+    big = torch.tensor([0, 255, 32767, 32768, 65535], dtype=torch.int32)
+    np.testing.assert_array_equal(P.ids_to_numpy(P._to_out(big, 65536)),
+                                  big.numpy())

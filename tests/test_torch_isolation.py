@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package nor
 the JAX bench, at run time (a subprocess that blocks them trains every
-engine, checkpoints, resumes and saves) and in its sources (an AST scan
-of the package and of chip_smoke.py); and its own copy of the native
-corpus loader gives the JAX package's arrays."""
+engine, checkpoints, resumes and saves, and encodes, decodes, saves and
+loads a Tokenizer) and in its sources (an AST scan of the package and of
+chip_smoke.py); and its own copy of the native corpus loader gives the
+JAX package's arrays."""
 
 import ast
 import os
@@ -59,6 +60,21 @@ def test_runs_with_jax_and_the_jax_package_blocked(tmp_path):
         resumed.train()
         resumed.save(f"{{out}}/resumed.model", f"{{out}}/resumed.vocab")
         assert open(f"{{out}}/resumed.model", "rb").read() == saved["hist"]
+
+        from shredword_tpu_torch import Tokenizer
+        text = data.decode() + " x" * 70 + "y" * 80 + " it's 12 <|eot|>"
+        for pattern in ("", "gpt"):
+            tok = Tokenizer(resumed.merges, pattern=pattern, device="cpu",
+                            special_tokens={{"<|eot|>": 1000}})
+            ids = tok.encode(text, allowed_special="all")
+            assert tok.decode(ids) == text and len(ids) < len(text)
+            native = Tokenizer(resumed.merges, pattern=pattern,
+                               backend="cpu")
+            assert native.encode_ordinary(text) == tok.encode_ordinary(text)
+            tok.save(f"{{out}}/tok{{pattern}}.model")
+            back = Tokenizer.load(f"{{out}}/tok{{pattern}}.model",
+                                  device="cpu")
+            assert back.encode(text, allowed_special="all") == ids
 
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
