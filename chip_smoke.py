@@ -87,6 +87,32 @@ Phases (any failure exits non-zero, and no result line is printed):
      rerun), and, at 64 KB and 4 MB, whitespace and GPT chunks encoded
      directly (the main path) against the route through the distinct
      chunks (native dedup, device, native expansion), layer by layer
+ 14. Unigram: the lattice kernels of csrc/unigram.cu (U1 fb_kernel, the
+     EM forward-backward; U2 viterbi_kernel) against their plain
+     versions on the card, on the seeded lattices of
+     tests/torch_unigram_cases.py (absent cells, an all-absent row, an
+     uncovered word, pieces pruned to -1e30, lengths 1 and L, ties, L 70
+     for the global-scratch mode): U1's counts within rtol 1e-5 / atol
+     1e-6 and its log-likelihood within 1e-6 relative, U2 identical; then
+     on the default config's real slabs at the seed pieces (U1 on the
+     three E-step slabs, U2 on the first prune's first slab, scores only
+     as train() calls it): checked and timed (CUDA events), the plain
+     versions' time, launches per call (torch.profiler), the bound from
+     the cells inside the words and the operations on the present cells,
+     and U1 again with every present cell's id distinct (no hot-piece
+     atomics); then the main path at the JAX bench's default config
+     (bench.py:400-420): UnigramTrainer(8192, seed 100,000) load_corpus
+     -> train -> save on the 16 MB corpus (8192 pieces; U1 and U2
+     launches per train(), device busy share, final LL, the host layers
+     of train()), UnigramTokenizer.load(...).encode_array on its first
+     1,000,000 characters (decodes to the normalized text; ids == the
+     host DP encode_word on every distinct word, or another path of the
+     same score within 1e-6 relative; pieces per word, encode and decode
+     MB/s); the bench's 1,024-piece config (bench.py:378-397) on the card
+     and with device="cpu": pieces identical and log_probs within 1e-5
+     (a prune near-tie may flip a piece only if its loss lies within 1e-6
+     relative of that prune's cutoff, printed); UnigramTrainer(mesh=...)
+     over NCCL world 1 == the single-device pieces
 
 The corpus is generated here (make_corpus, the JAX bench's generator) and
 checked against its known digest.  The last lines of standard output are
@@ -120,7 +146,10 @@ TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               GIANT_VOCAB: "shredword_tpu/ops/bpe_giant.py:292",  # _giant_kernel
               "step": "shredword_tpu/ops/bpe_hist.py:262",  # _merge_kernel
               "sparse": "shredword_tpu/ops/bpe_hist.py:288",  # _merge_kernel_sparse
-              "encode": "shredword_tpu/ops/encode_ops.py:230"}  # _encode_core
+              "encode": "shredword_tpu/ops/encode_ops.py:230",  # _encode_core
+              "unigram_fb": "shredword_tpu/ops/unigram_ops.py:70",  # _fb_core
+              "unigram_viterbi":                    # _viterbi_device
+              "shredword_tpu/ops/unigram_ops.py:329"}
 TIMED_MERGES = 128
 LATE_START = 16128   # the giant late window: new ids from 16384 on
 CORPUS_BYTES = 16_153_229
@@ -419,11 +448,12 @@ def train_and_save(corpus, out_dir, vocab, device, engine="auto",
 def reset_counts() -> None:
     from shredword_tpu_torch.ops import _kernels
 
-    from shredword_tpu_torch.ops import encode_ops
+    from shredword_tpu_torch.ops import encode_ops, unigram_ops
 
     for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
               _kernels.hist_sharded_train, _kernels.hist_sparse_train,
-              encode_ops.encode_core):
+              encode_ops.encode_core, unigram_ops.fb_core,
+              unigram_ops.viterbi_core):
         k.launches = 0
 
 
@@ -1474,11 +1504,433 @@ def phase_encode_main(device, text: str, merges: np.ndarray, v: int) -> dict:
                 **cost, library_ms=None)
 
 
+# ---------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------
+
+UNI_DEFAULT = dict(target_vocab_size=8192, seed_size=100_000)  # bench.py:400
+UNI_1024 = dict(target_vocab_size=1024, seed_size=10_000)      # bench.py:378
+UNI_ENCODE_CHARS = 1_000_000
+
+
+class Recorder:
+    """A kernel wrapper that keeps the arguments of each call."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+
+def uni_both(args) -> tuple[float, float, bool, bool]:
+    """U1 and U2 against their plain versions on the same card tensors:
+    (max |U1 - plain| over the counts, the log-likelihood's relative
+    difference, counts within rtol=1e-5 / atol=1e-6, U2's pieces, counts
+    and scores identical (and its scores-only form's))."""
+    from shredword_tpu_torch.ops import unigram_ops as U
+
+    counts, ll = U.fb_core(*args)
+    pc, pll = U.fb_core_plain(*args)
+    err = float((counts - pc).abs().max()) if len(pc) else 0.0
+    ll_rel = abs(float(ll) - float(pll)) / max(abs(float(pll)), 1e-300)
+    close = bool(torch.allclose(counts, pc, rtol=1e-5, atol=1e-6))
+    got = U.viterbi_core(*args[:3])
+    want = U.viterbi_core_plain(*args[:3])
+    _, _, final = U.viterbi_core(*args[:3], backtrace=False)
+    same = (all(torch.equal(a, b) for a, b in zip(got, want))
+            and torch.equal(final, want[2]))
+    return err, ll_rel, close, same
+
+
+def phase_uni_vs_plain(device) -> None:
+    """U1 and U2 against their plain versions on the card, on the seeded
+    lattices of tests/torch_unigram_cases.py: absent cells, an all-absent
+    row, a word no piece covers, pieces pruned to logp -1e30 (and a word
+    whose one path goes through one), words of length 1 and L, ties
+    everywhere, K = 1, and L = 70 (the kernels' global-scratch mode)."""
+    from shredword_tpu_torch.ops import unigram_ops as U
+    from torch_unigram_cases import LATTICES, random_lattice
+
+    for case in sorted(LATTICES):
+        table, wlen, wcount, logp = random_lattice(case)
+        dt = U.make_device_table(table, wlen, wcount, device)
+        err, ll_rel, close, same = uni_both(uni_args(dt, logp))
+        W, L, K = table.shape
+        print(f"[unigram] seeded {case} [L {L}, K {K}, W {W}]: max |U1 - "
+              f"plain| = {err:.3e}, log-likelihood relative difference "
+              f"{ll_rel:.3e}, U2 identical: {same}")
+        check(close and ll_rel <= 1e-6,
+              f"U1 == plain within rtol 1e-5, atol 1e-6, {case}")
+        check(same, f"U2 == plain, {case}")
+
+
+def uni_args(dt, logp):
+    lp = torch.from_numpy(np.asarray(logp, np.float32)).to(dt.ids.device)
+    return dt.ids, lp, dt.wlen, dt.wcount
+
+
+def cells_inside(wlen: np.ndarray, K: int) -> int:
+    """Cells (start j, length k + 1) inside the words: the sum over the
+    words of sum_j min(K, len - j)."""
+    n = wlen.astype(np.int64)
+    return int(np.where(n <= K, n * (n + 1) // 2,
+                        K * (K + 1) // 2 + (n - K) * K).sum())
+
+
+def uni_kernel_ms(args, *, fb: bool, backtrace: bool = False) -> float:
+    """Device ms per launch of U1 (fb) or U2 alone on these inputs:
+    KERNEL_REPS back-to-back launches through the library (uncounted)
+    between two CUDA events, the outputs allocated once."""
+    from shredword_tpu_torch.ops import _kernels
+
+    ids, lp, wlen, wcount = args
+    L, K, W = ids.shape
+    dev = ids.device
+    k = _kernels.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = torch.zeros(lp.shape[0], dtype=torch.float64, device=dev)
+    ll = torch.zeros(1, dtype=torch.float64, device=dev)
+    final = torch.empty(W, dtype=torch.float32, device=dev)
+    out = torch.empty((L, W), dtype=torch.int32, device=dev)
+    count = torch.empty(W, dtype=torch.int32, device=dev)
+    ptr = (lambda t: t.data_ptr() if backtrace else None)
+
+    def calls():
+        for _ in range(KERNEL_REPS):
+            rc = (k.shred_unigram_fb(ids.data_ptr(), lp.data_ptr(),
+                                     wlen.data_ptr(), wcount.data_ptr(), L,
+                                     K, W, None, counts.data_ptr(),
+                                     ll.data_ptr(), stream) if fb
+                  else k.shred_unigram_viterbi(
+                      ids.data_ptr(), lp.data_ptr(), wlen.data_ptr(), L, K,
+                      W, None, None, ptr(out), ptr(count),
+                      final.data_ptr(), stream))
+            check(rc == 0, "unigram kernel launch")
+
+    calls()
+    return elapsed_ms(calls, dev) / KERNEL_REPS
+
+
+PROFILE_PAUSE_S = 0.02
+
+
+def kernel_launches(fn, name: str, calls: int = 3) -> int:
+    """Launches of kernels named `name` in `calls` calls of fn, from
+    torch.profiler, after one untraced warm-up call.  The profiler keeps
+    only the device events inside its host-clock window, so an event
+    that ends right before the trace stops can be dropped: each call
+    starts after a host pause with the device idle, and the trace stops
+    a pause after the last call has finished."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            time.sleep(PROFILE_PAUSE_S)
+            fn()
+            torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name in e.name)
+
+
+def uni_slab(tag: str, args, *, fb: bool) -> dict:
+    """One real slab: the kernel against its plain version (the form
+    train() calls: U1, or U2 scores-only), both timed, its launches per
+    call, its bound from the bytes and operations this slab needs, and
+    for U1 the same launch with every present cell's id made distinct
+    (the same work without the hot pieces' atomics).  Returns the
+    kernels-line record."""
+    from shredword_tpu_torch.ops import unigram_ops as U
+
+    ids, lp, wlen, wcount = args
+    L, K, W = ids.shape
+    n = lp.shape[0]
+    err, ll_rel, close, same = uni_both(args)
+    check(close and ll_rel <= 1e-6 and same,
+          f"U1 and U2 == plain on the real slab {tag}")
+    present = ids >= 0
+    n_present = int(present.sum())
+    hot = int(torch.bincount(ids[present].long(), minlength=n).max())
+    wl = wlen.cpu().numpy()
+    inside = cells_inside(wl, K)
+    if fb:
+        ms = uni_kernel_ms(args, fb=True)
+        plain = lambda: U.fb_core_plain(*args)             # noqa: E731
+        launch = lambda: U.fb_core(*args)                  # noqa: E731
+        # the table's cells, lp, wlen, wcount in; float64 counts and ll
+        # out.  Per present cell: an exp and three adds forward and
+        # backward, an exp, four adds and a product for its posterior;
+        # a log and two adds per position and direction
+        cost = bound(4 * inside + 4 * n + 8 * W + 8 * n + 8,
+                     13 * n_present + 4 * int(wl.sum()))
+        spread = torch.where(present, torch.arange(
+            ids.numel(), device=ids.device, dtype=torch.int32).view_as(ids)
+            % n, -1)
+        ms_spread = uni_kernel_ms((spread, lp, wlen, wcount), fb=True)
+        name = "fb_kernel"
+    else:
+        ms = uni_kernel_ms(args, fb=False)
+        ms_bt = uni_kernel_ms(args, fb=False, backtrace=True)
+        plain = lambda: U.viterbi_core_plain(                 # noqa: E731
+            *args[:3], backtrace=False)
+        launch = lambda: U.viterbi_core(                      # noqa: E731
+            *args[:3], backtrace=False)
+        # the cells, lp, wlen in, the scores out; an add and a compare
+        # per present cell
+        cost = bound(4 * inside + 4 * n + 8 * W, 2 * n_present)
+        name = "viterbi_kernel"
+    plain()                                                    # warm-up
+    plain_ms = elapsed_ms(plain, ids.device)
+    n_calls = 3
+    traced = kernel_launches(launch, name, n_calls)
+    check(traced == n_calls, f"one {name} launch per call, {tag}: "
+          f"the profiler counted {traced} in {n_calls} calls")
+    per_call = traced // n_calls
+    line = (f"[unigram] {tag} [L {L}, K {K}, W {W}], {n} pieces: "
+            f"{n_present} present cells of {inside} inside the words, the "
+            f"hottest piece in {hot}; ")
+    if fb:
+        line += (f"U1 {ms:.6f} ms per call ({ms_spread:.6f} with every "
+                 f"cell's id distinct: no hot atomics), plain "
+                 f"{plain_ms:.4f} ms, max |U1 - plain| = {err:.3e} (ll "
+                 f"relative {ll_rel:.3e}), ")
+    else:
+        line += (f"U2 scores only {ms:.6f} ms per call (with the "
+                 f"backtrace {ms_bt:.6f}), plain {plain_ms:.4f} ms, "
+                 f"identical, ")
+    print(line + f"{per_call} launch per call (profiler), bound "
+          f"{cost['bound_ms']:.8f} ms ({cost['bound_by']}), "
+          f"{ms / cost['bound_ms']:.1f}x")
+    return dict(max_abs_err=err if fb else 0, ms=ms, plain_ms=plain_ms,
+                **cost, library_ms=None)
+
+
+def phase_uni_slabs(device, corpus) -> dict:
+    """U1 on the default config's real slabs at the seed pieces, and U2
+    on the first prune's first slab (the seed pieces' strings, each
+    without its own arc), as train() builds them."""
+    from shredword_tpu_torch import UnigramTrainer
+    from shredword_tpu_torch.ops import unigram_ops as U
+
+    t = UnigramTrainer(**UNI_DEFAULT, device=device)
+    t.load_corpus(corpus)
+    pieces, counts = t._seed()
+    logp = np.log(counts / counts.sum())
+    slabs = t._dev_slab_tables(pieces)
+    rec = Recorder(U.viterbi_core)
+    U.viterbi_core = rec
+    try:
+        t._prune_loss(pieces, logp, counts.astype(np.float64))
+    finally:
+        U.viterbi_core = rec.fn
+    out = {}
+    for i, dt in enumerate(slabs):
+        r = uni_slab(f"E-step slab {i}", uni_args(dt, logp), fb=True)
+        out.setdefault("fb", r)                # the largest slab's
+    ids, lp, wlen = rec.calls[0][0]
+    zero = torch.zeros(wlen.shape[0], dtype=torch.float32, device=device)
+    out["viterbi"] = uni_slab("prune slab 0", (ids, lp, wlen, zero),
+                              fb=False)
+    return out
+
+
+def path_score(log_probs: np.ndarray, ids: list[int]) -> float:
+    return float(np.sum(log_probs[ids]))
+
+
+def phase_uni_main(device, corpus, text: str, out_dir) -> dict:
+    """The main path at the JAX bench's default config (bench.py:400-420):
+    UnigramTrainer(8192 pieces, seed 100,000) load_corpus -> train ->
+    save, then UnigramTokenizer.load(...).encode_array on the first
+    1,000,000 characters.  Returns U1's and U2's launches in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shredword_tpu_torch import UnigramTokenizer, UnigramTrainer
+    from shredword_tpu_torch.ops import unigram_ops as U
+
+    tag = "[unigram] default config"
+    reset_counts()
+    t = UnigramTrainer(**UNI_DEFAULT, device=device)
+    t0 = time.perf_counter()
+    t.load_corpus(corpus)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAUSE_S)          # see kernel_launches
+        t0 = time.perf_counter()
+        n = t.train()
+        torch.cuda.synchronize(device)
+        train_s = time.perf_counter() - t0
+        time.sleep(PROFILE_PAUSE_S)
+    u1, u2 = U.fb_core.launches, U.viterbi_core.launches
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_us(dev) / (train_s * 1e6)
+    k1 = [e for e in dev if "fb_kernel" in e.name]
+    k2 = [e for e in dev if "viterbi_kernel" in e.name]
+    check(n == UNI_DEFAULT["target_vocab_size"], "the default config "
+          "trains 8192 pieces")
+    check(u1 > 0 and u2 > 0, "train() launched U1 and U2")
+    check(len(k1) == u1 and len(k2) == u2, "one launch per U1 / U2 call: "
+          f"the profiler counted {len(k1)} / {len(k2)}, the wrappers "
+          f"{u1} / {u2}")
+    model = os.path.join(out_dir, "uni_default.model")
+    t.save(model)
+    layers = ", ".join(f"{k} {v:.3f}" for k, v in t.timings.items())
+    print(f"{tag}: {n} pieces, train {train_s:.3f} s (under torch.profiler,"
+          f" CUDA activity), load_corpus {load_s:.3f} s; final LL "
+          f"{t.final_ll:.6g}, {t.final_ll_per_word:.6f} per word, "
+          f"{t.final_ll_per_byte:.6f} per byte; U1 {u1} launches "
+          f"({busy_us(k1) / 1e3:.3f} ms), U2 {u2} ({busy_us(k2) / 1e3:.3f} "
+          f"ms) per train(); device busy {busy:.5f} of train(); host "
+          f"layers (s): {layers}")
+    tok = UnigramTokenizer.load(model, device=device)
+    nbytes = len(text.encode())
+    t0 = time.perf_counter()
+    ids = tok.encode_array(text)
+    first_s = time.perf_counter() - t0
+    u2_enc = U.viterbi_core.launches - u2
+    check(u2_enc > 0, "encode launched U2")
+    enc = best_mbs(lambda: tok.encode_array(text), nbytes)
+    dec = best_mbs(lambda: tok.decode(ids), nbytes)
+    # normalized: ASCII lowercase, whitespace runs to one space
+    check(tok.decode(ids) == " ".join(text.split()).lower(),
+          "encode_array on 1 MB decodes back to the normalized text")
+    n_words = max(text.count(" ") + text.count("\n") + 1, 1)
+    # the device ids against the host DP on every distinct word; a
+    # float32 near-tie may pick another path of the same score
+    flips = 0
+    for w, got in tok._memo.items():
+        want = tok.encode_word(w)
+        if got != want:
+            flips += 1
+            a = path_score(tok.log_probs, got)
+            b = path_score(tok.log_probs, want)
+            check(b"".join(tok.pieces[i] for i in got) == w
+                  and abs(a - b) <= 1e-6 * abs(b),
+                  f"another path of the same score for {w!r}: {a} {b}")
+    print(f"{tag}: encode_array of {nbytes} bytes -> {len(ids)} ids, "
+          f"{len(ids) / n_words:.4f} pieces per word; first call "
+          f"{first_s:.3f} s ({u2_enc} U2 launches over "
+          f"{len(tok._memo)} distinct words), then {enc:.3f} MB/s (best "
+          f"of 3), decode {dec:.3f} MB/s; ids == the host DP on every "
+          f"distinct word but {flips} (equal path scores)")
+    return dict(fb=u1, viterbi=u2 + u2_enc)
+
+
+def cutoff(t, pieces, loss) -> float:
+    """The smallest loss a prune keeps among the prunable pieces."""
+    keep = t._keep_from_loss(pieces, loss)
+    free = keep & ~t._required(pieces) & np.isfinite(loss)
+    return float(loss[free].min())
+
+
+def train_1024(device, corpus, **kw):
+    """(trainer, [(pieces, loss) per prune], seconds of train())."""
+    from shredword_tpu_torch import UnigramTrainer
+
+    t = UnigramTrainer(**UNI_1024, device=device, **kw)
+    t.load_corpus(corpus)
+    losses = []
+    prune_loss = t._prune_loss
+
+    def recorded(pieces, logp, exp_counts):
+        loss = prune_loss(pieces, logp, exp_counts)
+        losses.append((list(pieces), loss))
+        return loss
+
+    t._prune_loss = recorded
+    t0 = time.perf_counter()
+    t.train()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return t, losses, time.perf_counter() - t0
+
+
+def phase_uni_1024(device, corpus):
+    """The bench's 1,024-piece config (bench.py:378-397) on the card and
+    with device="cpu" (the plain versions): pieces identical and
+    log_probs within 1e-5.  If a prune's near-tie flips a piece, the
+    pieces and losses print and the run passes only if each flipped
+    piece's loss lies within 1e-6 relative of that prune's cutoff."""
+    tag = "[unigram] 1024-piece config"
+    card, lc, sc = train_1024(device, corpus)
+    cpu, lp_, sp = train_1024("cpu", corpus)
+    print(f"{tag}: train {sc:.3f} s on the card, {sp:.3f} s with "
+          f"device='cpu'; host layers on the card (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in card.timings.items()))
+    check(len(card.pieces) == UNI_1024["target_vocab_size"],
+          "the 1,024-piece config trains 1024 pieces")
+    flipped = False
+    for r, ((pa, la), (pb, lb)) in enumerate(zip(lc, lp_)):
+        check(pa == pb, f"equal pieces before prune {r}")
+        ka, kb = card._keep_from_loss(pa, la), cpu._keep_from_loss(pb, lb)
+        diff = np.nonzero(ka != kb)[0]
+        if len(diff):
+            ca, cb = cutoff(card, pa, la), cutoff(cpu, pb, lb)
+            for i in diff:
+                print(f"{tag}: prune {r} flips {pa[i]!r}: loss {la[i]!r} "
+                      f"(card, cutoff {ca!r}) / {lb[i]!r} (cpu, cutoff "
+                      f"{cb!r})")
+                check(abs(la[i] - ca) <= 1e-6 * abs(ca)
+                      and abs(lb[i] - cb) <= 1e-6 * abs(cb),
+                      "a flipped piece's loss lies within 1e-6 of the "
+                      "cutoff")
+            flipped = True
+            break
+    if not flipped:
+        check(card.pieces == cpu.pieces, "card pieces == device='cpu'")
+        err = float(np.abs(card.log_probs - cpu.log_probs).max())
+        check(np.allclose(card.log_probs, cpu.log_probs, rtol=1e-5,
+                          atol=1e-5), "log_probs within 1e-5")
+        print(f"{tag}: pieces identical on the card and the CPU, max "
+              f"|log_probs diff| {err:.3e}")
+    return card
+
+
+def phase_uni_sharded(device, corpus, card) -> None:
+    """UnigramTrainer(mesh=...) over an NCCL group of world size 1 at the
+    1,024-piece config: the single-device pieces."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                         rank=0)
+    try:
+        setup = first_collective(device)
+        t, _, secs = train_1024(device, corpus,
+                                mesh=multihost.global_mesh())
+    finally:
+        dist.destroy_process_group()
+    err = float(np.abs(t.log_probs - card.log_probs).max())
+    print(f"[unigram] sharded NCCL world 1, 1024 pieces: train {secs:.3f} s "
+          f"(first all_reduce {setup:.3f} s apart), max |log_probs - "
+          f"single device| {err:.3e}")
+    check(t.pieces == card.pieces, "sharded pieces == single device")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))   # the seeded lattices
     import torch.distributed as dist
 
     from shredword_tpu_torch.ops import bpe_giant, bpe_hist
@@ -1533,10 +1985,15 @@ def main() -> int:
                                              fused_4096, setup)
         finally:
             dist.destroy_process_group()
-    phase_clocks(device, clocked, bench_layout, giant_layout)
-    phase_encode_vs_plain(device, enc_text.encode(), merges)
-    encode = {v: phase_encode_main(device, enc_text, m, v)
-              for v, m in merges.items()}
+        phase_clocks(device, clocked, bench_layout, giant_layout)
+        phase_encode_vs_plain(device, enc_text.encode(), merges)
+        encode = {v: phase_encode_main(device, enc_text, m, v)
+                  for v, m in merges.items()}
+        phase_uni_vs_plain(device)
+        unigram = phase_uni_slabs(device, corpus)
+        uni_launches = phase_uni_main(device, corpus,
+                                      enc_text[:UNI_ENCODE_CHARS], tmp)
+        phase_uni_sharded(device, corpus, phase_uni_1024(device, corpus))
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),
@@ -1549,6 +2006,11 @@ def main() -> int:
     kernels += [dict(name=f"encode@v{v}", route="cuda", source=src
                      + "encode.cu", replaces=TPU_KERNEL["encode"], **rec)
                 for v, rec in encode.items()]
+    kernels += [dict(name=f"unigram_{k}", route="cuda",
+                     source=src + "unigram.cu",
+                     replaces=TPU_KERNEL[f"unigram_{k}"],
+                     launches=uni_launches[k], **unigram[k])
+                for k in ("fb", "viterbi")]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

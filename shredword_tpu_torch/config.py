@@ -1,4 +1,4 @@
-"""Configuration for BPE training in the PyTorch port.
+"""Configuration for BPE and Unigram training in the PyTorch port.
 
 The fields, defaults and defaulting rules are those of
 ``shredword_tpu.config.BPEConfig`` (reference bpe.h:43-48 and
@@ -77,3 +77,37 @@ def resolve_device(device="cuda") -> torch.device:
             "available; pass device='cpu' to run the device engines on the "
             "CPU, or backend='cpu' for the native engine")
     return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class UnigramConfig:
+    """Unigram trainer config: the fields, defaults and limits of
+    ``shredword_tpu.config.UnigramConfig`` (the reference's
+    MAX_SUBWORD_LEN=16 bounds piece lengths to 15, normalize.h:7-12, and
+    MAX_VOCAB_SIZE=100000 is the seed cap default).  ``backend`` "cuda"
+    runs the lattice E-step on the trainer's torch device (the
+    forward-backward kernel on a card, its plain version on the CPU);
+    "cpu" runs the numpy float64 forward-backward, as the JAX package's
+    "cpu" backend does."""
+
+    target_vocab_size: int = 8192
+    seed_size: int = 100_000
+    max_piece_len: int = 15
+    max_word_len: int = 32
+    shrink_factor: float = 0.75
+    num_em_rounds: int = 2
+    backend: str = "cuda"               # "cuda" | "cpu"
+
+    def validate(self) -> "UnigramConfig":
+        if self.target_vocab_size < 1:
+            raise ConfigError("target_vocab_size must be positive")
+        if not (0.1 <= self.shrink_factor < 1.0):
+            raise ConfigError("shrink_factor must be in [0.1, 1)")
+        if self.max_piece_len < 1 or self.max_piece_len > 15:
+            raise ConfigError("max_piece_len must be in 1..15 "
+                              "(reference MAX_SUBWORD_LEN cap)")
+        if self.max_word_len < self.max_piece_len:
+            raise ConfigError("max_word_len must be >= max_piece_len")
+        if self.backend not in ("cuda", "cpu"):
+            raise ConfigError(f"unknown backend {self.backend!r}")
+        return self

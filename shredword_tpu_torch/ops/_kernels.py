@@ -10,9 +10,10 @@ builds nothing.
 Every wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; it never falls back from one to
 the other.  Each wrapper counts its kernel launches in ``.launches``.
-The wrappers of the training kernels live here; the encoder's
-(``csrc/encode.cu``) is ``encode_ops.encode_core``, beside its plain
-versions.
+The wrappers of the BPE training kernels live here; the encoder's
+(``csrc/encode.cu``) is ``encode_ops.encode_core`` and the Unigram
+lattice kernels' (``csrc/unigram.cu``) are ``unigram_ops.fb_core`` and
+``unigram_ops.viterbi_core``, each beside its plain versions.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ CHUNK = 512       # columns per chunk of the hist layout (its W is a
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu", "encode.cu"]
+SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu", "encode.cu",
+           "unigram.cu"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # the persistent kernels read data that other blocks of the same launch
@@ -124,6 +126,10 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_encode_chunks.restype = i
     L.shred_encode_pack.argtypes = [p] * 4 + [i, p, i, p]
     L.shred_encode_pack.restype = i
+    L.shred_unigram_fb.argtypes = [p] * 4 + [i] * 3 + [p] * 4
+    L.shred_unigram_fb.restype = i
+    L.shred_unigram_viterbi.argtypes = [p] * 3 + [i] * 3 + [p] * 6
+    L.shred_unigram_viterbi.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
     return L

@@ -75,11 +75,11 @@ def global_mesh(device_type: str = "cuda"):
                             mesh_dim_names=("data",))
 
 
-def host_shard(n_items: int) -> slice:
+def host_shard(n_items: int, group=None) -> slice:
     """This rank's contiguous slice of an n_items-long work list (corpus
-    files, shards): an equal split by rank.  Kept for parity with the
-    JAX package's ``host_shard``; no port engine calls it yet (the
-    sharded corpus loader will)."""
-    p, n = dist.get_rank(), dist.get_world_size()
+    files, words): an equal split by its rank in ``group`` (the default
+    group when None), as the JAX package's ``host_shard`` splits by
+    process.  The sharded Unigram EM splits each slab's words with it."""
+    p, n = dist.get_rank(group), dist.get_world_size(group)
     per = -(-n_items // n)
-    return slice(p * per, min((p + 1) * per, n_items))
+    return slice(min(p * per, n_items), min((p + 1) * per, n_items))

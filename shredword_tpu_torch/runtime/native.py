@@ -4,9 +4,10 @@ The part of the JAX package's ``shredword_tpu/runtime/native.py`` that
 the port's trainer and tokenizer call: corpus loading and dedup
 (``NativeCorpus``, ``CorpusArrays``), the reference-faithful CPU trainer
 (``FaithfulTrainer``), the CPU encoder and merge replay
-(``NativeEncoder``), and the encoder's host helpers (``normalize``,
+(``NativeEncoder``), the encoder's host helpers (``normalize``,
 ``dedup_spans``, ``ws_chunk_dedup``, ``expand_ids``, ``expand_bytes``,
-``gpt_starts_bytes``).  Handles are opaque ``c_void_p``; arrays cross the
+``gpt_starts_bytes``), and the Unigram trainer's and tokenizer's
+(``SeedVocab``, ``piece_table``, ``marker_word_dedup``).  Handles are opaque ``c_void_p``; arrays cross the
 boundary as numpy buffers with explicit sizes.
 """
 
@@ -105,6 +106,26 @@ def _declare(L: ctypes.CDLL) -> None:
     L.shred_expand_ids.restype = i64
     L.shred_expand_bytes.argtypes = [p, p, p, i64, p]
     L.shred_expand_bytes.restype = i64
+    L.shred_marker_word_dedup.argtypes = [p, i64, p, p, p,
+                                          ctypes.POINTER(i64)]
+    L.shred_marker_word_dedup.restype = i64
+
+    L.shred_seed_vocab_create.argtypes = []
+    L.shred_seed_vocab_create.restype = p
+    L.shred_seed_vocab_free.argtypes = [p]
+    L.shred_seed_vocab_free.restype = None
+    L.shred_seed_vocab_add_ex.argtypes = [p, ctypes.c_char_p, i64, i64,
+                                          ctypes.c_uint64, i32]
+    L.shred_seed_vocab_add_ex.restype = i32
+    L.shred_seed_vocab_size.argtypes = [p]
+    L.shred_seed_vocab_size.restype = i64
+    L.shred_seed_vocab_export_bytes.argtypes = [p, i64]
+    L.shred_seed_vocab_export_bytes.restype = i64
+    L.shred_seed_vocab_export.argtypes = [p, i64, p, p, p]
+    L.shred_seed_vocab_export.restype = i64
+    L.shred_piece_table.argtypes = [ctypes.c_char_p, p, i64,
+                                    ctypes.c_char_p, p, i64, i64, i64, p]
+    L.shred_piece_table.restype = i64
 
 
 def _ptr(a: np.ndarray):
@@ -420,3 +441,98 @@ def gpt_starts_bytes(data: bytes, cls_table: np.ndarray) -> np.ndarray:
     table = np.ascontiguousarray(cls_table, np.int8)
     n = lib().shred_gpt_starts(data, len(data), _ptr(table), _ptr(out), cap)
     return out[:n].copy()
+
+
+def marker_word_dedup(data) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Marker-word splitting and dedup of NORMALIZED bytes in one pass
+    (csrc/dedup.cpp): words are runs delimited by '\\n' or the 3-byte
+    U+2581 marker.  Returns (inverse int32[n_words], the dense unique id
+    of each word in stream order; uniq_off int64[u] and uniq_len
+    int32[u], each unique word's raw span, marker prefix not
+    included)."""
+    arr = np.ascontiguousarray(np.frombuffer(data, np.uint8)
+                               if isinstance(data, (bytes, bytearray))
+                               else data, np.uint8)
+    n = len(arr)
+    if n == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.int64),
+                np.zeros(0, np.int32))
+    cap = n // 2 + 1
+    inverse = np.empty(cap, np.int32)
+    uniq_off = np.empty(cap, np.int64)
+    uniq_len = np.empty(cap, np.int32)
+    n_words = ctypes.c_int64(0)
+    u = lib().shred_marker_word_dedup(_ptr(arr), n, _ptr(inverse),
+                                      _ptr(uniq_off), _ptr(uniq_len),
+                                      ctypes.byref(n_words))
+    if u < 0:
+        raise ValueError("a single delimiter-free word exceeds 2 GiB "
+                         "(int32 word-length limit)")
+    return (inverse[:n_words.value].copy(), uniq_off[:u].copy(),
+            uniq_len[:u].copy())
+
+
+class SeedVocab:
+    """Substring counter seeding the Unigram trainer (the reference's
+    add_subwords/VocabTable semantics, normalize.cpp:171-237)."""
+
+    def __init__(self):
+        self._h = lib().shred_seed_vocab_create()
+
+    def add(self, line: bytes, max_len: int = 15, weight: int = 1,
+            skip_markers: bool = True) -> None:
+        """skip_markers=True is the reference's add_subwords; False also
+        counts marker-prefixed substrings (the trainer's word-boundary
+        pieces)."""
+        rc = lib().shred_seed_vocab_add_ex(self._h, line, len(line),
+                                           max_len, weight,
+                                           int(skip_markers))
+        if rc != 0:
+            raise RuntimeError("seed vocab add failed")
+
+    def __len__(self) -> int:
+        return int(lib().shred_seed_vocab_size(self._h))
+
+    def export(self, top_k: int) -> tuple[list[bytes], np.ndarray]:
+        """The top_k pieces by count (descending, lexicographic
+        tie-break) and their counts."""
+        nbytes = int(lib().shred_seed_vocab_export_bytes(self._h, top_k))
+        blob = np.empty(max(nbytes, 1), dtype=np.uint8)
+        lens = np.empty(max(top_k, 1), dtype=np.int32)
+        counts = np.empty(max(top_k, 1), dtype=np.uint64)
+        n = int(lib().shred_seed_vocab_export(self._h, top_k, _ptr(blob),
+                                              _ptr(lens), _ptr(counts)))
+        ends = np.cumsum(lens[:n], dtype=np.int64)
+        raw = blob.tobytes()
+        pieces = [raw[e - ln:e] for e, ln in zip(ends.tolist(),
+                                                 lens[:n].tolist())]
+        return pieces, counts[:n].astype(np.int64)
+
+    def free(self) -> None:
+        if self._h:
+            lib().shred_seed_vocab_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.free()
+        except Exception:
+            pass
+
+
+def piece_table(words: list[bytes], pieces: list[bytes], lmax: int,
+                max_piece_len: int) -> np.ndarray:
+    """int32 [n_words, lmax, max_piece_len] piece ids: entry (w, j, l - 1)
+    is the index in ``pieces`` of words[w][j:j + l], or -1 when no piece
+    equals it or it runs past the word's end (csrc/unigram.cpp).  The
+    host-side precompute of the Unigram lattice kernels."""
+    blob = b"".join(words)
+    offsets = np.zeros(len(words) + 1, dtype=np.int64)
+    np.cumsum([len(w) for w in words], out=offsets[1:])
+    pblob = b"".join(pieces)
+    plens = np.asarray([len(p) for p in pieces], dtype=np.int32)
+    out = np.empty((len(words), lmax, max_piece_len), dtype=np.int32)
+    lib().shred_piece_table(blob, _ptr(offsets), len(words), pblob,
+                            _ptr(plens), len(pieces), lmax, max_piece_len,
+                            _ptr(out))
+    return out

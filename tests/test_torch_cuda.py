@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 from torch_encode_cases import FHUS, random_chunks, random_merges
+from torch_unigram_cases import LATTICES, random_lattice
 
-from shredword_tpu_torch import BPETrainer, Tokenizer
-from shredword_tpu_torch.ops import _kernels, bpe_giant, bpe_hist, encode_ops
+from shredword_tpu_torch import (BPETrainer, Tokenizer, UnigramTokenizer,
+                                 UnigramTrainer)
+from shredword_tpu_torch.ops import (_kernels, bpe_giant, bpe_hist,
+                                     encode_ops, unigram_ops)
 
 
 def _corpus(seed, n_words=400, alpha=6, max_len=12, unk=None,
@@ -431,3 +434,65 @@ def test_tokenizer_on_cuda_matches_cpu(cuda):
         for d, got in zip(docs, batch):
             np.testing.assert_array_equal(got, want.encode_array(d))
     assert Tokenizer(FHUS, device=cuda).encode("fhus") == [102, 257]
+
+
+# ---------------------------------------------------------------------
+# the Unigram lattice kernels (csrc/unigram.cu)
+# ---------------------------------------------------------------------
+
+def _lattice_on(dev, case):
+    table, wlen, wcount, logp = random_lattice(case)
+    dt = unigram_ops.make_device_table(table, wlen, wcount, dev)
+    return (dt.ids, torch.from_numpy(logp.astype(np.float32)).to(dev),
+            dt.wlen, dt.wcount)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LATTICES))
+def test_unigram_kernels_match_plain(case, cuda):
+    """U1 within rtol=1e-5, atol=1e-6 of its plain version (both sum in
+    float64; their float32 posteriors may differ by an ulp of expf) and
+    its log-likelihood within 1e-6 relative; U2 identical.  "long_l70"
+    runs the kernels' global-scratch mode."""
+    cpu = _lattice_on("cpu", case)
+    dev = _lattice_on(cuda, case)
+    n0 = (unigram_ops.fb_core.launches, unigram_ops.viterbi_core.launches)
+    counts, ll = unigram_ops.fb_core(*dev)
+    want_c, want_ll = unigram_ops.fb_core_plain(*cpu)
+    torch.testing.assert_close(counts.cpu(), want_c, rtol=1e-5, atol=1e-6)
+    assert abs(float(ll) - float(want_ll)) <= 1e-6 * abs(float(want_ll))
+    got = unigram_ops.viterbi_core(*dev[:3])
+    want = unigram_ops.viterbi_core_plain(*cpu[:3])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    _, _, final = unigram_ops.viterbi_core(*dev[:3], backtrace=False)
+    assert torch.equal(final, got[2])
+    assert (unigram_ops.fb_core.launches - n0[0],
+            unigram_ops.viterbi_core.launches - n0[1]) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_unigram_trainer_on_cuda_matches_cpu(cuda, tmp_path):
+    rng = np.random.RandomState(11)
+    words = ["".join(chr(97 + c) for c in rng.randint(0, 8, k))
+             for k in rng.randint(1, 14, 4000)]
+    (tmp_path / "c.txt").write_text(" ".join(words))
+    out = {}
+    for dev in ("cpu", cuda):
+        t = UnigramTrainer(target_vocab_size=200, seed_size=2000,
+                           max_word_len=16, device=dev)
+        t.load_corpus(str(tmp_path / "c.txt"))
+        n0 = unigram_ops.fb_core.launches
+        assert t.train() == 200
+        out[str(dev)] = t
+        assert (unigram_ops.fb_core.launches > n0) == (dev == cuda)
+    a, b = out.values()
+    assert a.pieces == b.pieces
+    np.testing.assert_allclose(a.log_probs, b.log_probs, rtol=1e-5,
+                               atol=1e-5)
+    a.save(str(tmp_path / "u.model"))
+    text = " ".join(words[:500]) + " " + "ab" * 40
+    ids = {str(d): UnigramTokenizer.load(str(tmp_path / "u.model"),
+                                         device=d).encode_array(text)
+           for d in ("cpu", cuda)}
+    np.testing.assert_array_equal(*ids.values())

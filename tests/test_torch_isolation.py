@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package nor
 the JAX bench, at run time (a subprocess that blocks them trains every
-engine, checkpoints, resumes and saves, and encodes, decodes, saves and
-loads a Tokenizer) and in its sources (an AST scan of the package and of
+engine, checkpoints, resumes and saves, encodes, decodes, saves and
+loads a Tokenizer, and trains, saves, loads and encodes Unigram) and in
+its sources (an AST scan of the package and of
 chip_smoke.py); and its own copy of the native corpus loader gives the
 JAX package's arrays."""
 
@@ -75,6 +76,20 @@ def test_runs_with_jax_and_the_jax_package_blocked(tmp_path):
             back = Tokenizer.load(f"{{out}}/tok{{pattern}}.model",
                                   device="cpu")
             assert back.encode(text, allowed_special="all") == ids
+
+        from shredword_tpu_torch import UnigramTokenizer, UnigramTrainer
+        with open(f"{{out}}/uni.txt", "wb") as f:
+            f.write(data)
+        for backend in ("cuda", "cpu"):
+            u = UnigramTrainer(target_vocab_size=40, seed_size=300,
+                               max_word_len=16, backend=backend,
+                               device="cpu")
+            u.load_corpus(f"{{out}}/uni.txt")
+            assert 0 < u.train() < 300
+            u.save(f"{{out}}/uni_{{backend}}.model")
+        utok = UnigramTokenizer.load(f"{{out}}/uni_cpu.model", device="cpu")
+        uids = utok.encode("hello lower lowest")
+        assert utok.decode(uids) == "hello lower lowest" and uids
 
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]

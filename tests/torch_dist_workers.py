@@ -178,3 +178,19 @@ def arrays_after(arrays, merges):
     word_id = np.repeat(np.arange(len(lengths), dtype=np.int32),
                         np.diff(off))
     return tokens, word_id, wc_word
+
+
+def unigram_sharded(corpus: str, kw: dict) -> list:
+    """UnigramTrainer(shards=world) and UnigramTrainer(mesh=...) on this
+    rank's word blocks: (pieces, log_probs, final_ll) of each."""
+    from shredword_tpu_torch import UnigramTrainer
+    from shredword_tpu_torch.parallel import multihost
+
+    out = []
+    for shard_kw in (dict(shards=dist.get_world_size()),
+                     dict(mesh=multihost.global_mesh("cpu"))):
+        t = UnigramTrainer(**kw, device="cpu", **shard_kw)
+        t.load_corpus(corpus)
+        t.train()
+        out.append((t.pieces, t.log_probs, t.final_ll))
+    return out
