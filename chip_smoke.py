@@ -113,6 +113,31 @@ Phases (any failure exits non-zero, and no result line is printed):
      (a prune near-tie may flip a piece only if its loss lies within 1e-6
      relative of that prune's cutoff, printed); UnigramTrainer(mesh=...)
      over NCCL world 1 == the single-device pieces
+ 15. the row-sharded giant engine (parallel/giant.py) and sharded flat
+     (parallel/train.py): G1 (csrc/giant_sharded.cu, giant_sharded_train:
+     per merge an apply-and-pick launch, an all_reduce(MAX) of the pick
+     key, a merge launch and an all_reduce of dl | dr) against its plain
+     version on the card, call by call with a call past the end, over a
+     world-size-1 NCCL group: seeded random corpora at vocab 5120 and
+     8192 (an unk byte, 'aaaa' runs, a min_pair_freq stop) and the
+     int16-crossing resume of tests/test_giant_64k_envelope.py (merges
+     32510-32524, ids past 32767), then in 2 gloo ranks on cuda:0 at
+     vocab 1024 (each on its row shard and column block; merges == the
+     single-device hist engine): records, tokens, the row shard and the
+     bounds identical; then the first 128 merges on the bench layout at
+     vocab 32768: device ms per merge (enqueued behind a spin kernel),
+     whole-loop ms per merge, launches per call, the plain version's,
+     and the bound from what the merges move (counted in a rerun); then
+     the main path BPETrainer(vocab, min_pair_freq 2, coverage 1.0,
+     backend "cuda", mesh=<NCCL world 1>) load_corpus -> train -> save
+     at 32768 (bytes == phase 6's single-device giant output) and 65536
+     (bytes == the single-device flat engine's on the card, its first
+     32512 merges == the 32768 run's): train() s, ms per merge, peak
+     memory, merges done; the 32768 run again under torch.profiler (G1
+     launches == the wrapper's count, busy share); the sharded flat
+     engine forced at the headline (bytes == the JAX golden digest, ms
+     per merge); BPETrainer(shards=2) as 2 gloo ranks on cuda:0 at vocab
+     4608, min_pair_freq 50: bytes == the single-device giant engine's
 
 The corpus is generated here (make_corpus, the JAX bench's generator) and
 checked against its known digest.  The last lines of standard output are
@@ -149,7 +174,9 @@ TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               "encode": "shredword_tpu/ops/encode_ops.py:230",  # _encode_core
               "unigram_fb": "shredword_tpu/ops/unigram_ops.py:70",  # _fb_core
               "unigram_viterbi":                    # _viterbi_device
-              "shredword_tpu/ops/unigram_ops.py:329"}
+              "shredword_tpu/ops/unigram_ops.py:329",
+              "g1":                 # shard_body of build_sharded_giant_loop
+              "shredword_tpu/parallel/giant.py:108"}
 TIMED_MERGES = 128
 LATE_START = 16128   # the giant late window: new ids from 16384 on
 CORPUS_BYTES = 16_153_229
@@ -452,8 +479,8 @@ def reset_counts() -> None:
 
     for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
               _kernels.hist_sharded_train, _kernels.hist_sparse_train,
-              encode_ops.encode_core, unigram_ops.fb_core,
-              unigram_ops.viterbi_core):
+              _kernels.giant_sharded_train, encode_ops.encode_core,
+              unigram_ops.fb_core, unigram_ops.viterbi_core):
         k.launches = 0
 
 
@@ -995,11 +1022,12 @@ def sharded_rank(rank, world, store, corpus, vocab, out_dir, result, dev):
             corpus, out_dir, vocab, device, tag=f"_gloo{world}r{rank}",
             shards=world)
         launches = _kernels.hist_sharded_train.launches
+        g1_launches = _kernels.giant_sharded_train.launches
     finally:
         dist.destroy_process_group()
     with open(result, "w") as f:
         json.dump(dict(n=n, secs=secs, raw=raw, launches=launches,
-                       setup=setup,
+                       g1_launches=g1_launches, setup=setup,
                        model=hashlib.sha256(model).hexdigest(),
                        vocab=hashlib.sha256(vocab_b).hexdigest()), f)
 
@@ -1925,6 +1953,501 @@ def phase_uni_sharded(device, corpus, card) -> None:
     check(t.pieces == card.pieces, "sharded pieces == single device")
 
 
+# ---------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------
+
+SHARDED_VOCAB = 65536       # the row-sharded giant engine's largest vocab
+RANKS_VOCAB = 4608          # 2 gloo ranks: just past the hist engine
+G1_SPIN_CYCLES = 240_000_000   # ~120 ms: 257 launches, 256 collectives
+
+
+def group_reduces() -> dict:
+    """G1's two reduces over the initialized default process group."""
+    import torch.distributed as dist
+
+    return dict(reduce_key=lambda k: dist.all_reduce(
+        k, op=dist.ReduceOp.MAX), reduce_deltas=dist.all_reduce)
+
+
+def g1_layout(tokens, word_id, wc_word):
+    from shredword_tpu_torch.ops import bpe_hist
+
+    return bpe_hist.build_layout(tokens, word_id, wc_word, 64,
+                                 dtype=np.int32)
+
+
+def g1_state(layout, v, unk, device, base=0, rows=None,
+             group=None) -> list[torch.Tensor]:
+    """[tw int32, wc, hist rows [base, base + rows), bounds] of one rank
+    on the columns of `layout`."""
+    from shredword_tpu_torch.parallel import giant as par_giant
+
+    tw = torch.tensor(layout.tw, device=device)
+    wc = torch.tensor(layout.wcount.reshape(-1), device=device)
+    return [tw, wc, *par_giant.init_row_shard(tw, wc, unk, v, base,
+                                              rows or v, group)]
+
+
+def run_g1_both(layout, v, device, *, unk, base=0, rows=None, group=None,
+                outs=None, **kw):
+    """run_both for G1 and its plain version, both reducing over the
+    initialized default process group; the kernel's records go to
+    `outs`."""
+    from shredword_tpu_torch.ops import _kernels
+
+    red = group_reduces()
+
+    def kernel(*st, **ckw):
+        recs = _kernels.giant_sharded_train(*st, base=base, **red, **ckw)
+        if outs is not None:
+            outs.append(recs)
+        return recs
+
+    return run_both(
+        kernel, lambda *st, **ckw: _kernels.giant_sharded_train_plain(
+            *st, base=base, **red, **ckw),
+        lambda: g1_state(layout, v, unk, device, base, rows, group),
+        device, unk=unk, **kw)
+
+
+def g1_gloo_rank(rank, world, store, v, result, dev):
+    """One gloo rank of G1 against its plain version on its row shard
+    and column block (spawned); writes the error, the merges and the
+    kernel's records."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.parallel import hist as par_hist
+
+    device = torch.device(dev)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        tokens, word_id, wc_word = random_corpus(v + 5, 20000, 122)
+        c = par_hist.shard_layout(tokens, word_id, wc_word, world,
+                                  dtype=np.int32)
+        rows = v // world
+        outs = []
+        err, _, _, n = run_g1_both(
+            par_hist.local_shard(c, rank, world), v, device, unk=122,
+            base=rank * rows, rows=rows, group=dist.group.WORLD,
+            outs=outs, min_freq=2, merges=700, steps=96)
+    finally:
+        dist.destroy_process_group()
+    recs = torch.cat(outs).cpu().numpy()
+    with open(result, "w") as f:
+        json.dump(dict(err=err, n=n, records=recs[:, :4].tolist()), f)
+
+
+def phase_g1_vs_plain(device, out_dir) -> int:
+    """G1 against its plain version on the card, call by call with a call
+    past the end, over the world-size-1 NCCL group: seeded random corpora
+    at vocab 5120 and 8192 (an unk byte, 'aaaa' runs, a min_pair_freq
+    stop), and the int16-crossing resume of the 64k envelope; then 2
+    gloo ranks on the card, each on its shard.  Returns the largest
+    difference."""
+    from shredword_tpu_torch.ops import bpe_hist
+
+    worst = 0
+    for v, min_freq, merges, steps in ((5120, 2, 700, 128),
+                                       (8192, 2, 900, 256),
+                                       (5120, 20000, 700, 64)):
+        unk = 122                                       # the byte 'z'
+        layout = g1_layout(*random_corpus(v + 3, 30000, unk))
+        err, _, _, n = run_g1_both(layout, v, device, unk=unk,
+                                   min_freq=min_freq, merges=merges,
+                                   steps=steps)
+        print(f"[g1] random corpus v={v} min_freq={min_freq}: {n} merges "
+              f"in calls of {steps}, max |kernel - plain| = {err}")
+        check(err == 0 and (n == merges) == (min_freq == 2) and n > 0,
+              f"G1 == plain at v={v} min_freq={min_freq}")
+        worst = max(worst, err)
+    from torch_dist_workers import (ENVELOPE_N_PREV, ENVELOPE_TARGET,
+                                    envelope_corpus)
+
+    v = -(-(256 + ENVELOPE_TARGET) // 128) * 128
+    outs = []
+    tokens, word_id, counts, _ = envelope_corpus()
+    err, _, _, n = run_g1_both(g1_layout(tokens, word_id, counts), v,
+                               device, unk=-1, min_freq=2, merges=14,
+                               steps=5, start=ENVELOPE_N_PREV, outs=outs)
+    recs = torch.cat(outs).cpu()
+    print(f"[g1] int16-crossing resume, v={v}, merges {ENVELOPE_N_PREV}-"
+          f"{ENVELOPE_N_PREV + n}: largest id merged "
+          f"{int(recs[recs[:, 3] == 1, :2].max())}, max |kernel - plain| "
+          f"= {err}")
+    check(err == 0 and n == 14 and bool((recs[:, :2] > 32767).any()),
+          "G1 == plain across the int16 boundary")
+    worst = max(worst, err)
+    v, world = 1024, 2
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(out_dir, "store_g1")
+    results = [os.path.join(out_dir, f"g1_rank{r}.json")
+               for r in range(world)]
+    procs = [ctx.Process(target=g1_gloo_rank,
+                         args=(r, world, store, v, results[r], str(device)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(RANK_TIMEOUT)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    check([p.exitcode for p in procs] == [0] * world,
+          "G1 gloo ranks exited with 0")
+    ranks = []
+    for path in results:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    tokens, word_id, wc_word = random_corpus(v + 5, 20000, 122)
+    hm, hf, _ = bpe_hist.hist_train(tokens, word_id, wc_word,
+                                    target_merges=700, unk_id=122,
+                                    min_pair_freq=2, lazy_final=True,
+                                    device=device)
+    for r, res in enumerate(ranks):
+        recs = np.asarray(res["records"])
+        did = recs[:, 3] == 1
+        print(f"[g1] gloo rank {r}/{world} on {device}, v={v}: {res['n']} "
+              f"merges, max |kernel - plain| = {res['err']}")
+        check(res["err"] == 0 and res["n"] == 700
+              and np.array_equal(recs[did, :2], hm)
+              and np.array_equal(recs[did, 2], hf),
+              f"G1 rank {r} == plain == the single-device hist engine")
+        worst = max(worst, res["err"])
+    return worst
+
+
+def g1_cost(layout, v, device, merges: int) -> dict:
+    """bound() per merge of G1's first `merges` merges on `layout` at
+    vocab v, from what they must move on this run's data, counted as
+    giant_cost counts K3's: once per call, the used columns' tokens in
+    and out (int32) and their weights, and the live bounds in and out;
+    per merge, the tokens of the columns that hold the pair in and out
+    and their weight, the pick's row reads (n_refresh rows of live
+    columns), every table cell that changes (read and written), the key
+    and the record.  A compare per matched token, and per live bound and
+    cell read for each row read.  Counted in a rerun of one merge per
+    call; what changed is found by comparing the state before and
+    after."""
+    from shredword_tpu_torch.ops import _kernels
+
+    st = g1_state(layout, v, -1, device)
+    tw, hist = st[0], st[2]
+    L = tw.shape[0]
+    used = int((layout.wcount > 0).sum())
+    nbytes = 8 * L * used + 4 * used + 8 * (256 + merges)
+    ops = 0
+    for i in range(merges):
+        tw0, hist0 = tw.clone(), hist.clone()
+        rec = _kernels.giant_sharded_train(
+            *st, base=0, **group_reduces(), unk=GIANT["unk_id"],
+            min_freq=GIANT["min_pair_freq"], n_done=i, init_done=0,
+            allowed=1, steps=1)[0].tolist()
+        check(rec[3] == 1, "G1 merges through the window")
+        a, b, lim = rec[0], rec[1], 257 + i
+        matched = int(((tw0[:-1] == a) & (tw0[1:] == b)).any(0).sum())
+        cells = int((hist != hist0).sum())
+        nbytes += (matched * (8 * L + 4) + rec[4] * 4 * lim + 8 * cells
+                   + 8 + 20)
+        ops += matched * L + rec[4] * 2 * lim
+        del tw0, hist0
+    return bound(nbytes / merges, ops / merges)
+
+
+def phase_g1_timed(device, layout) -> dict:
+    """G1 on the bench corpus's layout at vocab GIANT_VOCAB, world 1, the
+    first TIMED_MERGES merges in one call: against the plain version and
+    timed (the whole loop, host included; the device's time with the
+    call enqueued behind a spin kernel); its launches and its bound.
+    Returns the JSON timing record."""
+    from shredword_tpu_torch.ops import _kernels
+
+    kw = dict(unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"])
+    err, loop_k, ms_p, n = run_g1_both(layout, GIANT_VOCAB, device,
+                                       merges=TIMED_MERGES,
+                                       steps=TIMED_MERGES, **kw)
+    check(err == 0 and n == TIMED_MERGES, "G1 bench layout")
+    kernel = _kernels.giant_sharded_train
+    td = Timed(kernel, lead=G1_SPIN_CYCLES)
+    n0 = kernel.launches
+    td(*g1_state(layout, GIANT_VOCAB, kw["unk"], device), base=0,
+       **group_reduces(), n_done=0, init_done=0, allowed=n, steps=n,
+       unk=kw["unk"], min_freq=kw["min_freq"])
+    launches = kernel.launches - n0
+    ms_k, enq = td.ms() / n, td.enqueue_ms[0]
+    spin_ms = elapsed_ms(lambda: torch.cuda._sleep(G1_SPIN_CYCLES), device)
+    check(enq < spin_ms, "G1: the spin outlasts the enqueue")
+    check(launches == 2 * n + 1, "G1: 2 launches per merge and one more")
+
+    def enqueue_ms(lead: int, reduces: dict) -> float:
+        """Host ms per merge to enqueue the call from a fresh state,
+        behind a spin of `lead` cycles (0: the device idle), with the
+        group's reduces or none."""
+        st = g1_state(layout, GIANT_VOCAB, kw["unk"], device)
+        torch.cuda.synchronize(device)
+        if lead:
+            torch.cuda._sleep(lead)
+        t0 = time.perf_counter()
+        kernel(*st, base=0, **reduces, n_done=0, init_done=0, allowed=n,
+               steps=n, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize(device)
+        check(ms < spin_ms, "G1: the spin outlasts the enqueue")
+        return ms / n
+
+    enq_idle, enq_bare, enq_bare_idle = (
+        enqueue_ms(0, group_reduces()), enqueue_ms(G1_SPIN_CYCLES, {}),
+        enqueue_ms(0, {}))
+    cost = g1_cost(layout, GIANT_VOCAB, device, n)
+    L, W = layout.tw.shape
+    print(f"[g1] bench layout {(L, W)} v={GIANT_VOCAB}, NCCL world 1: first "
+          f"{n} merges in one call of {launches} launches; device "
+          f"{ms_k:.6f} ms/merge (enqueued in {enq:.3f} ms under a "
+          f"{spin_ms:.3f} ms spin: {enq / n:.6f} ms/merge), whole loop "
+          f"{loop_k / n:.6f} ms/merge, plain {ms_p / n:.4f} ms/merge; bound "
+          f"{cost['bound_ms']:.8f} ms ({cost['bound_by']}, "
+          f"{ms_k / cost['bound_ms']:.1f}x); max |kernel - plain| = {err}")
+    print(f"[g1] host enqueue, ms per merge: with both collectives "
+          f"{enq / n:.6f} behind the spin, {enq_idle:.6f} with the device "
+          f"idle; the launches alone (no reduce) {enq_bare:.6f} behind the "
+          f"spin, {enq_bare_idle:.6f} with the device idle")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p / n,
+                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+                library_ms=None)
+
+
+def profile_g1_train(corpus, device, mesh) -> None:
+    """One sharded train() at vocab GIANT_VOCAB under torch.profiler:
+    G1's launches (both kernels) against the wrapper's count, and the
+    device busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shredword_tpu_torch import BPETrainer
+    from shredword_tpu_torch.ops import _kernels
+
+    kernel = _kernels.giant_sharded_train
+    t = BPETrainer(target_vocab_size=GIANT_VOCAB, backend="cuda",
+                   device=device, mesh=mesh, **GIANT)
+    try:
+        t.load_corpus(corpus)
+        torch.cuda.synchronize(device)
+        n0 = kernel.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAUSE_S)
+            t0 = time.perf_counter()
+            merges = t.train()
+            torch.cuda.synchronize(device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILE_PAUSE_S)
+    finally:
+        t.destroy()
+    launches = kernel.launches - n0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in dev if "apply_pick_kernel" in e.name
+            or "merge_kernel<" in e.name]
+    print(f"[sharded giant] profiled train() vocab {GIANT_VOCAB}, NCCL "
+          f"world 1: {merges} merges, {len(ours)} G1 launches "
+          f"({launches} counted), {len(dev)} device events, device busy "
+          f"{busy_us(dev) / wall_us:.3f} of the run ({wall_us / 1e3:.2f} "
+          f"ms under the profiler), G1 {busy_us(ours) / 1e3:.2f} ms")
+    check(len(ours) == launches > 2 * merges,
+          "the profiler saw every G1 launch of the sharded train()")
+
+
+def g1_train_layers(corpus, device, mesh) -> None:
+    """One sharded train() at vocab GIANT_VOCAB split into its layers on
+    the host clock: the hist engine's decline; in the giant engine the
+    int32 layout (shard_layout), the initial rows (init_row_shard, the
+    device synchronized after it), the call loop (drive_calls) and the
+    rest (the upload); in the loop G1's enqueue (the wrapper's host
+    time), the wait for each call's records (a synchronize after the
+    call, where their readback would wait) and the driver's own work; and
+    train() outside the engines."""
+    from shredword_tpu_torch import BPETrainer
+    from shredword_tpu_torch.ops import _kernels, bpe_hist
+    from shredword_tpu_torch.parallel import giant as par_giant
+    from shredword_tpu_torch.parallel import hist as par_hist
+
+    secs: dict = {}
+
+    def clocked(name, fn, sync):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            t1 = time.perf_counter()
+            if sync:
+                torch.cuda.synchronize(device)
+                secs[name + " wait"] = (secs.get(name + " wait", 0.0)
+                                        + time.perf_counter() - t1)
+            secs[name] = secs.get(name, 0.0) + t1 - t0
+            return out
+        wrapped.launches = 0    # the wrapper counts on the name it is under
+        return wrapped
+
+    patches = [(par_hist, "sharded_hist_train", False),
+               (par_giant, "sharded_giant_train", False),
+               (par_hist, "shard_layout", False),
+               (par_giant, "init_row_shard", True),
+               (bpe_hist, "drive_calls", False),
+               (_kernels, "giant_sharded_train", True)]
+    saved = [getattr(m, name) for m, name, _ in patches]
+    t = BPETrainer(target_vocab_size=GIANT_VOCAB, backend="cuda",
+                   device=device, mesh=mesh, **GIANT)
+    try:
+        t.load_corpus(corpus)
+        for (m, name, sync), fn in zip(patches, saved):
+            setattr(m, name, clocked(name, fn, sync))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        merges = t.train()
+        torch.cuda.synchronize(device)
+        total = time.perf_counter() - t0
+    finally:
+        for (m, name, _), fn in zip(patches, saved):
+            setattr(m, name, fn)
+        t.destroy()
+    layers = {
+        "train() outside the engines": total - secs["sharded_hist_train"]
+        - secs["sharded_giant_train"],
+        "hist engine's decline": secs["sharded_hist_train"],
+        "int32 layout (shard_layout)": secs["shard_layout"],
+        "initial rows (init_row_shard, host)": secs["init_row_shard"],
+        "initial rows (device wait)": secs["init_row_shard wait"],
+        "G1 enqueue": secs["giant_sharded_train"],
+        "records' wait": secs["giant_sharded_train wait"],
+        "driver": secs["drive_calls"] - secs["giant_sharded_train"]
+        - secs["giant_sharded_train wait"],
+        "giant engine's rest (upload)": secs["sharded_giant_train"]
+        - secs["shard_layout"] - secs["init_row_shard"]
+        - secs["init_row_shard wait"] - secs["drive_calls"]}
+    print(f"[sharded giant] train() vocab {GIANT_VOCAB}, NCCL world 1, "
+          f"layer by layer: {merges} merges in {total:.4f} s")
+    for name, sec in sorted(layers.items(), key=lambda kv: -kv[1]):
+        print(f"[sharded giant]   {name}: {sec:.4f} s ({sec / total:.3f}, "
+              f"{sec / merges * 1e3:.6f} ms per merge)")
+    check(merges == GIANT_VOCAB - 256, "the layered train() merges")
+
+
+def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
+    """The sharded main path over a world-size-1 NCCL group:
+    BPETrainer(mesh=...) load_corpus -> train -> save at vocab 32768
+    (== phase 6's single-device giant bytes) and 65536 (== the
+    single-device flat engine's, its first merges == the 32768 run's),
+    then the 32768 run profiled, then the sharded flat engine forced (the
+    table engines patched to decline, as tests/test_parallel.py:132) at
+    the headline (== the JAX golden digest).  Returns G1's launches in
+    the 32768 run (every count set to 0 just before it, read just
+    after)."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.ops import _kernels
+    from shredword_tpu_torch.parallel import giant as par_giant
+    from shredword_tpu_torch.parallel import hist as par_hist
+    from shredword_tpu_torch.parallel import multihost
+
+    with open(os.path.join(ROOT, "tests", "golden", "bench_v768.json")) as f:
+        golden = json.load(f)
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                         rank=0)
+    try:
+        setup = first_collective(device)
+        mesh = multihost.global_mesh()
+        out = {}
+        for vocab in (GIANT_VOCAB, SHARDED_VOCAB):
+            reset_counts()
+            timer = Timed(_kernels.giant_sharded_train)
+            _kernels.giant_sharded_train = timer
+            try:
+                n, secs, raw, peak, model, vocab_b = train_and_save(
+                    corpus, out_dir, vocab, device, cfg=GIANT,
+                    tag="_sharded", mesh=mesh)
+            finally:
+                _kernels.giant_sharded_train = timer.fn
+            out[vocab] = (_kernels.giant_sharded_train.launches, model,
+                          vocab_b)
+            print(f"[sharded giant] NCCL world 1, vocab {vocab}: first "
+                  f"all_reduce {setup:.4f} s apart, {n} merges, train "
+                  f"{secs:.4f} s ({secs / n * 1e3:.6f} ms per merge), "
+                  f"{raw / 1e6 / secs:.3f} MB/s, peak device memory "
+                  f"{peak / 1e9:.3f} GB, {out[vocab][0]} G1 launches in "
+                  f"{len(timer.events)} calls, the calls' span "
+                  f"{timer.ms() / n:.6f} ms per merge (CUDA events)")
+            check(out[vocab][0] > 2 * n, f"vocab {vocab} launched G1")
+        launches, model, vocab_b = out[GIANT_VOCAB]
+        check((model, vocab_b) == giant_bytes,
+              f"sharded giant == single-device giant bytes at "
+              f"{GIANT_VOCAB}")
+        print(f"[sharded giant] vocab {GIANT_VOCAB}: .model/.vocab equal "
+              f"the single-device giant engine's")
+        _, model64, vocab64 = out[SHARDED_VOCAB]
+        fn, fsecs, _, _, fmodel, fvocab = train_and_save(
+            corpus, out_dir, SHARDED_VOCAB, device, "flat", GIANT)
+        m32, m64 = merges_of(model), merges_of(model64)
+        print(f"[sharded giant] vocab {SHARDED_VOCAB}: flat engine {fn} "
+              f"merges in {fsecs:.4f} s")
+        check((model64, vocab64) == (fmodel, fvocab),
+              f"sharded giant == flat bytes at {SHARDED_VOCAB}")
+        check(np.array_equal(m64[:len(m32)], m32)
+              and len(m32) == GIANT_VOCAB - 256,
+              "the 65536 run's first merges == the 32768 run's")
+        print(f"[sharded giant] vocab {SHARDED_VOCAB}: .model/.vocab equal "
+              f"the flat engine's; its first {len(m32)} merges equal the "
+              f"{GIANT_VOCAB} run's")
+        profile_g1_train(corpus, device, mesh)
+        g1_train_layers(corpus, device, mesh)
+        engines = (par_hist.sharded_hist_train,
+                   par_giant.sharded_giant_train)
+        par_hist.sharded_hist_train = par_giant.sharded_giant_train = \
+            lambda *a, **k: None
+        try:
+            n, secs, _, _, model, vocab_b = train_and_save(
+                corpus, out_dir, 768, device, tag="_sharded_flat",
+                mesh=mesh)
+        finally:
+            par_hist.sharded_hist_train, par_giant.sharded_giant_train = \
+                engines
+        check(hashlib.sha256(model).hexdigest() == golden["model_sha256"]
+              and hashlib.sha256(vocab_b).hexdigest()
+              == golden["vocab_sha256"] and n == golden["merges"],
+              "sharded flat == JAX golden digest")
+        print(f"[sharded flat] NCCL world 1, vocab 768 (table engines "
+              f"declined): {n} merges, train {secs:.4f} s "
+              f"({secs / n * 1e3:.4f} ms per merge); bytes equal the JAX "
+              f"golden digest")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def phase_sharded_giant_gloo(corpus, out_dir, device) -> None:
+    """BPETrainer(shards=2) as 2 gloo ranks on the card at vocab
+    RANKS_VOCAB (the headline config, so the sharded giant engine):
+    bytes == the single-device giant engine's."""
+    n, _, _, _, model, vocab_b = train_and_save(
+        corpus, out_dir, RANKS_VOCAB, device, engine="giant")
+    want = (hashlib.sha256(model).hexdigest(),
+            hashlib.sha256(vocab_b).hexdigest())
+    for r, res in enumerate(run_gloo_ranks(corpus, out_dir, RANKS_VOCAB,
+                                           device)):
+        print(f"[sharded giant] gloo rank {r}/2 on {device}, vocab "
+              f"{RANKS_VOCAB}: first all_reduce {res['setup']:.4f} s, then "
+              f"{res['n']} merges, train {res['secs']:.4f} s "
+              f"({res['secs'] / res['n'] * 1e3:.4f} ms per merge), "
+              f"{res['g1_launches']} G1 launches")
+        check(res["g1_launches"] > 2 * res["n"],
+              f"gloo rank {r} launched G1 at every merge")
+        check(res["n"] == n and (res["model"], res["vocab"]) == want,
+              f"2 gloo ranks, vocab {RANKS_VOCAB}: bytes == giant engine")
+    print(f"[sharded giant] 2 gloo ranks, vocab {RANKS_VOCAB}: bytes equal "
+          f"the single-device giant engine's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1962,7 +2485,7 @@ def main() -> int:
         giant_layout = bpe_giant.build_giant_layout(
             *token_arrays(corpus, device, GIANT), GIANT_VOCAB)
         timing[GIANT_VOCAB] = phase_giant_vs_plain(device, giant_layout)
-        launches[GIANT_VOCAB], model_giant, _ = phase_main_path(
+        launches[GIANT_VOCAB], model_giant, vocab_giant = phase_main_path(
             corpus, tmp, GIANT_VOCAB, device, cfg=GIANT,
             kernel="giant_train_step")
         # the merges that phases 3, 4 and 6 trained, for phase 13
@@ -1994,12 +2517,29 @@ def main() -> int:
         uni_launches = phase_uni_main(device, corpus,
                                       enc_text[:UNI_ENCODE_CHARS], tmp)
         phase_uni_sharded(device, corpus, phase_uni_1024(device, corpus))
+        # phase 15: the row-sharded giant engine (G1) and sharded flat
+        multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                             rank=0)
+        try:
+            first_collective(device)
+            g1_err = phase_g1_vs_plain(device, tmp)
+            timing["g1"] = phase_g1_timed(device, g1_layout(
+                *token_arrays(corpus, device, GIANT)))
+        finally:
+            dist.destroy_process_group()
+        timing["g1"]["max_abs_err"] = max(g1_err,
+                                          timing["g1"]["max_abs_err"])
+        launches["g1"] = phase_sharded_giant_main(corpus, tmp, device,
+                                                  (model_giant, vocab_giant))
+        phase_sharded_giant_gloo(corpus, tmp, device)
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),
             (f"giant_train@v{GIANT_VOCAB}", "giant.cu", GIANT_VOCAB),
             ("hist_sharded_train@v768", "hist_step.cu", "step"),
-            ("hist_sparse_train@v768", "hist_step.cu", "sparse")]
+            ("hist_sparse_train@v768", "hist_step.cu", "sparse"),
+            (f"giant_sharded_train@v{GIANT_VOCAB}", "giant_sharded.cu",
+             "g1")]
     kernels = [dict(name=name, route="cuda", source=src + f,
                     replaces=TPU_KERNEL[key], launches=launches[key],
                     **timing[key]) for name, f, key in rows]

@@ -1,7 +1,9 @@
-// The per-column greedy merge shared by the hist and giant kernels.
+// The per-column greedy merge shared by the hist and giant kernels
+// (hist_fused.cu, hist_step.cu, giant.cu, giant_sharded.cu).
 //
-// One thread owns one word column of the int16 [L, W] layout (tokens
-// top-down, PAD after the word).  merge_column applies the merge
+// One thread owns one word column of the [L, W] layout (tokens top-down,
+// PAD after the word; int16, or int32 where ids pass 32767).
+// merge_column applies the merge
 // (a, b) -> nw to it exactly as the reference's non-advancing splice does
 // (bpe.cpp:480-482): greedy left to right, so in a run "a a a a" with
 // a == b the pairs at rows 0 and 2 merge.  It compacts the column over
@@ -30,13 +32,14 @@ constexpr int MC_HAS_A = 2;    // a occurs in the column after the merge
 constexpr int MC_HAS_B = 4;    // b occurs in the column after the merge
 constexpr int MC_COUNT_SHIFT = 8;  // bits 8 and up: the merges it made
 
-// Merges (a, b) -> nw in column `col` of tw [L, W] in place.  Tokens live
+// Merges (a, b) -> nw in column `col` of tw [L, W] (T int16_t or int32_t)
+// in place.  Tokens live
 // in registers; loads and stores of one row are coalesced across a warp
 // whose threads hold neighbouring columns.  The column is rewritten only
 // when it matched.  Returns the MC_ bits above, with the number of merges
 // made in the column from bit MC_COUNT_SHIFT up.
-template <int L>
-__device__ __forceinline__ int merge_column(int16_t* __restrict__ tw, int W,
+template <int L, typename T>
+__device__ __forceinline__ int merge_column(T* __restrict__ tw, int W,
                                             int col, int a, int b, int nw,
                                             int unk,
                                             const int* __restrict__ wcount,
@@ -79,11 +82,11 @@ __device__ __forceinline__ int merge_column(int16_t* __restrict__ tw, int W,
     }
     has_a |= x == a;
     has_b |= x == b;
-    tw[(size_t)o * W + col] = (int16_t)x;
+    tw[(size_t)o * W + col] = (T)x;
     ++o;
     last = x;
   }
-  for (; o < L; ++o) tw[(size_t)o * W + col] = (int16_t)PAD;
+  for (; o < L; ++o) tw[(size_t)o * W + col] = (T)PAD;
   return MC_MATCHED | (has_a ? MC_HAS_A : 0) | (has_b ? MC_HAS_B : 0) |
          (n << MC_COUNT_SHIFT);
 }

@@ -21,8 +21,10 @@ Backends:
                   any vocab; "flat" -> the sort-based stream engine.
                   ``mesh`` (a 1-D ``DeviceMesh`` or a ``ProcessGroup``)
                   or ``shards=N`` (the default ``torch.distributed``
-                  group, of world size N) trains data-parallel on the
-                  sharded hist engine, vocab <= 4096.
+                  group, of world size N) trains data-parallel: the
+                  sharded hist engine to vocab 4096, then the
+                  row-sharded giant engine to 65536, then the sharded
+                  flat engine (any vocab, any word length).
   backend "cpu"   the native faithful engine, as in the JAX package.
 
 Ties break to the lexicographically smallest pair on the device
@@ -41,8 +43,10 @@ from .. import serialization
 from ..config import BPEConfig, resolve_device
 from ..errors import TrainingError
 from ..ops import bpe_giant, bpe_hist, bpe_ops
+from ..parallel import giant as par_giant
 from ..parallel import hist as par_hist
 from ..parallel import mesh as par_mesh
+from ..parallel import train as par_train
 from ..runtime import native
 from ..utils import logging as log
 
@@ -265,8 +269,8 @@ class BPETrainer:
         tokens, word_id, wcount, n_prev = self._replay_for_resume(
             tokens, word_id, wcount)
         if group is not None:
-            return self._train_sharded(group, tokens, word_id, target,
-                                       n_prev)
+            return self._train_sharded(group, tokens, word_id, wcount,
+                                       target, n_prev)
 
         if cfg.engine == "giant":
             out = self._train_table("giant", tokens, word_id, target, n_prev)
@@ -352,33 +356,31 @@ class BPETrainer:
                  "engine)", n_merges - n_prev, t.elapsed)
         return n_merges - n_prev
 
-    def _train_sharded(self, group, tokens, word_id, target,
+    def _train_sharded(self, group, tokens, word_id, wcount, target,
                        n_prev: int) -> int:
-        """Data-parallel training over a torch.distributed group: the
-        sharded hist engine (parallel/hist.py, one all_reduce of the
-        count deltas per merge).  Merge sequences are bit-identical to
-        single-device training.  Resume: the caller has already replayed
-        n_prev merges into `tokens`."""
+        """Data-parallel training over a torch.distributed group, as the
+        JAX package routes it: the sharded hist engine (parallel/hist.py,
+        vocab <= 4096), then the row-sharded giant engine
+        (parallel/giant.py, vocab <= 65536), then the sharded flat engine
+        (parallel/train.py), each taking what the one before declines.
+        Merge sequences are bit-identical to single-device training.
+        Resume: the caller has already replayed n_prev merges into
+        `tokens`."""
         cfg = self.config
-        n_shards = group.size()
-        if -(-(256 + target) // 128) * 128 > bpe_hist.MAX_V:
-            raise TrainingError(
-                "sharded training above vocab 4096 needs the sharded "
-                "giant engine (shredword_tpu/parallel/giant.py), which is "
-                "not ported to shredword_tpu_torch yet; train on one "
-                "device (the giant engine) instead")
+        kw = dict(mesh=group, target_merges=target, unk_id=cfg.unk_id,
+                  min_pair_freq=cfg.min_pair_freq, n_prev_merges=n_prev,
+                  device=self.device)
+        counts = self._word_counts()
         with log.Timer("train", nbytes=self._arrays.total_raw_bytes) as t:
-            out = par_hist.sharded_hist_train(
-                tokens, word_id, self._word_counts(), mesh=group,
-                target_merges=target, unk_id=cfg.unk_id,
-                min_pair_freq=cfg.min_pair_freq, n_prev_merges=n_prev,
-                device=self.device)
-        if out is None:
-            raise TrainingError(
-                "a word is longer than the sharded hist layout takes (64 "
-                "tokens): that needs the sharded flat engine "
-                "(shredword_tpu/parallel/train.py), which is not ported "
-                "to shredword_tpu_torch yet")
+            engine = "hist"
+            out = par_hist.sharded_hist_train(tokens, word_id, counts, **kw)
+            if out is None:       # above vocab 4096: the row-sharded table
+                engine = "giant"
+                out = par_giant.sharded_giant_train(tokens, word_id, counts,
+                                                    **kw)
+            if out is None:       # outside every table engine's layout
+                engine = "flat"
+                out = par_train.sharded_train(tokens, word_id, wcount, **kw)
         merges, freqs = out
         self._merges = np.concatenate(
             [self._merges[:n_prev], merges.astype(np.int32)])
@@ -389,8 +391,8 @@ class BPETrainer:
         self._set_final_replay(self._merges)
         self._trained = True
         log.info("Training completed: %d merges performed. (%.2f s, "
-                 "sharded hist engine, %d shards)", len(merges), t.elapsed,
-                 n_shards)
+                 "sharded %s engine, %d shards)", len(merges), t.elapsed,
+                 engine, group.size())
         return len(merges)
 
     def _replay_for_resume(self, tokens, word_id, wcount):

@@ -10,7 +10,8 @@ builds nothing.
 Every wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; it never falls back from one to
 the other.  Each wrapper counts its kernel launches in ``.launches``.
-The wrappers of the BPE training kernels live here; the encoder's
+The wrappers of the BPE training kernels (K1-K5 and the row-sharded
+giant step G1) live here; the encoder's
 (``csrc/encode.cu``) is ``encode_ops.encode_core`` and the Unigram
 lattice kernels' (``csrc/unigram.cu``) are ``unigram_ops.fb_core`` and
 ``unigram_ops.viterbi_core``, each beside its plain versions.
@@ -35,13 +36,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu", "encode.cu",
-           "unigram.cu"]
+           "unigram.cu", "giant_sharded.cu"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # the persistent kernels read data that other blocks of the same launch
 # wrote: their global loads bypass the SMs' incoherent L1 caches
 SOURCE_FLAGS = {s: ["-Xptxas", "-dlcm=cg"]
-                for s in ("hist_fused.cu", "giant.cu", "hist_step.cu")}
+                for s in ("hist_fused.cu", "giant.cu", "hist_step.cu",
+                          "giant_sharded.cu")}
 
 _lib = None
 
@@ -130,6 +132,10 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_unigram_fb.restype = i
     L.shred_unigram_viterbi.argtypes = [p] * 3 + [i] * 3 + [p] * 6
     L.shred_unigram_viterbi.restype = i
+    L.shred_giant_sharded_apply_pick.argtypes = [p] * 6 + [i] * 7 + [p]
+    L.shred_giant_sharded_apply_pick.restype = i
+    L.shred_giant_sharded_merge.argtypes = [p] * 6 + [i] * 9 + [p]
+    L.shred_giant_sharded_merge.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
     return L
@@ -313,12 +319,12 @@ def _shift_up(x: torch.Tensor, k: int, fill) -> torch.Tensor:
 
 
 def merge_pass_plain(tw, wcount, a, b, new, unk, v):
-    """Merge (a, b) -> new over the [L, W] corpus in place; returns the
-    int32 [v] left/right neighbour weight vectors (dl, dr) and the
-    number of merged occurrences nm
+    """Merge (a, b) -> new over the [L, W] corpus (int16 or int32) in
+    place; returns the int32 [v] left/right neighbour weight vectors
+    (dl, dr) and the number of merged occurrences nm
     (bpe_hist._select_and_apply + _slot_delta_accum semantics)."""
     L, W = tw.shape
-    t = tw.to(torch.int32)
+    t = tw.to(torch.int32, copy=True)     # tw is rewritten below
     m = (t == a) & (_shift_up(t, 1, PAD) == b)
     dl = torch.zeros(v, dtype=torch.int32, device=tw.device)
     dr = torch.zeros_like(dl)
@@ -498,6 +504,169 @@ def giant_train_step_plain(tw, wcount, hist, presT, rowmax, *, unk,
         torch.maximum(rowmax, dl, out=rowmax)
         rowmax[new] = hist[new].max()
         rowmax[a] = hist[a].max()
+    return records
+
+
+# ---------------------------------------------------------------------
+# the row-sharded giant merge step (G1)
+# ---------------------------------------------------------------------
+
+def pick_key(m: int, a: int, b: int) -> int:
+    """The 64-bit key of a pick (freq m of pair (a, b), ids < 65536): its
+    maximum over the ranks is the largest freq, then the smallest a, then
+    the smallest b."""
+    return (m << 32) | ((65535 - a) << 16) | (65535 - b)
+
+
+def giant_sharded_train(tw: torch.Tensor, wcount: torch.Tensor,
+                        hist: torch.Tensor, bounds: torch.Tensor, *,
+                        base: int, reduce_key=None, reduce_deltas=None,
+                        unk: int, min_freq: int, n_done: int,
+                        init_done: int, allowed: int,
+                        steps: int) -> torch.Tensor:
+    """``steps`` greedy merges of the row-sharded giant engine on one
+    rank, in place.
+
+    Replaces the per-merge body of ``shredword_tpu.parallel.giant``
+    (``shard_body`` of ``build_sharded_giant_loop``): tw int32 [L, W]
+    (this rank's word columns), wcount int32 [W], hist int32 [rows, v]
+    (the global rows [base, base + rows) of the pair table), bounds int32
+    [rows] (upper bounds of those rows' maxima).  Each merge, on every
+    rank alike: the local lex-first pick through the bounds (a stale
+    bound is refreshed from its row) as one int64 key
+    (:func:`pick_key`, freq 0 below min_freq) that ``reduce_key`` reduces
+    in place by MAX over the ranks -- one collective for the JAX loop's
+    pmax/pmin/pmin, with the same (freq desc, row asc, col asc)
+    tie-break; the merge over this rank's columns, whose deltas dl ‖ dr
+    (int32 [2v]) ``reduce_deltas`` sums in place over the ranks; and the
+    table update of the own rows in ``apply_hist_updates`` order.  None
+    for either reduce on a single rank.  The scalars are those of
+    :func:`hist_sharded_train`; merge step i creates id 256 + n_done + i.
+    Returns int32 [steps, 5] records (a, b, freq, did, n_refresh), where
+    n_refresh counts this rank's row reads in the pick (0 after the
+    first step that could not merge).
+
+    CPU tensors run :func:`giant_sharded_train_plain`; CUDA tensors run
+    ``csrc/giant_sharded.cu``: per merge one cooperative launch (apply
+    the previous merge, pick), ``reduce_key``, one launch (merge) and
+    ``reduce_deltas`` on the current stream, then one launch that
+    applies the last merge; nothing waits for the device.  Every launch
+    counts: 2 * steps + 1 per call."""
+    L, W = tw.shape
+    rows, v = hist.shape
+    if tw.dtype != torch.int32 or any(x.dtype != torch.int32
+                                      for x in (wcount, hist, bounds)):
+        raise TypeError("tw, wcount, hist and bounds must be int32")
+    if wcount.shape != (W,) or bounds.shape != (rows,) or v > 65536 \
+            or v % 128 or rows % 128 or not 0 <= base <= v - rows:
+        raise ValueError(
+            f"shape mismatch (v and rows multiples of 128, v <= 65536, "
+            f"base + rows <= v): tw {tuple(tw.shape)}, wcount "
+            f"{tuple(wcount.shape)}, hist {tuple(hist.shape)}, bounds "
+            f"{tuple(bounds.shape)}, base {base}")
+    tensors = (tw, wcount, hist, bounds)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("tw, wcount, hist and bounds must be contiguous")
+    if L not in (16, 32, 64):
+        raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
+    if 256 + n_done + min(steps, allowed) > v:
+        raise ValueError("merge ids would exceed the table size v")
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError("tw, wcount, hist and bounds must share one device")
+    kw = dict(base=base, reduce_key=reduce_key, reduce_deltas=reduce_deltas,
+              unk=unk, min_freq=min_freq, n_done=n_done,
+              init_done=init_done, allowed=allowed, steps=steps)
+    if tw.device.type == "cpu":
+        return giant_sharded_train_plain(*tensors, **kw)
+    if tw.device.type != "cuda":
+        raise ValueError(f"unsupported device {tw.device}")
+    dev = tw.device
+    d = torch.empty(2 * v, dtype=torch.int32, device=dev)
+    key = torch.empty(1, dtype=torch.int64, device=dev)
+    state = torch.empty(4, dtype=torch.int32, device=dev)
+    records = torch.empty((steps, 5), dtype=torch.int32, device=dev)
+    k = lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bufs = (d.data_ptr(), key.data_ptr(), state.data_ptr(),
+                records.data_ptr())
+        for i in range(steps + 1):
+            _check(k.shred_giant_sharded_apply_pick(
+                hist.data_ptr(), bounds.data_ptr(), *bufs, rows, v, base, i,
+                steps, min_freq, n_done, stream))
+            giant_sharded_train.launches += 1
+            if i == steps:
+                break
+            if reduce_key is not None:
+                reduce_key(key)
+            _check(k.shred_giant_sharded_merge(
+                tw.data_ptr(), wcount.data_ptr(), *bufs, L, W, v, i, steps,
+                unk, n_done, init_done, allowed, stream))
+            giant_sharded_train.launches += 1
+            if reduce_deltas is not None:
+                reduce_deltas(d)
+    return records
+
+
+giant_sharded_train.launches = 0
+
+
+def apply_row_shard(hist, bounds, base, a, b, new, dl, dr) -> None:
+    """:func:`apply_hist_updates` on the own rows [base, base + rows) of
+    the table, in place, then their bounds: a row outside {a, b, new}
+    changes in cells (r, a) and (r, new) = dl[r], so its bound rises to
+    dl[r] where that is larger; rows a, b and new take their exact
+    maxima."""
+    rows = hist.shape[0]
+    dl_own = dl[base:base + rows]
+    hist[:, a] -= dl_own
+    hist[:, new] += dl_own
+    for r, sign in ((b, -1), (new, 1)):
+        if base <= r < base + rows:
+            hist[r - base] += sign * dr
+    if base <= a < base + rows:
+        hist[a - base, b] = 0
+    torch.maximum(bounds, dl_own, out=bounds)
+    for r in {a, b, new}:
+        if base <= r < base + rows:
+            bounds[r - base] = hist[r - base].max()
+
+
+def giant_sharded_train_plain(tw, wcount, hist, bounds, *, base,
+                              reduce_key=None, reduce_deltas=None, unk,
+                              min_freq, n_done, init_done, allowed,
+                              steps) -> torch.Tensor:
+    """Plain PyTorch version of :func:`giant_sharded_train`: per merge
+    the lazy pick of the giant engine (:func:`_lazy_pick`) on the own
+    rows, ``reduce_key``, :func:`merge_pass_plain` on this rank's
+    columns, ``reduce_deltas`` and :func:`apply_row_shard`."""
+    v = hist.shape[1]
+    dev = tw.device
+    records = torch.zeros((steps, 5), dtype=torch.int32, device=dev)
+    for i in range(steps):
+        m, la, n_refresh = _lazy_pick(hist, bounds, min_freq)
+        key = 0
+        if m > 0:
+            b = int((hist[la] == m).nonzero()[0, 0])  # smallest column
+            key = pick_key(m, base + la, b)
+        kt = torch.tensor([key], dtype=torch.int64, device=dev)
+        if reduce_key is not None:
+            reduce_key(kt)
+        key = int(kt)
+        m, a, b = key >> 32, 65535 - (key >> 16 & 0xFFFF), 65535 - (
+            key & 0xFFFF)
+        if not (m > 0 and not init_done and i < allowed):
+            # nothing changes any more: no later step is merged
+            records[i:, 2] = m
+            records[i, 4] = n_refresh
+            break
+        new = 256 + n_done + i
+        records[i] = torch.tensor([a, b, m, 1, n_refresh])
+        dl, dr, _ = merge_pass_plain(tw, wcount, a, b, new, unk, v)
+        d = torch.cat([dl, dr])
+        if reduce_deltas is not None:
+            reduce_deltas(d)
+        apply_row_shard(hist, bounds, base, a, b, new, d[:v], d[v:])
     return records
 
 

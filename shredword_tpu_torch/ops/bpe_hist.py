@@ -55,10 +55,10 @@ class HistTrainState(NamedTuple):
 
 def build_layout(tokens: np.ndarray, word_id: np.ndarray,
                  wcount: np.ndarray, max_word_len: int,
-                 min_len: int = 16) -> HistCorpus | None:
-    """Pack the flat dedup stream into host arrays [L, W]; None if a word
-    exceeds max_word_len (the caller falls back to the flat engine).
-    wcount is per word."""
+                 min_len: int = 16, dtype=np.int16) -> HistCorpus | None:
+    """Pack the flat dedup stream into host arrays [L, W] of ``dtype``
+    (int32 where ids pass 32767); None if a word exceeds max_word_len
+    (the caller falls back to the flat engine).  wcount is per word."""
     if len(tokens) == 0:
         return None
     n_words = int(word_id[-1]) + 1
@@ -68,7 +68,7 @@ def build_layout(tokens: np.ndarray, word_id: np.ndarray,
         return None
     L = max(min_len, 1 << int(np.ceil(np.log2(L))))
     W = -(-n_words // CHUNK) * CHUNK
-    tw = np.full((L, W), PAD, np.int16)
+    tw = np.full((L, W), PAD, dtype)
     starts = np.zeros(n_words + 1, np.int64)
     np.cumsum(lens, out=starts[1:])
     pos = np.arange(len(tokens)) - starts[word_id]
@@ -78,17 +78,24 @@ def build_layout(tokens: np.ndarray, word_id: np.ndarray,
     return HistCorpus(tw, wc)
 
 
-def init_hist(tw: torch.Tensor, wcount: torch.Tensor, unk_id: int,
-              v: int) -> torch.Tensor:
-    """Exact initial pair table int32 [v, v] of the [L, W] corpus: pairs
-    are vertically adjacent tokens of one column, unk and PAD excluded."""
-    t = tw.to(torch.int32)
+def pair_keys(tw: torch.Tensor, wcount: torch.Tensor, unk_id: int,
+              v: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every pair occurrence of the [L, W] corpus as the int64 key
+    a * v + b and its column's int32 weight: pairs are vertically
+    adjacent tokens of one column, unk and PAD excluded."""
+    t = tw.long()
     nxt = torch.cat([t[1:], torch.full_like(t[:1], PAD)])
     w = wcount.reshape(1, -1).expand_as(t)
     valid = (t >= 0) & (nxt >= 0) & (t != unk_id) & (nxt != unk_id)
-    key = (t[valid].long() * v + nxt[valid].long())
+    return t[valid] * v + nxt[valid], w[valid]
+
+
+def init_hist(tw: torch.Tensor, wcount: torch.Tensor, unk_id: int,
+              v: int) -> torch.Tensor:
+    """Exact initial pair table int32 [v, v] of the [L, W] corpus
+    (:func:`pair_keys`)."""
     hist = torch.zeros(v * v, dtype=torch.int32, device=tw.device)
-    hist.index_add_(0, key, w[valid])
+    hist.index_add_(0, *pair_keys(tw, wcount, unk_id, v))
     return hist.view(v, v)
 
 

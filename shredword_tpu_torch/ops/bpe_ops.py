@@ -14,12 +14,13 @@ eagerly, so every merge compacts the stream to its exact length: the
 JAX engine's capacity buckets and re-compaction have nothing to do.
 
 It is the auto route for corpora whose words exceed the hist layout, and
-the independent cross-check of the hist engine.
+the independent cross-check of the hist engine; ``parallel/train.py``
+runs it on the ranks' shards of the stream.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -50,23 +51,45 @@ def make_state(tokens, word_id, wcount, device="cuda") -> CorpusState:
     return CorpusState(as_t(tokens), as_t(word_id), as_t(wcount))
 
 
-def best_pair(state: CorpusState, unk_id: int,
-              min_pair_freq: int) -> tuple[int, int, int]:
-    """(a, b, count) of the highest-count eligible pair, ties to the
-    smallest (a, b); count == 0 if no pair reaches min_pair_freq."""
+def sum_by_key(keys: torch.Tensor,
+               weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distinct keys, ascending, and the int64 sum of each one's
+    weights."""
+    uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
+    total = torch.zeros(len(uniq), dtype=torch.int64, device=keys.device)
+    total.index_add_(0, inv, weights.long())
+    return uniq, total
+
+
+def pair_counts(state: CorpusState,
+                unk_id: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every distinct pair as the int64 key (a << 32) | b, ascending (so
+    in (a, b) order at any vocab), and its int64 count."""
     t, wid = state.tokens, state.word_id
     valid = ((wid[:-1] == wid[1:]) & (t[:-1] != unk_id)
              & (t[1:] != unk_id))
     key = (t[:-1][valid].long() << 32) | t[1:][valid].long()
-    if key.numel() == 0:
+    return sum_by_key(key, state.wcount[:-1][valid])
+
+
+def best_of(keys: torch.Tensor, counts: torch.Tensor,
+            min_pair_freq: int) -> tuple[int, int, int]:
+    """(a, b, count) of the highest count of distinct ascending pair keys
+    (:func:`pair_counts`) that reaches min_pair_freq, ties to the
+    smallest (a, b); count == 0 if none does."""
+    if keys.numel() == 0:
         return 0, 0, 0
-    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
-    cnt = torch.zeros(len(uniq), dtype=torch.int64, device=t.device)
-    cnt.index_add_(0, inv, state.wcount[:-1][valid].long())
-    cnt = torch.where(cnt >= min_pair_freq, cnt, 0)
+    cnt = torch.where(counts >= min_pair_freq, counts, 0)
     best = int(cnt.argmax())            # first maximum: smallest key
-    k = int(uniq[best])
+    k = int(keys[best])
     return k >> 32, k & 0xFFFFFFFF, int(cnt[best])
+
+
+def best_pair(state: CorpusState, unk_id: int,
+              min_pair_freq: int) -> tuple[int, int, int]:
+    """(a, b, count) of the highest-count eligible pair, ties to the
+    smallest (a, b); count == 0 if no pair reaches min_pair_freq."""
+    return best_of(*pair_counts(state, unk_id), min_pair_freq)
 
 
 def select_matches(state: CorpusState, a: int, b: int) -> torch.Tensor:
@@ -103,13 +126,17 @@ def train_init(corpus: CorpusState, max_merges: int,
 
 
 def train_loop(ts: TrainState, unk_id: int, min_pair_freq: int, *,
-               target_merges: int, max_steps: int) -> TrainState:
-    """Up to max_steps greedy merges; merge k creates id 256 + k."""
+               target_merges: int, max_steps: int,
+               pick: Callable = best_pair) -> TrainState:
+    """Up to max_steps greedy merges; merge k creates id 256 + k.
+    ``pick(corpus, unk_id, min_pair_freq) -> (a, b, count)`` chooses each
+    merge (``parallel/train.py`` passes the pick over every rank's
+    span)."""
     corpus, n, done = ts.corpus, ts.n_merges, ts.done
     for _ in range(max_steps):
         if done or n >= target_merges:
             break
-        a, b, cnt = best_pair(corpus, unk_id, min_pair_freq)
+        a, b, cnt = pick(corpus, unk_id, min_pair_freq)
         if cnt == 0:
             done = True
             break

@@ -33,20 +33,22 @@ from . import mesh as _mesh
 
 def shard_layout(tokens: np.ndarray, word_id: np.ndarray,
                  wcount: np.ndarray, n_shards: int,
-                 max_word_len: int = 64) -> bpe_hist.HistCorpus | None:
+                 max_word_len: int = 64,
+                 dtype=np.int16) -> bpe_hist.HistCorpus | None:
     """The [L, W] host layout with W a multiple of n_shards * CHUNK (pad
     columns carry weight 0), equal to the JAX package's; rank r owns
     column block r (:func:`local_shard`).  None if a word exceeds
-    max_word_len."""
+    max_word_len.  ``dtype`` int32 holds ids past 32767 (the sharded
+    giant engine's)."""
     c = bpe_hist.build_layout(tokens, word_id, wcount, max_word_len,
-                              min_len=16)
+                              min_len=16, dtype=dtype)
     if c is None:
         return None
     L, W = c.tw.shape
     unit = n_shards * bpe_hist.CHUNK
     W2 = -(-W // unit) * unit
     if W2 != W:
-        tw = np.full((L, W2), bpe_hist.PAD, np.int16)
+        tw = np.full((L, W2), bpe_hist.PAD, dtype)
         tw[:, :W] = c.tw
         wc = np.zeros((1, W2), np.int32)
         wc[:, :W] = c.wcount

@@ -373,6 +373,61 @@ def test_step_kernels_call_by_call(case, chain, cuda, request):
     assert (n == merges) == (minf == 2) and n > 0
 
 
+# name: (corpus arguments, v, steps per call, merges, min_pair_freq, unk)
+SHARDED_GIANT_CASES = {
+    # equal weights: tied bounds and counts; one merge a call
+    "ties_v384_steps1": (dict(seed=60, n_words=1500, alpha=4,
+                              equal_weights=True), 384, 1, 60, 2, -1),
+    # 'aaaa' runs: a == b
+    "runs_v1024_L32": (dict(seed=61, n_words=1500, max_len=30, alpha=2),
+                       1024, 64, 500, 2, -1),
+    "unk_v2048": (dict(seed=62, n_words=3000, alpha=12, unk=98), 2048, 256,
+                  1500, 2, 98),
+    "min_freq_stop_v1024": (dict(seed=63, n_words=1500), 1024, 64, 700,
+                            300, -1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["none", "nccl1"])
+@pytest.mark.parametrize("case", sorted(SHARDED_GIANT_CASES))
+def test_sharded_giant_kernel_call_by_call(case, reduce, cuda, request):
+    """The row-sharded giant step (G1, giant_sharded_train) on one rank's
+    whole table against its plain version after every call: all five
+    record lanes, tokens, the table and the row bounds; 2 * steps + 1
+    launches a call; the reduces over a one-rank NCCL group or none."""
+    from shredword_tpu_torch.parallel import giant as par_giant
+
+    corpus_kw, v, steps, merges, minf, unk = SHARDED_GIANT_CASES[case]
+    c = bpe_hist.build_layout(*_corpus(**corpus_kw), 64, dtype=np.int32)
+    states = []
+    for dev in ("cpu", cuda):
+        tw = torch.tensor(c.tw, device=dev)
+        wc = torch.tensor(c.wcount.reshape(-1), device=dev)
+        states.append([tw, wc, *par_giant.init_row_shard(tw, wc, unk, v, 0,
+                                                         v)])
+    kw = {}
+    if reduce == "nccl1":
+        dist = request.getfixturevalue("nccl_world1")
+        kw = dict(reduce_key=lambda k: dist.all_reduce(
+            k, op=dist.ReduceOp.MAX), reduce_deltas=dist.all_reduce)
+    kernel = _kernels.giant_sharded_train
+    calls = []
+
+    def run(*state, **ckw):
+        n0 = kernel.launches
+        recs = kernel(*state, base=0, **kw, **ckw)
+        calls.append((kernel.launches - n0, ckw["steps"]))
+        return recs
+
+    def plain(*state, **ckw):
+        return _kernels.giant_sharded_train_plain(*state, base=0, **ckw)
+
+    n = _calls(run, plain, states, merges, steps, unk=unk, min_freq=minf)
+    assert all(k == 2 * s + 1 for k, s in calls) and calls
+    assert (n == merges) == (minf == 2) and n > 0
+
+
 # ---------------------------------------------------------------------
 # the encoder (csrc/encode.cu)
 # ---------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package nor
 the JAX bench, at run time (a subprocess that blocks them trains every
 engine, checkpoints, resumes and saves, encodes, decodes, saves and
-loads a Tokenizer, and trains, saves, loads and encodes Unigram) and in
+loads a Tokenizer, trains, saves, loads and encodes Unigram, and trains
+the sharded giant and flat engines on one gloo rank) and in
 its sources (an AST scan of the package and of
 chip_smoke.py); and its own copy of the native corpus loader gives the
 JAX package's arrays."""
@@ -90,6 +91,23 @@ def test_runs_with_jax_and_the_jax_package_blocked(tmp_path):
         utok = UnigramTokenizer.load(f"{{out}}/uni_cpu.model", device="cpu")
         uids = utok.encode("hello lower lowest")
         assert utok.decode(uids) == "hello lower lowest" and uids
+
+        import torch.distributed as dist
+        from shredword_tpu_torch.parallel import multihost
+        multihost.initialize(f"file://{{out}}/store", world_size=1, rank=0,
+                             backend="gloo")
+        long = data + b"x" * 100 + b"\\n"
+        for corpus, vocab in ((data, 5000), (long, 300)):
+            got = []
+            for kw in (dict(mesh=multihost.global_mesh("cpu")),
+                       dict(engine="flat")):
+                t = BPETrainer(vocab, -1, 0.995, 2, device="cpu", **kw)
+                t.load_corpus_bytes(corpus)
+                assert t.train() > 0
+                t.save(f"{{out}}/s.model", f"{{out}}/s.vocab")
+                got.append(open(f"{{out}}/s.vocab", "rb").read())
+            assert got[0] == got[1]
+        dist.destroy_process_group()
 
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]

@@ -190,12 +190,12 @@ def test_sharded_resume_matches_uninterrupted(ranks, single):
             assert (model, vocab) == single[3:]
 
 
-def test_unported_sharded_routes_raise(ranks):
-    """Above vocab 4096 the JAX package falls to the sharded giant
-    engine, which is not ported: TrainingError says so.  shards=N must
-    match the world size."""
+def test_shards_must_match_world_size(ranks):
+    """shards=N must match the world size: ConfigError says so.  (Above
+    vocab 4096 and for words over 64 tokens sharded training routes to
+    the giant and flat engines: tests/test_torch_sharded_giant.py and
+    tests/test_torch_sharded_flat.py.)"""
     for r in ranks:
-        assert "not ported" in r["giant"] and "giant" in r["giant"]
         assert "torch.distributed" in r["world"] and "3" in r["world"]
 
 

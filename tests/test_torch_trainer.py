@@ -17,7 +17,8 @@ from shredword_tpu import checkpoint as ckpt
 from shredword_tpu.models.bpe import BPETrainer as JaxTrainer
 from shredword_tpu_torch import BPEConfig, BPETrainer
 from shredword_tpu_torch import checkpoint as port_ckpt
-from shredword_tpu_torch.errors import ConfigError, TrainingError
+from shredword_tpu_torch.errors import (ConfigError, SerializationError,
+                                       TrainingError)
 from shredword_tpu_torch.ops import _kernels
 
 CONFIGS = [(name, i) for name, cfgs in GOLDEN_CONFIGS.items()
@@ -97,7 +98,7 @@ def test_jax_checkpoint_resumes_in_port(engine, zipf_corpus_file, tmp_path):
     np.testing.assert_array_equal(merges, full.merges[:len(merges)])
 
 
-@pytest.mark.parametrize("engine", ["hist", "flat"])
+@pytest.mark.parametrize("engine", ["hist", "flat", "giant"])
 def test_port_checkpoint_resumes_in_jax(engine, zipf_corpus_file, tmp_path):
     """The reverse direction: a checkpoint the port writes (through its
     own checkpoint module) resumes in the JAX package."""
@@ -122,6 +123,22 @@ def test_port_checkpoint_resumes_in_jax(engine, zipf_corpus_file, tmp_path):
     np.testing.assert_array_equal(j.merge_freqs, full.merge_freqs)
     np.testing.assert_array_equal(j.token_frequencies(),
                                   full.token_frequencies())
+
+
+def test_checkpoint_rejects_garbage(tmp_path):
+    """The port's checkpoint module refuses a file whose header is not
+    JSON, and one of another format, as the JAX package's does
+    (tests/test_checkpoint.py:76)."""
+    bad = tmp_path / "bad.ckpt"
+    bad.write_bytes(b"\x10\x00\x00\x00\x00\x00\x00\x00not json hereXXXX")
+    other = tmp_path / "other.ckpt"
+    other.write_bytes(len(b'{"magic": "x"}').to_bytes(8, "little")
+                      + b'{"magic": "x"}')
+    for path in (bad, other):
+        with pytest.raises(SerializationError):
+            port_ckpt.load_checkpoint(str(path))
+        with pytest.raises(ckpt.SerializationError):
+            ckpt.load_checkpoint(str(path))
 
 
 def test_incremental_train_matches_one_call(small_corpus_file):

@@ -1,4 +1,5 @@
-"""Rank workers for tests/test_torch_parallel.py.
+"""Rank workers for tests/test_torch_parallel.py,
+tests/test_torch_sharded_giant.py and tests/test_torch_sharded_flat.py.
 
 Each rank runs in its own spawned process with one thread, joins a gloo
 process group through a FileStore under the test's tmp directory (so
@@ -121,9 +122,9 @@ def scenarios(corpus: str, arrays, tmp_dir: str) -> dict:
     ranks: the sharded-call wrapper call by call (chain_calls) and the
     sharded engine on `arrays`, BPETrainer(shards=2) and
     BPETrainer(mesh=...) on `corpus`, a sharded resume, a single-device
-    checkpoint resumed sharded, the routes that raise, and the ranks'
-    split of a work list."""
-    from shredword_tpu_torch.errors import ConfigError, TrainingError
+    checkpoint resumed sharded, a shards=N that does not match the world
+    size, and the ranks' split of a work list."""
+    from shredword_tpu_torch.errors import ConfigError
     from shredword_tpu_torch.parallel import hist, multihost
 
     out = {"host_shard": multihost.host_shard(5)}
@@ -151,15 +152,11 @@ def scenarios(corpus: str, arrays, tmp_dir: str) -> dict:
     one.save_checkpoint(single)
     out["single_resumed"] = _trained(corpus, tmp_dir, "single_resumed",
                                      shards=2, prev=single)
-    for key, kw, err in (("giant", dict(target_vocab_size=5000, shards=2),
-                          TrainingError),
-                         ("world", dict(shards=3), ConfigError)):
-        t = _trainer(corpus, **kw)
-        try:
-            t.train()
-            out[key] = None
-        except err as e:
-            out[key] = str(e)
+    try:
+        _trainer(corpus, shards=3).train()
+        out["world"] = None
+    except ConfigError as e:
+        out["world"] = str(e)
     return out
 
 
@@ -193,4 +190,161 @@ def unigram_sharded(corpus: str, kw: dict) -> list:
         t.load_corpus(corpus)
         t.train()
         out.append((t.pieces, t.log_probs, t.final_ll))
+    return out
+
+
+def _logged(fn):
+    """(fn(), the messages the port logged at info level meanwhile)."""
+    import logging
+
+    logged = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: logged.append(record.getMessage())
+    logger = logging.getLogger("shredword_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        return fn(), logged
+    finally:
+        logger.removeHandler(handler)
+
+
+def _engine_of(logged) -> str:
+    """The sharded engine named by a trainer's completion message."""
+    for msg in logged:
+        if "sharded" in msg and "engine" in msg:
+            return msg.split("sharded ")[1].split(" engine")[0]
+    return ""
+
+
+# the int16-crossing envelope of tests/test_giant_64k_envelope.py
+ENVELOPE_N_PREV = 32510
+ENVELOPE_TARGET = ENVELOPE_N_PREV + 14
+
+
+def envelope_corpus():
+    """Two 8-token chain words near the int16 limit (counts 100 and 50):
+    (tokens, word_id, per-word counts, per-position counts)."""
+    tokens = np.concatenate([np.arange(31000, 31008, dtype=np.int32),
+                             np.arange(31100, 31108, dtype=np.int32)])
+    word_id = np.repeat(np.arange(2, dtype=np.int32), 8)
+    counts = np.asarray([100, 50], np.int32)
+    return tokens, word_id, counts, counts[word_id]
+
+
+# a resume near v: chain words of ids near 256 + n_prev, so the replayed
+# ids' [vi, vi] table (vi = 2176) would be larger than a rank's rows
+NEAR_V_N_PREV = 1900
+NEAR_V_TARGET = NEAR_V_N_PREV + 14
+
+
+def near_v_corpus():
+    tokens = np.concatenate([np.arange(2000, 2008, dtype=np.int32),
+                             np.arange(2050, 2058, dtype=np.int32)])
+    word_id = np.repeat(np.arange(2, dtype=np.int32), 8)
+    counts = np.asarray([100, 50], np.int32)
+    return tokens, word_id, counts, counts[word_id]
+
+
+def _largest_tensors(fn):
+    """(fn(), the shape of the largest tensor any PyTorch op made while
+    it ran)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    largest = [()]
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else [out]:
+                if isinstance(t, torch.Tensor) and \
+                        t.numel() > int(np.prod(largest[0])):
+                    largest[0] = tuple(t.shape)
+            return out
+
+    with Record():
+        result = fn()
+    return result, largest[0]
+
+
+def sharded_giant_engine(arrays) -> tuple:
+    """sharded_giant_train on `arrays` as tests/test_parallel.py:155
+    drives the JAX engine."""
+    from shredword_tpu_torch.parallel import giant
+
+    return giant.sharded_giant_train(
+        *arrays, mesh=dist.group.WORLD, target_merges=32, min_pair_freq=2,
+        max_steps_per_call=16, device="cpu")
+
+
+def sharded_giant_scenarios(corpus: str, arrays, tmp_dir: str) -> dict:
+    """Everything test_torch_sharded_giant.py checks in two ranks, in one
+    start-up: the engine on `arrays`; BPETrainer(shards=2) above vocab
+    4096 on `corpus` (and which engine it logged), a sharded resume of it
+    and a single-device checkpoint resumed sharded; the int16-crossing
+    envelope on the giant and flat engines; a resume near v with the
+    largest tensor any op made."""
+    from shredword_tpu_torch.parallel import giant, train
+
+    out = {"engine": sharded_giant_engine(arrays)}
+    big = dict(target_vocab_size=4500)
+    out["full"], out["full_log"] = _logged(
+        lambda: _trained(corpus, tmp_dir, "full", shards=2, **big))
+    cp = os.path.join(tmp_dir, f"g_half.r{dist.get_rank()}.ckpt")
+    half = _trainer(corpus, shards=2, **big)
+    out["half"] = half.train(max_merges=12)
+    half.save_checkpoint(cp)
+    out["resumed"] = _trained(corpus, tmp_dir, "g_resumed", shards=2,
+                              prev=cp, **big)
+    single = os.path.join(tmp_dir, f"g_single.r{dist.get_rank()}.ckpt")
+    one = _trainer(corpus, **big)                  # no process group used
+    one.train(max_merges=10)
+    one.save_checkpoint(single)
+    out["single_resumed"] = _trained(corpus, tmp_dir, "g_single_resumed",
+                                     shards=2, prev=single, **big)
+    for key, make, n_prev, target in (
+            ("envelope", envelope_corpus, ENVELOPE_N_PREV, ENVELOPE_TARGET),
+            ("near_v", near_v_corpus, NEAR_V_N_PREV, NEAR_V_TARGET)):
+        tokens, word_id, counts, wcount = make()
+        kw = dict(mesh=dist.group.WORLD, target_merges=target, unk_id=-1,
+                  min_pair_freq=2, n_prev_merges=n_prev, device="cpu")
+        out[key] = _largest_tensors(lambda: giant.sharded_giant_train(
+            tokens, word_id, counts, **kw))
+        out[key + "_flat"] = train.sharded_train(tokens, word_id, wcount,
+                                                 **kw)
+    return out
+
+
+def sharded_flat_scenarios(corpus: str, tmp_dir: str) -> dict:
+    """Everything test_torch_sharded_flat.py checks in two ranks, in one
+    start-up: sharded_train on the corpus's flat arrays and its resume
+    after 12 merges; BPETrainer(shards=2) with the table engines patched
+    to decline (tests/test_parallel.py:132) and on a corpus whose words
+    pass 64 tokens, with the engine each logged."""
+    from shredword_tpu_torch.parallel import giant, hist, train
+
+    t = _trainer(corpus)
+    tokens, word_id, wcount = t._token_arrays()
+    kw = dict(mesh=dist.group.WORLD, unk_id=-1, min_pair_freq=5,
+              target_merges=60, device="cpu")
+    out = {"engine": train.sharded_train(tokens, word_id, wcount, **kw)}
+    replayed = arrays_after((tokens, word_id, wcount),
+                            out["engine"][0][:12])
+    counts = t._word_counts()
+    out["engine_resumed"] = train.sharded_train(
+        replayed[0], replayed[1], counts[replayed[1]], n_prev_merges=12,
+        **kw)
+    engines = (hist.sharded_hist_train, giant.sharded_giant_train)
+    hist.sharded_hist_train = giant.sharded_giant_train = \
+        lambda *a, **k: None
+    try:
+        out["fallback"], out["fallback_log"] = _logged(lambda: _trained(
+            corpus, tmp_dir, "fallback", shards=2, target_vocab_size=2400))
+    finally:
+        hist.sharded_hist_train, giant.sharded_giant_train = engines
+    long_corpus = os.path.join(tmp_dir, f"long.r{dist.get_rank()}.txt")
+    with open(long_corpus, "wb") as f:
+        f.write((b"x" * 100 + b" the quick brown fox\n") * 20)
+    out["long"], out["long_log"] = _logged(lambda: _trained(
+        long_corpus, tmp_dir, "long", shards=2, target_vocab_size=300,
+        character_coverage=0.9999, min_pair_freq=2))
     return out
