@@ -138,6 +138,32 @@ Phases (any failure exits non-zero, and no result line is printed):
      engine forced at the headline (bytes == the JAX golden digest, ms
      per merge); BPETrainer(shards=2) as 2 gloo ranks on cuda:0 at vocab
      4608, min_pair_freq 50: bytes == the single-device giant engine's
+ 16. (runs after phase 13) the GPT splitter: P1 (csrc/pretok.cu,
+     pretok_ops.gpt_starts_mask) against its plain version on the card,
+     on the seeded inputs of tests/torch_pretok_cases.py
+     (tests/test_pretok_dfa.py's cases, fuzz strings, runs over 1024
+     across the tiles) and on the first 4,000,000 and 1,000,000
+     characters of the corpus: masks identical, and the starts as byte
+     offsets == the native scanner's (pretokenize.gpt_starts_bytes); the
+     main path gpt_starts_device on the 4M text (P1 launched); P1's
+     device ms per call (CUDA events around its three launches alone),
+     launches per call (torch.profiler), the plain version's ms, the
+     bound (a class byte in and a mask byte out per character);
+     gpt_starts_device's MB/s and layers beside the native scanner's on
+     the same bytes
+ 17. (runs after phase 14) the CLI, python -m shredword_tpu_torch, in
+     subprocesses on the card: the wall-clock seconds of python alone,
+     import torch, and info (the package's import), and, in a fresh
+     process, of the CUDA context and the kernel and host libraries'
+     loads; train at the headline (vocab 768, min_pair_freq 50,
+     coverage 0.9999, unk -1) on the 16 MB corpus, bytes == the JAX
+     golden digest: cold, then under SHREDWORD_TRACE (K1 launched,
+     counted in the trace), then through the daemon
+     (SHREDWORD_TORCH_DAEMON=1): its first call (which starts it) and
+     two warm calls; encode of the first 1,000,000 characters == the
+     Tokenizer's ids on the card, decode round-trips; train-unigram
+     --vocab-size 1024 --seed-size 10000 == phase 14's pieces; the
+     daemon is stopped at the end, also on failure
 
 The corpus is generated here (make_corpus, the JAX bench's generator) and
 checked against its known digest.  The last lines of standard output are
@@ -176,7 +202,9 @@ TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               "unigram_viterbi":                    # _viterbi_device
               "shredword_tpu/ops/unigram_ops.py:329",
               "g1":                 # shard_body of build_sharded_giant_loop
-              "shredword_tpu/parallel/giant.py:108"}
+              "shredword_tpu/parallel/giant.py:108",
+              "gpt_starts":                         # gpt_starts_mask_jnp
+              "shredword_tpu/ops/pretok_ops.py:313"}
 TIMED_MERGES = 128
 LATE_START = 16128   # the giant late window: new ids from 16384 on
 CORPUS_BYTES = 16_153_229
@@ -475,12 +503,13 @@ def train_and_save(corpus, out_dir, vocab, device, engine="auto",
 def reset_counts() -> None:
     from shredword_tpu_torch.ops import _kernels
 
-    from shredword_tpu_torch.ops import encode_ops, unigram_ops
+    from shredword_tpu_torch.ops import encode_ops, pretok_ops, unigram_ops
 
     for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
               _kernels.hist_sharded_train, _kernels.hist_sparse_train,
               _kernels.giant_sharded_train, encode_ops.encode_core,
-              unigram_ops.fb_core, unigram_ops.viterbi_core):
+              unigram_ops.fb_core, unigram_ops.viterbi_core,
+              pretok_ops.gpt_starts_mask):
         k.launches = 0
 
 
@@ -1653,27 +1682,41 @@ def uni_kernel_ms(args, *, fb: bool, backtrace: bool = False) -> float:
 PROFILE_PAUSE_S = 0.02
 
 
-def kernel_launches(fn, name: str, calls: int = 3) -> int:
-    """Launches of kernels named `name` in `calls` calls of fn, from
-    torch.profiler, after one untraced warm-up call.  The profiler keeps
-    only the device events inside its host-clock window, so an event
-    that ends right before the trace stops can be dropped: each call
-    starts after a host pause with the device idle, and the trace stops
-    a pause after the last call has finished."""
+def kernel_launches(fn, name, calls: int = 3) -> int:
+    """Launches of kernels named `name` (or any name of a tuple) in
+    `calls` calls of fn, from torch.profiler, after one untraced warm-up
+    call.  The profiler keeps only the device events inside its
+    host-clock window, so an event that ends right before the trace
+    stops can be dropped, and late in this script's process it can miss
+    the device events of a trace's first call (P1's first traced call
+    lost 1-3 of its 4 kernels, the later calls none).  So the trace
+    starts with one uncounted call; the counted calls follow in a
+    record_function region, each after a host pause with the device
+    idle; only device events from the region's start on count, and the
+    trace stops a pause after the last call has finished."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    names = (name,) if isinstance(name, str) else name
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            time.sleep(PROFILE_PAUSE_S)
-            fn()
-            torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        with record_function("counted calls"):
+            for _ in range(calls):
+                time.sleep(PROFILE_PAUSE_S)
+                fn()
+                torch.cuda.synchronize()
         time.sleep(PROFILE_PAUSE_S)
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA and name in e.name)
+    events = prof.events()
+    (region,) = [e for e in events if e.name == "counted calls"
+                 and e.device_type == DeviceType.CPU]
+    return sum(1 for e in events
+               if e.device_type == DeviceType.CUDA
+               and e.time_range.start >= region.time_range.start
+               and any(k in e.name for k in names))
 
 
 def uni_slab(tag: str, args, *, fb: bool) -> dict:
@@ -2448,6 +2491,346 @@ def phase_sharded_giant_gloo(corpus, out_dir, device) -> None:
           f"the single-device giant engine's")
 
 
+# ---------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------
+
+P1_KERNELS = ("tile_totals_kernel", "carry_kernel", "mask_kernel")
+
+
+def byte_offsets(cp: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """Character-space starts as UTF-8 byte offsets."""
+    blen = np.where(cp < 0x80, 1,
+                    np.where(cp < 0x800, 2, np.where(cp < 0x10000, 3, 4)))
+    off = np.zeros(len(cp) + 1, np.int64)
+    np.cumsum(blen, out=off[1:])
+    return off[starts]
+
+
+def p1_kernel_ms(cls: torch.Tensor, n: int, device) -> float:
+    """Device ms per call of P1's three launches alone: KERNEL_REPS
+    back-to-back calls between two CUDA events, through the library
+    directly (uncounted), the buffers allocated once."""
+    from shredword_tpu_torch.ops import _kernels, pretok_ops
+
+    nt = -(-n // pretok_ops.GPT_TILE)
+    totals = torch.empty(6 * nt, dtype=torch.int32, device=device)
+    carries = torch.empty_like(totals)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    k = _kernels.lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def calls():
+        for _ in range(KERNEL_REPS):
+            check(k.shred_gpt_starts_mask(
+                cls.data_ptr(), n, totals.data_ptr(), carries.data_ptr(),
+                out.data_ptr(), stream) == 0, "P1 launch")
+
+    calls()
+    return elapsed_ms(calls, device) / KERNEL_REPS
+
+
+def synced(fn):
+    """fn, then a synchronise: its host time includes the device work."""
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    return run
+
+
+def phase_pretok(device, enc_text: str) -> tuple[dict, int]:
+    """P1 against its plain version on the card and timed; the main path
+    gpt_starts_device on the 4M text, counted and timed layer by layer
+    beside the native scanner.  Returns P1's kernel record (at 4M) and
+    its launches in the main path's run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch_pretok_cases import all_inputs, code_points
+
+    from shredword_tpu_torch import pretokenize
+    from shredword_tpu_torch.ops import pretok_ops
+
+    table = pretok_ops.class_table()
+    inputs = all_inputs()
+    err = 0
+    for s in inputs:
+        cp = code_points(s)
+        cls = torch.from_numpy(table[cp].astype(np.int8)).to(device)
+        err = max(err, max_abs_diff(
+            pretok_ops.gpt_starts_mask(cls, len(cp)),
+            pretok_ops.gpt_starts_mask_plain(cls, len(cp))))
+    print(f"[pretok] P1 against its plain version on the card, "
+          f"{len(inputs)} seeded inputs (cases, fuzz strings, runs over "
+          f"1024 across tiles): max |kernel - plain| = {err}")
+    check(err == 0, "P1 == plain on the seeded inputs")
+    rec = None
+    for chars in (ENCODE_CHARS, GPT_CHARS):
+        text = enc_text[:chars]
+        cp = code_points(text)
+        n = len(cp)
+        cls = torch.from_numpy(table[cp].astype(np.int8)).to(device)
+        got = pretok_ops.gpt_starts_mask(cls, n)
+        e = max_abs_diff(got, pretok_ops.gpt_starts_mask_plain(cls, n))
+        starts = torch.nonzero(got).flatten().cpu().numpy()
+        check(e == 0, f"P1 == plain on {n} characters")
+        check(np.array_equal(byte_offsets(cp, starts),
+                             pretokenize.gpt_starts_bytes(text.encode())),
+              f"P1's starts == the native scanner's on {n} characters")
+        ms = p1_kernel_ms(cls, n, device)
+        plain_ms = elapsed_ms(
+            lambda: [pretok_ops.gpt_starts_mask_plain(cls, n)
+                     for _ in range(3)], device) / 3
+        per_call = kernel_launches(
+            lambda: pretok_ops.gpt_starts_mask(cls, n), P1_KERNELS) / 3
+        # a class byte in and a mask byte out per character; the six
+        # scans' combines, one per character each (the boolean algebra
+        # around them not counted)
+        b = bound(2 * n, 6 * n)
+        print(f"[pretok] P1 on {n} characters ({len(starts)} starts): "
+              f"kernel {ms:.6f} ms per call (CUDA events, {KERNEL_REPS} "
+              f"calls of its launches alone), {per_call:g} launches per "
+              f"call (torch.profiler), plain {plain_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.8f} ms ({b['bound_by']}), "
+              f"{ms / b['bound_ms']:.1f}x; max |kernel - plain| = {e}; "
+              f"starts == the native scanner's")
+        check(per_call == 3, "P1: three launches per call")
+        if chars == ENCODE_CHARS:
+            rec = dict(max_abs_err=max(err, e), ms=ms, plain_ms=plain_ms,
+                       library_ms=None, **b)
+
+    # the main path: gpt_starts_device on the 4M text
+    text = enc_text[:ENCODE_CHARS]
+    data = text.encode()
+    cp = code_points(text)
+    n = len(cp)
+    reset_counts()
+    starts = pretok_ops.gpt_starts_device(cp)
+    torch.cuda.synchronize(device)
+    launches = pretok_ops.gpt_starts_mask.launches
+    check(launches > 0, "the main path (gpt_starts_device) launched P1")
+    native = pretokenize.gpt_starts_bytes(data)
+    check(np.array_equal(byte_offsets(cp, starts), native),
+          "gpt_starts_device == the native scanner on the 4M text")
+    nbytes = len(data)
+    dev_mbs = best_mbs(lambda: pretok_ops.gpt_starts_device(cp), nbytes)
+    nat_mbs = best_mbs(lambda: pretokenize.gpt_starts_bytes(data), nbytes)
+    host_mbs = best_mbs(lambda: pretok_ops.gpt_starts(cp), nbytes)
+    lookup_ms, cls_np = best_ms(lambda: table[cp].astype(np.int8))
+    up_ms, cls = best_ms(synced(lambda: torch.from_numpy(cls_np).to(device)))
+    mask_ms, mask = best_ms(synced(
+        lambda: pretok_ops.gpt_starts_mask(cls, n)))
+    down_ms, _ = best_ms(
+        lambda: torch.nonzero(mask).flatten().cpu().numpy())
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pretok_ops.gpt_starts_device(cp)     # uncounted: see kernel_launches
+        time.sleep(PROFILE_PAUSE_S)
+        with record_function("measured call"):
+            t0 = time.perf_counter()
+            pretok_ops.gpt_starts_device(cp)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAUSE_S)
+    (region,) = [e for e in prof.events() if e.name == "measured call"
+                 and e.device_type == DeviceType.CPU]
+    # the device events of the measured call, without the region's own
+    # annotation on the device's timeline
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.name != "measured call"
+                  and e.time_range.start >= region.time_range.start]
+    traced = sum(any(k in e.name for k in P1_KERNELS) for e in dev_events)
+    print(f"[pretok] main path gpt_starts_device on {nbytes} bytes "
+          f"({n} characters, {len(starts)} starts): {launches} P1 launches; "
+          f"{dev_mbs:.3f} MB/s (best of 3), the native scanner "
+          f"(gpt_starts_bytes) {nat_mbs:.3f} MB/s, the numpy splitter "
+          f"(gpt_starts) {host_mbs:.3f} MB/s on the same bytes; device busy "
+          f"{busy_us(dev_events) / wall_us:.4f} of a call")
+    print(f"[pretok] gpt_starts_device layers (ms, best of 3): host class "
+          f"lookup {lookup_ms:.3f}, upload {up_ms:.3f}, mask call "
+          f"(gpt_starts_mask, synchronised) {mask_ms:.3f}, torch.nonzero and "
+          f"download {down_ms:.3f}")
+    check(traced == 3, f"the profiler saw P1's three launches in one "
+          f"gpt_starts_device call, not {traced}")
+    return rec, launches
+
+
+# ---------------------------------------------------------------------
+# phase 17
+# ---------------------------------------------------------------------
+
+CLI_TIMEOUT = 600
+K1_KERNEL = "hist_train_kernel"          # csrc/hist_fused.cu
+
+
+def cli_run(args: list[str], env=None) -> tuple[float, str]:
+    """Run ``python -m shredword_tpu_torch <args>`` from the checkout:
+    (wall-clock s, stdout).  A non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "shredword_tpu_torch", *args],
+                       capture_output=True, text=True, timeout=CLI_TIMEOUT,
+                       cwd=ROOT, env=env)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0, f"CLI {args[:2]} exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    return secs, r.stdout
+
+
+def wall_s(code: str) -> tuple[float, str]:
+    """(wall-clock s, stdout) of ``python -c code`` from the checkout."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=CLI_TIMEOUT, cwd=ROOT)
+    check(r.returncode == 0, f"python -c failed: {r.stderr[-2000:]}")
+    return time.perf_counter() - t0, r.stdout
+
+
+def trace_kernels(trace_dir: str, name: str) -> int:
+    """Kernel events named `name` in the one Chrome trace under
+    trace_dir (utils/profiling.trace)."""
+    (path,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, path)) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def running(pid: int) -> bool:
+    """Whether process `pid` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def stop_daemon(sock: str) -> None:
+    """Stop the daemon on `sock`: its own stop, then, if the pid its log
+    names still runs after 30 s, a kill."""
+    import signal
+
+    subprocess.run([sys.executable, "-m", "shredword_tpu_torch", "daemon",
+                    "stop", "--socket", sock], capture_output=True,
+                   timeout=CLI_TIMEOUT, cwd=ROOT)
+    if not os.path.exists(sock + ".log"):
+        return
+    with open(sock + ".log") as f:
+        pids = [int(w.rstrip(")")) for line in f
+                for w0, w in zip(line.split(), line.split()[1:])
+                if w0 == "(pid"]
+    for pid in pids:
+        deadline = time.monotonic() + 30
+        while running(pid) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        if running(pid):
+            os.kill(pid, signal.SIGKILL)
+            print(f"[cli] daemon {pid} still ran 30 s after its stop: "
+                  f"killed")
+
+
+def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
+              device) -> None:
+    """python -m shredword_tpu_torch in subprocesses on the card."""
+    from shredword_tpu_torch import Tokenizer, UnigramTrainer
+
+    d = os.path.join(out_dir, "cli")
+    os.makedirs(d)
+
+    def train_args(tag):
+        return ["train", "--corpus", corpus, "--model",
+                os.path.join(d, tag + ".model"), "--vocab-size", "768",
+                "--min-pair-freq", "50", "--coverage", "0.9999",
+                "--unk-id", "-1"]
+
+    def check_golden(tag, out):
+        with open(os.path.join(d, tag + ".model"), "rb") as f, \
+                open(os.path.join(d, tag + ".vocab"), "rb") as g:
+            model, vocab = f.read(), g.read()
+        check(hashlib.sha256(model).hexdigest() == golden["model_sha256"]
+              and hashlib.sha256(vocab).hexdigest() == golden["vocab_sha256"]
+              and out.startswith(f"trained {golden['merges']} merges"),
+              f"CLI train ({tag}) == the JAX golden digest")
+
+    torch.cuda.empty_cache()
+    python_s, _ = wall_s("pass")
+    torch_s, _ = wall_s("import torch")
+    _, split = wall_s(
+        "import time, torch\n"
+        "t0 = time.perf_counter(); torch.zeros(1, device='cuda')\n"
+        "t1 = time.perf_counter()\n"
+        "from shredword_tpu_torch.ops import _kernels; _kernels.lib()\n"
+        "t2 = time.perf_counter()\n"
+        "from shredword_tpu_torch.runtime import native; native.lib()\n"
+        "print(t1 - t0, t2 - t1, time.perf_counter() - t2)")
+    ctx_s, klib_s, hlib_s = map(float, split.split())
+    cold_s, out = cli_run(train_args("cold"))
+    check_golden("cold", out)
+    info_s, info = cli_run(["info", os.path.join(d, "cold.model")])
+    check(f"merges:   {golden['merges']}" in info, "CLI info")
+    trace_dir = os.path.join(d, "trace")
+    traced_s, out = cli_run(train_args("traced"),
+                            env=dict(os.environ, SHREDWORD_TRACE=trace_dir))
+    check_golden("traced", out)
+    k1 = trace_kernels(trace_dir, K1_KERNEL)
+    check(k1 > 0, "CLI train launched K1 (hist_fused.cu)")
+    print(f"[cli] wall s: python alone {python_s:.3f}, import torch "
+          f"{torch_s:.3f}, info (the package's import) {info_s:.3f}; in a "
+          f"fresh process the CUDA context {ctx_s:.3f}, the kernel library "
+          f"(cached build) {klib_s:.3f}, the host library {hlib_s:.3f}")
+    print(f"[cli] train vocab 768 on the 16 MB corpus, fresh process: "
+          f"{cold_s:.3f} s; under SHREDWORD_TRACE {traced_s:.3f} s, "
+          f"{k1} {K1_KERNEL} launches in its trace; .model/.vocab == the "
+          f"JAX golden digest")
+
+    sock = os.path.join(d, "d.sock")
+    env_d = dict(os.environ, SHREDWORD_TORCH_DAEMON="1",
+                 SHREDWORD_TORCH_DAEMON_SOCKET=sock)
+    try:
+        first_s, out = cli_run(train_args("daemon1"), env=env_d)
+        check_golden("daemon1", out)
+        warm = []
+        for i in range(2):
+            secs, out = cli_run(train_args(f"daemon{i + 2}"), env=env_d)
+            check_golden(f"daemon{i + 2}", out)
+            warm.append(secs)
+        _, status = cli_run(["daemon", "status", "--socket", sock])
+        check(status.strip() == "daemon running", "the daemon still runs")
+    finally:
+        stop_daemon(sock)
+    print(f"[cli] train through the daemon (SHREDWORD_TORCH_DAEMON=1): "
+          f"first call (starts it) {first_s:.3f} s, warm calls "
+          + ", ".join(f"{s:.3f}" for s in warm) + " s; == golden")
+
+    text = enc_text[:UNI_ENCODE_CHARS]
+    src, ids_path, back = (os.path.join(d, f) for f in
+                           ("text.txt", "ids.txt", "back.txt"))
+    with open(src, "w", encoding="utf-8") as f:
+        f.write(text)
+    model = os.path.join(d, "cold.model")
+    enc_s, _ = cli_run(["encode", "--model", model, "--input", src,
+                        "--output", ids_path])
+    with open(ids_path) as f:
+        ids = [int(x) for x in f.read().split()]
+    want = Tokenizer.load(model, device=device).encode(
+        text, allowed_special="all")
+    check(ids == want, "CLI encode == the Tokenizer's ids on the card")
+    dec_s, _ = cli_run(["decode", "--model", model, "--input", ids_path,
+                        "--output", back])
+    with open(back, encoding="utf-8") as f:
+        check(f.read() == text, "CLI decode round-trips")
+    uni = os.path.join(d, "u.model")
+    uni_s, out = cli_run(["train-unigram", "--corpus", corpus, "--model",
+                          uni, "--vocab-size", "1024", "--seed-size",
+                          "10000"])
+    check(UnigramTrainer.load_model(uni)[0] == uni_pieces,
+          "CLI train-unigram == phase 14's 1,024 pieces")
+    print(f"[cli] encode {len(text)} characters -> {len(ids)} ids "
+          f"{enc_s:.3f} s (== the Tokenizer's ids), decode {dec_s:.3f} s "
+          f"(round trip), train-unigram 1024 pieces {uni_s:.3f} s (== "
+          f"phase 14's pieces); fresh process each")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2512,11 +2895,14 @@ def main() -> int:
         phase_encode_vs_plain(device, enc_text.encode(), merges)
         encode = {v: phase_encode_main(device, enc_text, m, v)
                   for v, m in merges.items()}
+        pretok, launches["gpt_starts"] = phase_pretok(device, enc_text)
         phase_uni_vs_plain(device)
         unigram = phase_uni_slabs(device, corpus)
         uni_launches = phase_uni_main(device, corpus,
                                       enc_text[:UNI_ENCODE_CHARS], tmp)
-        phase_uni_sharded(device, corpus, phase_uni_1024(device, corpus))
+        uni_card = phase_uni_1024(device, corpus)
+        phase_uni_sharded(device, corpus, uni_card)
+        phase_cli(corpus, tmp, golden, enc_text, uni_card.pieces, device)
         # phase 15: the row-sharded giant engine (G1) and sharded flat
         multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
                              rank=0)
@@ -2551,6 +2937,10 @@ def main() -> int:
                      replaces=TPU_KERNEL[f"unigram_{k}"],
                      launches=uni_launches[k], **unigram[k])
                 for k in ("fb", "viterbi")]
+    kernels.append(dict(name="gpt_starts", route="cuda",
+                        source=src + "pretok.cu",
+                        replaces=TPU_KERNEL["gpt_starts"],
+                        launches=launches["gpt_starts"], **pretok))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

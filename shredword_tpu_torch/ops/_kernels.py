@@ -14,7 +14,8 @@ The wrappers of the BPE training kernels (K1-K5 and the row-sharded
 giant step G1) live here; the encoder's
 (``csrc/encode.cu``) is ``encode_ops.encode_core`` and the Unigram
 lattice kernels' (``csrc/unigram.cu``) are ``unigram_ops.fb_core`` and
-``unigram_ops.viterbi_core``, each beside its plain versions.
+``unigram_ops.viterbi_core``, and the GPT splitter's (``csrc/pretok.cu``)
+is ``pretok_ops.gpt_starts_mask``, each beside its plain versions.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu", "encode.cu",
-           "unigram.cu", "giant_sharded.cu"]
+           "unigram.cu", "giant_sharded.cu", "pretok.cu"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # the persistent kernels read data that other blocks of the same launch
@@ -136,6 +137,8 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_giant_sharded_apply_pick.restype = i
     L.shred_giant_sharded_merge.argtypes = [p] * 6 + [i] * 9 + [p]
     L.shred_giant_sharded_merge.restype = i
+    L.shred_gpt_starts_mask.argtypes = [p, i, p, p, p, p]
+    L.shred_gpt_starts_mask.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
     return L

@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 from torch_encode_cases import FHUS, random_chunks, random_merges
+from torch_pretok_cases import all_inputs, code_points
 from torch_unigram_cases import LATTICES, random_lattice
 
 from shredword_tpu_torch import (BPETrainer, Tokenizer, UnigramTokenizer,
                                  UnigramTrainer)
 from shredword_tpu_torch.ops import (_kernels, bpe_giant, bpe_hist,
-                                     encode_ops, unigram_ops)
+                                     encode_ops, pretok_ops, unigram_ops)
 
 
 def _corpus(seed, n_words=400, alpha=6, max_len=12, unk=None,
@@ -551,3 +552,29 @@ def test_unigram_trainer_on_cuda_matches_cpu(cuda, tmp_path):
                                          device=d).encode_array(text)
            for d in ("cpu", cuda)}
     np.testing.assert_array_equal(*ids.values())
+
+
+# ---------------------------------------------------------------------
+# the GPT splitter (csrc/pretok.cu)
+# ---------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_gpt_splitter_kernel_matches_plain(cuda):
+    """P1's mask equals its plain version's on the splitter's seeded
+    inputs (cases, fuzz strings, long runs across tiles), three launches
+    a call, and the device splitter's starts equal the host splitter's."""
+    table = pretok_ops.class_table()
+    for s in all_inputs():
+        cp = code_points(s)
+        cls = torch.from_numpy(table[cp].astype(np.int8))
+        padded = torch.cat([cls, torch.full((5,), 16, dtype=torch.int8)])
+        n0 = pretok_ops.gpt_starts_mask.launches
+        got = pretok_ops.gpt_starts_mask(padded.to(cuda), len(cp))
+        assert pretok_ops.gpt_starts_mask.launches - n0 == 3
+        want = pretok_ops.gpt_starts_mask_plain(padded, len(cp))
+        assert torch.equal(got.cpu(), want), repr(s[:40])
+        np.testing.assert_array_equal(
+            pretok_ops.gpt_starts_device(cp, device=cuda),
+            pretok_ops.gpt_starts(cp))
+    empty = torch.full((4,), 16, dtype=torch.int8, device=cuda)
+    assert not pretok_ops.gpt_starts_mask(empty, 0).any()

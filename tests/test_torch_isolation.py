@@ -1,11 +1,13 @@
 """The port stands alone: it imports neither JAX nor the JAX package nor
 the JAX bench, at run time (a subprocess that blocks them trains every
 engine, checkpoints, resumes and saves, encodes, decodes, saves and
-loads a Tokenizer, trains, saves, loads and encodes Unigram, and trains
-the sharded giant and flat engines on one gloo rank) and in
-its sources (an AST scan of the package and of
-chip_smoke.py); and its own copy of the native corpus loader gives the
-JAX package's arrays."""
+loads a Tokenizer, trains, saves, loads and encodes Unigram, trains
+the sharded giant and flat engines on one gloo rank, runs
+``python -m shredword_tpu_torch`` train/encode/decode/info and the
+device splitter on the CPU) and in its sources (an AST scan of the
+package and of chip_smoke.py); its own copy of the native corpus loader
+gives the JAX package's arrays; and its profiling hooks work on the
+CPU."""
 
 import ast
 import os
@@ -109,6 +111,39 @@ def test_runs_with_jax_and_the_jax_package_blocked(tmp_path):
             assert got[0] == got[1]
         dist.destroy_process_group()
 
+        import contextlib
+        import io
+        import runpy
+
+        def cli(*argv):
+            sys.argv = ["shredword_tpu_torch", *argv]
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runpy.run_module("shredword_tpu_torch",
+                                     run_name="__main__", alter_sys=True)
+            except SystemExit as e:
+                assert e.code == 0, (argv, e.code)
+
+        with open(f"{{out}}/text.txt", "w") as f:
+            f.write(text)
+        cli("train", "--corpus", f"{{out}}/uni.txt", "--model",
+            f"{{out}}/cli.model", "--vocab-size", "300", "--min-pair-freq",
+            "2", "--device", "cpu")
+        assert open(f"{{out}}/cli.model", "rb").read() == saved["hist"]
+        cli("encode", "--model", f"{{out}}/cli.model", "--input",
+            f"{{out}}/text.txt", "--output", f"{{out}}/ids.txt",
+            "--device", "cpu")
+        cli("decode", "--model", f"{{out}}/cli.model", "--input",
+            f"{{out}}/ids.txt", "--output", f"{{out}}/back.txt")
+        assert open(f"{{out}}/back.txt").read() == text
+        cli("info", f"{{out}}/cli.model")
+
+        import numpy as np
+        from shredword_tpu_torch.ops import pretok_ops
+        cp = np.frombuffer(text.encode("utf-32-le"), np.uint32)
+        assert (pretok_ops.gpt_starts_device(cp, device="cpu")
+                == pretok_ops.gpt_starts(cp)).all()
+
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -174,3 +209,48 @@ def test_native_loader_matches_jax_package(zipf_corpus_file):
 
     assert os.path.basename(build.lib_path()).startswith("libshred_host-")
     assert build.lib_path() != jax_build.lib_path()
+
+
+def test_profiling_trace_and_phase_report(tmp_path, monkeypatch):
+    """trace() writes one Chrome trace under the directory given (or
+    $SHREDWORD_TRACE) with the annotated region in it, nothing without
+    one; phase_report() reads the Timers' totals."""
+    import json
+
+    import torch
+
+    from shredword_tpu_torch.utils import logging as log
+    from shredword_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path / "a")) as prof:
+        with profiling.annotate("shred_region"):
+            torch.ones(64).cumsum(0)
+    assert prof is not None
+    (path,) = (tmp_path / "a").iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("name") == "shred_region" for e in events)
+    monkeypatch.delenv("SHREDWORD_TRACE", raising=False)
+    with profiling.trace() as prof:
+        assert prof is None
+    monkeypatch.setenv("SHREDWORD_TRACE", str(tmp_path / "env"))
+    with profiling.trace():
+        pass
+    assert len(list((tmp_path / "env").iterdir())) == 1
+
+    with log.Timer("torch_profiling_test", nbytes=2_000_000, log=False):
+        pass
+    rep = profiling.phase_report()["torch_profiling_test"]
+    assert rep["bytes"] == 2_000_000 and rep["seconds"] >= 0
+    assert set(rep) == {"seconds", "bytes", "mb_s"}
+
+
+def test_cli_run_writes_a_trace(tmp_path, monkeypatch, capsys):
+    """SHREDWORD_TRACE traces a whole CLI command."""
+    from shredword_tpu_torch.cli import main
+
+    model = tmp_path / "m.model"
+    model.write_bytes(np.array([[104, 105, 256]], "<i4").tobytes())
+    monkeypatch.setenv("SHREDWORD_TRACE", str(tmp_path / "t"))
+    assert main(["info", str(model)]) == 0
+    assert "merges:   1" in capsys.readouterr().out
+    assert len(list((tmp_path / "t").iterdir())) == 1
