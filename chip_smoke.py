@@ -114,30 +114,37 @@ Phases (any failure exits non-zero, and no result line is printed):
      relative of that prune's cutoff, printed); UnigramTrainer(mesh=...)
      over NCCL world 1 == the single-device pieces
  15. the row-sharded giant engine (parallel/giant.py) and sharded flat
-     (parallel/train.py): G1 (csrc/giant_sharded.cu, giant_sharded_train:
-     per merge an apply-and-pick launch, an all_reduce(MAX) of the pick
-     key, a merge launch and an all_reduce of dl | dr) against its plain
-     version on the card, call by call with a call past the end, over a
-     world-size-1 NCCL group: seeded random corpora at vocab 5120 and
-     8192 (an unk byte, 'aaaa' runs, a min_pair_freq stop) and the
-     int16-crossing resume of tests/test_giant_64k_envelope.py (merges
-     32510-32524, ids past 32767), then in 2 gloo ranks on cuda:0 at
-     vocab 1024 (each on its row shard and column block; merges == the
-     single-device hist engine): records, tokens, the row shard and the
-     bounds identical; then the first 128 merges on the bench layout at
-     vocab 32768: device ms per merge (enqueued behind a spin kernel),
-     whole-loop ms per merge, launches per call, the plain version's,
-     and the bound from what the merges move (counted in a rerun); then
-     the main path BPETrainer(vocab, min_pair_freq 2, coverage 1.0,
-     backend "cuda", mesh=<NCCL world 1>) load_corpus -> train -> save
-     at 32768 (bytes == phase 6's single-device giant output) and 65536
-     (bytes == the single-device flat engine's on the card, its first
-     32512 merges == the 32768 run's): train() s, ms per merge, peak
-     memory, merges done; the 32768 run again under torch.profiler (G1
-     launches == the wrapper's count, busy share); the sharded flat
-     engine forced at the headline (bytes == the JAX golden digest, ms
-     per merge); BPETrainer(shards=2) as 2 gloo ranks on cuda:0 at vocab
-     4608, min_pair_freq 50: bytes == the single-device giant engine's
+     (parallel/train.py): G1 (csrc/giant_sharded.cu, giant_sharded_train,
+     on each rank's chunked layout with its presence index) against its
+     plain version on the card, call by call with a call past the end,
+     in both forms -- alone (no reduce: one persistent launch a call, as
+     sharded training runs at world 1) and the chain over a world-size-1
+     NCCL group (per merge an apply-and-pick launch, an all_reduce(MAX)
+     of the pick key, a merge launch and an all_reduce of dl | dr):
+     seeded random corpora at vocab 5120 and 8192 (an unk byte, 'aaaa'
+     runs, a min_pair_freq stop) and the int16-crossing resume of
+     tests/test_giant_64k_envelope.py (merges 32510-32524, ids past
+     32767), then the chain in 2 gloo ranks on cuda:0 at vocab 1024 (each
+     on its row shard and column block; merges == the single-device hist
+     engine): records, tokens, the row shard, the bounds and the presence
+     identical; then the first 128 merges on the bench layout at vocab
+     32768 in each form: device ms per merge (enqueued behind a spin
+     kernel), whole-loop ms per merge, launches per call, the plain
+     version's, the mean chunks read per merge, the bound from what the
+     merges move and the bound of the bytes the pass reads (counted in a
+     rerun), and the chain's host enqueue and its two kernels' device µs
+     under torch.profiler; then the main path
+     BPETrainer(vocab, min_pair_freq 2, coverage 1.0, backend "cuda",
+     mesh=<NCCL world 1>) load_corpus -> train -> save at 32768 (bytes ==
+     phase 6's single-device giant output) and 65536 (bytes == the
+     single-device flat engine's on the card, its first 32512 merges ==
+     the 32768 run's): train() s, ms per merge, peak memory, merges done,
+     one G1 launch per call; both runs again under torch.profiler (G1
+     launches == the wrapper's count, busy share) and split into layers
+     on the host clock; the sharded flat engine forced at the headline
+     (bytes == the JAX golden digest, ms per merge); BPETrainer(shards=2)
+     as 2 gloo ranks on cuda:0 at vocab 4608, min_pair_freq 50: bytes ==
+     the single-device giant engine's
  16. (runs after phase 13) the GPT splitter: P1 (csrc/pretok.cu,
      pretok_ops.gpt_starts_mask) against its plain version on the card,
      on the seeded inputs of tests/torch_pretok_cases.py
@@ -1682,7 +1689,10 @@ def uni_kernel_ms(args, *, fb: bool, backtrace: bool = False) -> float:
 PROFILE_PAUSE_S = 0.02
 
 
-def kernel_launches(fn, name, calls: int = 3) -> int:
+PROFILE_TRACES = 3
+
+
+def kernel_launches(fn, name, calls: int = 3, expect: int = 1) -> int:
     """Launches of kernels named `name` (or any name of a tuple) in
     `calls` calls of fn, from torch.profiler, after one untraced warm-up
     call.  The profiler keeps only the device events inside its
@@ -1693,30 +1703,42 @@ def kernel_launches(fn, name, calls: int = 3) -> int:
     starts with one uncounted call; the counted calls follow in a
     record_function region, each after a host pause with the device
     idle; only device events from the region's start on count, and the
-    trace stops a pause after the last call has finished."""
+    trace stops a pause after the last call has finished.  It has also
+    missed every counted call of a trace (U1 on one E-step slab, one run
+    in several): a trace that counts other than `expect` launches per
+    call is printed and taken again, up to PROFILE_TRACES traces, and
+    the last count is returned, so a kernel that launches otherwise
+    differs in every trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     names = (name,) if isinstance(name, str) else name
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        with record_function("counted calls"):
-            for _ in range(calls):
-                time.sleep(PROFILE_PAUSE_S)
-                fn()
-                torch.cuda.synchronize()
-        time.sleep(PROFILE_PAUSE_S)
-    events = prof.events()
-    (region,) = [e for e in events if e.name == "counted calls"
-                 and e.device_type == DeviceType.CPU]
-    return sum(1 for e in events
-               if e.device_type == DeviceType.CUDA
-               and e.time_range.start >= region.time_range.start
-               and any(k in e.name for k in names))
+    for trace in range(PROFILE_TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function("counted calls"):
+                for _ in range(calls):
+                    time.sleep(PROFILE_PAUSE_S)
+                    fn()
+                    torch.cuda.synchronize()
+            time.sleep(PROFILE_PAUSE_S)
+        events = prof.events()
+        (region,) = [e for e in events if e.name == "counted calls"
+                     and e.device_type == DeviceType.CPU]
+        n = sum(1 for e in events
+                if e.device_type == DeviceType.CUDA
+                and e.time_range.start >= region.time_range.start
+                and any(k in e.name for k in names))
+        if n == expect * calls:
+            break
+        print(f"[profiler] trace {trace + 1} of {PROFILE_TRACES} counted "
+              f"{n} launches of {'/'.join(names)} in {calls} calls, not "
+              f"{expect * calls}")
+    return n
 
 
 def uni_slab(tag: str, args, *, fb: bool) -> dict:
@@ -2002,7 +2024,12 @@ def phase_uni_sharded(device, corpus, card) -> None:
 
 SHARDED_VOCAB = 65536       # the row-sharded giant engine's largest vocab
 RANKS_VOCAB = 4608          # 2 gloo ranks: just past the hist engine
-G1_SPIN_CYCLES = 240_000_000   # ~120 ms: 257 launches, 256 collectives
+G1_SPIN_CYCLES = 240_000_000   # ~120 ms: the chain's 257 launches and 256
+                               # collectives
+# G1's two forms: a rank alone (no reduce: one persistent launch a call,
+# as sharded training runs at world 1) and the chain (the reduces over the
+# process group: two launches and two collectives a merge)
+G1_FORMS = ("alone", "chain")
 
 
 def group_reduces() -> dict:
@@ -2013,54 +2040,66 @@ def group_reduces() -> dict:
         k, op=dist.ReduceOp.MAX), reduce_deltas=dist.all_reduce)
 
 
-def g1_layout(tokens, word_id, wc_word):
-    from shredword_tpu_torch.ops import bpe_hist
+def g1_reduces(form: str) -> dict:
+    return {} if form == "alone" else group_reduces()
 
-    return bpe_hist.build_layout(tokens, word_id, wc_word, 64,
-                                 dtype=np.int32)
+
+def g1_layout(tokens, word_id, wc_word, v, rank=0, world=1):
+    """Rank `rank`'s chunked layout of the corpus over `world` ranks, as
+    sharded_giant_train lays it out (parallel/giant.rank_layout)."""
+    from shredword_tpu_torch.parallel import giant as par_giant
+    from shredword_tpu_torch.parallel import hist as par_hist
+
+    c = par_hist.shard_layout(tokens, word_id, wc_word, world,
+                              dtype=np.int32)
+    return par_giant.rank_layout(par_hist.local_shard(c, rank, world), v)
+
+
+def g1_nc_used(layout) -> int:
+    cw = layout.tw.shape[1] // layout.presT.shape[1]
+    return max(1, -(-layout.n_words // cw))
 
 
 def g1_state(layout, v, unk, device, base=0, rows=None,
              group=None) -> list[torch.Tensor]:
-    """[tw int32, wc, hist rows [base, base + rows), bounds] of one rank
-    on the columns of `layout`."""
+    """[tw int32, wc, hist rows [base, base + rows), bounds, presT] of one
+    rank on its chunked `layout`."""
     from shredword_tpu_torch.parallel import giant as par_giant
 
     tw = torch.tensor(layout.tw, device=device)
-    wc = torch.tensor(layout.wcount.reshape(-1), device=device)
+    wc = torch.tensor(layout.wc.reshape(-1), device=device)
     return [tw, wc, *par_giant.init_row_shard(tw, wc, unk, v, base,
-                                              rows or v, group)]
+                                              rows or v, group),
+            torch.tensor(layout.presT, device=device)]
 
 
-def run_g1_both(layout, v, device, *, unk, base=0, rows=None, group=None,
-                outs=None, **kw):
-    """run_both for G1 and its plain version, both reducing over the
-    initialized default process group; the kernel's records go to
-    `outs`."""
+def run_g1_both(layout, v, device, *, form, unk, base=0, rows=None,
+                group=None, outs=None, **kw):
+    """run_both for G1 and its plain version in `form` (the chain reduces
+    over the initialized default process group); the kernel's records go
+    to `outs`."""
     from shredword_tpu_torch.ops import _kernels
 
-    red = group_reduces()
+    red = dict(g1_reduces(form), base=base, nc_used=g1_nc_used(layout))
 
     def kernel(*st, **ckw):
-        recs = _kernels.giant_sharded_train(*st, base=base, **red, **ckw)
+        recs = _kernels.giant_sharded_train(*st, **red, **ckw)
         if outs is not None:
             outs.append(recs)
         return recs
 
     return run_both(
         kernel, lambda *st, **ckw: _kernels.giant_sharded_train_plain(
-            *st, base=base, **red, **ckw),
+            *st, **red, **ckw),
         lambda: g1_state(layout, v, unk, device, base, rows, group),
         device, unk=unk, **kw)
 
 
 def g1_gloo_rank(rank, world, store, v, result, dev):
-    """One gloo rank of G1 against its plain version on its row shard
-    and column block (spawned); writes the error, the merges and the
-    kernel's records."""
+    """One gloo rank of G1's chain against its plain version on its row
+    shard and chunked column block (spawned); writes the error, the
+    merges and the kernel's records."""
     import torch.distributed as dist
-
-    from shredword_tpu_torch.parallel import hist as par_hist
 
     device = torch.device(dev)
     if device.type == "cuda":
@@ -2068,15 +2107,14 @@ def g1_gloo_rank(rank, world, store, v, result, dev):
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        tokens, word_id, wc_word = random_corpus(v + 5, 20000, 122)
-        c = par_hist.shard_layout(tokens, word_id, wc_word, world,
-                                  dtype=np.int32)
+        layout = g1_layout(*random_corpus(v + 5, 20000, 122), v, rank,
+                           world)
         rows = v // world
         outs = []
         err, _, _, n = run_g1_both(
-            par_hist.local_shard(c, rank, world), v, device, unk=122,
-            base=rank * rows, rows=rows, group=dist.group.WORLD,
-            outs=outs, min_freq=2, merges=700, steps=96)
+            layout, v, device, form="chain", unk=122, base=rank * rows,
+            rows=rows, group=dist.group.WORLD, outs=outs, min_freq=2,
+            merges=700, steps=96)
     finally:
         dist.destroy_process_group()
     recs = torch.cat(outs).cpu().numpy()
@@ -2086,44 +2124,48 @@ def g1_gloo_rank(rank, world, store, v, result, dev):
 
 def phase_g1_vs_plain(device, out_dir) -> int:
     """G1 against its plain version on the card, call by call with a call
-    past the end, over the world-size-1 NCCL group: seeded random corpora
-    at vocab 5120 and 8192 (an unk byte, 'aaaa' runs, a min_pair_freq
-    stop), and the int16-crossing resume of the 64k envelope; then 2
-    gloo ranks on the card, each on its shard.  Returns the largest
-    difference."""
-    from shredword_tpu_torch.ops import bpe_hist
-
-    worst = 0
-    for v, min_freq, merges, steps in ((5120, 2, 700, 128),
-                                       (8192, 2, 900, 256),
-                                       (5120, 20000, 700, 64)):
-        unk = 122                                       # the byte 'z'
-        layout = g1_layout(*random_corpus(v + 3, 30000, unk))
-        err, _, _, n = run_g1_both(layout, v, device, unk=unk,
-                                   min_freq=min_freq, merges=merges,
-                                   steps=steps)
-        print(f"[g1] random corpus v={v} min_freq={min_freq}: {n} merges "
-              f"in calls of {steps}, max |kernel - plain| = {err}")
-        check(err == 0 and (n == merges) == (min_freq == 2) and n > 0,
-              f"G1 == plain at v={v} min_freq={min_freq}")
-        worst = max(worst, err)
+    past the end, in both forms (alone; the chain over the world-size-1
+    NCCL group): seeded random corpora at vocab 5120 and 8192 (an unk
+    byte, 'aaaa' runs, a min_pair_freq stop), and the int16-crossing
+    resume of the 64k envelope; then the chain in 2 gloo ranks on the
+    card, each on its shard.  Returns the largest difference."""
     from torch_dist_workers import (ENVELOPE_N_PREV, ENVELOPE_TARGET,
                                     envelope_corpus)
 
-    v = -(-(256 + ENVELOPE_TARGET) // 128) * 128
-    outs = []
-    tokens, word_id, counts, _ = envelope_corpus()
-    err, _, _, n = run_g1_both(g1_layout(tokens, word_id, counts), v,
-                               device, unk=-1, min_freq=2, merges=14,
-                               steps=5, start=ENVELOPE_N_PREV, outs=outs)
-    recs = torch.cat(outs).cpu()
-    print(f"[g1] int16-crossing resume, v={v}, merges {ENVELOPE_N_PREV}-"
-          f"{ENVELOPE_N_PREV + n}: largest id merged "
-          f"{int(recs[recs[:, 3] == 1, :2].max())}, max |kernel - plain| "
-          f"= {err}")
-    check(err == 0 and n == 14 and bool((recs[:, :2] > 32767).any()),
-          "G1 == plain across the int16 boundary")
-    worst = max(worst, err)
+    from shredword_tpu_torch.ops import bpe_hist
+
+    worst = 0
+    for form in G1_FORMS:
+        for v, min_freq, merges, steps in ((5120, 2, 700, 128),
+                                           (8192, 2, 900, 256),
+                                           (5120, 20000, 700, 64)):
+            unk = 122                                   # the byte 'z'
+            layout = g1_layout(*random_corpus(v + 3, 30000, unk), v)
+            err, _, _, n = run_g1_both(layout, v, device, form=form, unk=unk,
+                                       min_freq=min_freq, merges=merges,
+                                       steps=steps)
+            print(f"[g1] {form}: random corpus v={v} min_freq={min_freq}: "
+                  f"{n} merges in calls of {steps} over "
+                  f"{layout.presT.shape[1]} chunks, max |kernel - plain| = "
+                  f"{err}")
+            check(err == 0 and (n == merges) == (min_freq == 2) and n > 0,
+                  f"G1 {form} == plain at v={v} min_freq={min_freq}")
+            worst = max(worst, err)
+        v = -(-(256 + ENVELOPE_TARGET) // 128) * 128
+        outs = []
+        tokens, word_id, counts, _ = envelope_corpus()
+        err, _, _, n = run_g1_both(g1_layout(tokens, word_id, counts, v), v,
+                                   device, form=form, unk=-1, min_freq=2,
+                                   merges=14, steps=5, start=ENVELOPE_N_PREV,
+                                   outs=outs)
+        recs = torch.cat(outs).cpu()
+        print(f"[g1] {form}: int16-crossing resume, v={v}, merges "
+              f"{ENVELOPE_N_PREV}-{ENVELOPE_N_PREV + n}: largest id merged "
+              f"{int(recs[recs[:, 3] == 1, :2].max())}, max |kernel - "
+              f"plain| = {err}")
+        check(err == 0 and n == 14 and bool((recs[:, :2] > 32767).any()),
+              f"G1 {form} == plain across the int16 boundary")
+        worst = max(worst, err)
     v, world = 1024, 2
     ctx = multiprocessing.get_context("spawn")
     store = os.path.join(out_dir, "store_g1")
@@ -2154,8 +2196,8 @@ def phase_g1_vs_plain(device, out_dir) -> int:
     for r, res in enumerate(ranks):
         recs = np.asarray(res["records"])
         did = recs[:, 3] == 1
-        print(f"[g1] gloo rank {r}/{world} on {device}, v={v}: {res['n']} "
-              f"merges, max |kernel - plain| = {res['err']}")
+        print(f"[g1] chain: gloo rank {r}/{world} on {device}, v={v}: "
+              f"{res['n']} merges, max |kernel - plain| = {res['err']}")
         check(res["err"] == 0 and res["n"] == 700
               and np.array_equal(recs[did, :2], hm)
               and np.array_equal(recs[did, 2], hf),
@@ -2164,109 +2206,166 @@ def phase_g1_vs_plain(device, out_dir) -> int:
     return worst
 
 
-def g1_cost(layout, v, device, merges: int) -> dict:
-    """bound() per merge of G1's first `merges` merges on `layout` at
-    vocab v, from what they must move on this run's data, counted as
-    giant_cost counts K3's: once per call, the used columns' tokens in
+def g1_cost(layout, v, device, merges: int) -> tuple[dict, float, dict]:
+    """What G1's first `merges` merges on `layout` at vocab v move on this
+    run's data, counted in a rerun of one merge per call (the alone
+    form), what changed found by comparing the state before and after:
+    (bound() per merge, the mean chunks read per merge, bound() per merge
+    of the bytes that the corpus pass actually reads).  The bound counts
+    as giant_cost counts K3's: once per call, the used chunks' tokens in
     and out (int32) and their weights, and the live bounds in and out;
     per merge, the tokens of the columns that hold the pair in and out
     and their weight, the pick's row reads (n_refresh rows of live
-    columns), every table cell that changes (read and written), the key
-    and the record.  A compare per matched token, and per live bound and
-    cell read for each row read.  Counted in a rerun of one merge per
-    call; what changed is found by comparing the state before and
-    after."""
+    columns), the presence of a and b over the used chunks, every table
+    cell and presence byte that changes (read and written), the key and
+    the record.  The bytes read take, for the columns, every column of
+    the flagged chunks in (tokens and weight) and the merged ones out.
+    A compare per matched token, and per live bound and cell read for
+    each row read."""
     from shredword_tpu_torch.ops import _kernels
 
     st = g1_state(layout, v, -1, device)
-    tw, hist = st[0], st[2]
+    tw, hist, presT = st[0], st[2], st[4]
     L = tw.shape[0]
-    used = int((layout.wcount > 0).sum())
-    nbytes = 8 * L * used + 4 * used + 8 * (256 + merges)
-    ops = 0
+    used = g1_nc_used(layout)
+    cw = tw.shape[1] // presT.shape[1]
+    w_used = used * cw
+    hist0, presT0 = hist.clone(), presT.clone()
+    common = 0
+    nbytes = 8 * L * w_used + 4 * w_used + 8 * (256 + merges)
+    read_bytes = 0
+    ops = chunks = 0
     for i in range(merges):
-        tw0, hist0 = tw.clone(), hist.clone()
+        tw0 = tw.clone()
         rec = _kernels.giant_sharded_train(
-            *st, base=0, **group_reduces(), unk=GIANT["unk_id"],
-            min_freq=GIANT["min_pair_freq"], n_done=i, init_done=0,
-            allowed=1, steps=1)[0].tolist()
+            *st, base=0, unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"],
+            n_done=i, init_done=0, allowed=1, nc_used=used,
+            steps=1)[0].tolist()
         check(rec[3] == 1, "G1 merges through the window")
         a, b, lim = rec[0], rec[1], 257 + i
+        flagged = int(((presT0[a, :used] != 0)
+                       & (presT0[b, :used] != 0)).sum())
         matched = int(((tw0[:-1] == a) & (tw0[1:] == b)).any(0).sum())
         cells = int((hist != hist0).sum())
-        nbytes += (matched * (8 * L + 4) + rec[4] * 4 * lim + 8 * cells
+        flags = int((presT != presT0).sum())
+        common += (rec[4] * 4 * lim + 2 * used + 8 * cells + 2 * flags
                    + 8 + 20)
+        nbytes += matched * (8 * L + 4)
+        read_bytes += flagged * cw * (4 * L + 4) + matched * 4 * L
         ops += matched * L + rec[4] * 2 * lim
-        del tw0, hist0
-    return bound(nbytes / merges, ops / merges)
+        chunks += flagged
+        hist0.copy_(hist)
+        presT0.copy_(presT)
+        del tw0
+    return (bound((nbytes + common) / merges, ops / merges),
+            chunks / merges,
+            bound((read_bytes + common) / merges, ops / merges))
 
 
-def phase_g1_timed(device, layout) -> dict:
-    """G1 on the bench corpus's layout at vocab GIANT_VOCAB, world 1, the
-    first TIMED_MERGES merges in one call: against the plain version and
-    timed (the whole loop, host included; the device's time with the
-    call enqueued behind a spin kernel); its launches and its bound.
-    Returns the JSON timing record."""
+def phase_g1_timed(device, arrays) -> dict:
+    """G1 on the bench corpus's chunked layout at vocab GIANT_VOCAB, world
+    1, the first TIMED_MERGES merges in one call, in both forms: against
+    the plain version and timed (the whole loop, host included; the
+    device's time with the call enqueued behind a spin kernel); launches
+    per call, the mean chunks read per merge, the bound and the bound of
+    the bytes the pass reads; the chain's host enqueue with and without
+    its collectives.  Returns the alone form's JSON timing record (the
+    form of sharded training at world 1)."""
     from shredword_tpu_torch.ops import _kernels
 
+    layout = g1_layout(*arrays, GIANT_VOCAB)
     kw = dict(unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"])
-    err, loop_k, ms_p, n = run_g1_both(layout, GIANT_VOCAB, device,
-                                       merges=TIMED_MERGES,
-                                       steps=TIMED_MERGES, **kw)
-    check(err == 0 and n == TIMED_MERGES, "G1 bench layout")
     kernel = _kernels.giant_sharded_train
-    td = Timed(kernel, lead=G1_SPIN_CYCLES)
-    n0 = kernel.launches
-    td(*g1_state(layout, GIANT_VOCAB, kw["unk"], device), base=0,
-       **group_reduces(), n_done=0, init_done=0, allowed=n, steps=n,
-       unk=kw["unk"], min_freq=kw["min_freq"])
-    launches = kernel.launches - n0
-    ms_k, enq = td.ms() / n, td.enqueue_ms[0]
     spin_ms = elapsed_ms(lambda: torch.cuda._sleep(G1_SPIN_CYCLES), device)
-    check(enq < spin_ms, "G1: the spin outlasts the enqueue")
-    check(launches == 2 * n + 1, "G1: 2 launches per merge and one more")
+    n = TIMED_MERGES
+    cost, chunks, read = g1_cost(layout, GIANT_VOCAB, device, n)
+    L, W = layout.tw.shape
+    out = {}
+    for form in G1_FORMS:
+        red = dict(g1_reduces(form), base=0, nc_used=g1_nc_used(layout))
+        err, loop_k, ms_p, n_k = run_g1_both(layout, GIANT_VOCAB, device,
+                                             form=form, merges=n, steps=n,
+                                             **kw)
+        check(err == 0 and n_k == n, f"G1 {form}: bench layout")
+        td = Timed(kernel, lead=G1_SPIN_CYCLES)
+        n0 = kernel.launches
+        td(*g1_state(layout, GIANT_VOCAB, kw["unk"], device), **red,
+           n_done=0, init_done=0, allowed=n, steps=n, **kw)
+        launches = kernel.launches - n0
+        ms_k, enq = td.ms() / n, td.enqueue_ms[0]
+        check(enq < spin_ms, f"G1 {form}: the spin outlasts the enqueue")
+        check(launches == (1 if form == "alone" else 2 * n + 1),
+              f"G1 {form}: launches per call")
+        print(f"[g1] {form}: bench layout {(L, W)} "
+              f"({layout.presT.shape[1]} chunks of "
+              f"{W // layout.presT.shape[1]}, {g1_nc_used(layout)} used) "
+              f"v={GIANT_VOCAB}, world 1: first {n} merges in one call of "
+              f"{launches} launches; device {ms_k:.6f} ms/merge (enqueued "
+              f"in {enq:.3f} ms under a {spin_ms:.3f} ms spin: "
+              f"{enq / n:.6f} ms/merge), whole loop {loop_k / n:.6f} "
+              f"ms/merge, plain {ms_p / n:.4f} ms/merge; mean chunks read "
+              f"{chunks:.3f} per merge; bound {cost['bound_ms']:.8f} ms "
+              f"({cost['bound_by']}, {ms_k / cost['bound_ms']:.1f}x), of "
+              f"the bytes read {read['bound_ms']:.8f} ms ({read['bound_by']}"
+              f", {ms_k / read['bound_ms']:.1f}x); max |kernel - plain| = "
+              f"{err}")
+        out[form] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p / n,
+                         bound_ms=cost["bound_ms"],
+                         bound_by=cost["bound_by"], library_ms=None)
 
-    def enqueue_ms(lead: int, reduces: dict) -> float:
-        """Host ms per merge to enqueue the call from a fresh state,
-        behind a spin of `lead` cycles (0: the device idle), with the
-        group's reduces or none."""
+    def enqueue_ms(lead: int) -> float:
+        """Host ms per merge to enqueue the chain's call from a fresh
+        state, behind a spin of `lead` cycles (0: the device idle)."""
         st = g1_state(layout, GIANT_VOCAB, kw["unk"], device)
         torch.cuda.synchronize(device)
         if lead:
             torch.cuda._sleep(lead)
         t0 = time.perf_counter()
-        kernel(*st, base=0, **reduces, n_done=0, init_done=0, allowed=n,
-               steps=n, **kw)
+        kernel(*st, **group_reduces(), base=0, n_done=0, init_done=0,
+               allowed=n, steps=n, nc_used=g1_nc_used(layout), **kw)
         ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize(device)
         check(ms < spin_ms, "G1: the spin outlasts the enqueue")
         return ms / n
 
-    enq_idle, enq_bare, enq_bare_idle = (
-        enqueue_ms(0, group_reduces()), enqueue_ms(G1_SPIN_CYCLES, {}),
-        enqueue_ms(0, {}))
-    cost = g1_cost(layout, GIANT_VOCAB, device, n)
-    L, W = layout.tw.shape
-    print(f"[g1] bench layout {(L, W)} v={GIANT_VOCAB}, NCCL world 1: first "
-          f"{n} merges in one call of {launches} launches; device "
-          f"{ms_k:.6f} ms/merge (enqueued in {enq:.3f} ms under a "
-          f"{spin_ms:.3f} ms spin: {enq / n:.6f} ms/merge), whole loop "
-          f"{loop_k / n:.6f} ms/merge, plain {ms_p / n:.4f} ms/merge; bound "
-          f"{cost['bound_ms']:.8f} ms ({cost['bound_by']}, "
-          f"{ms_k / cost['bound_ms']:.1f}x); max |kernel - plain| = {err}")
-    print(f"[g1] host enqueue, ms per merge: with both collectives "
-          f"{enq / n:.6f} behind the spin, {enq_idle:.6f} with the device "
-          f"idle; the launches alone (no reduce) {enq_bare:.6f} behind the "
-          f"spin, {enq_bare_idle:.6f} with the device idle")
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p / n,
-                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
-                library_ms=None)
+    print(f"[g1] chain: host enqueue with both collectives, ms per merge: "
+          f"{enqueue_ms(G1_SPIN_CYCLES):.6f} behind the spin, "
+          f"{enqueue_ms(0):.6f} with the device idle")
+    g1_chain_kernels(layout, device, n)
+    return out["alone"]
 
 
-def profile_g1_train(corpus, device, mesh) -> None:
-    """One sharded train() at vocab GIANT_VOCAB under torch.profiler:
-    G1's launches (both kernels) against the wrapper's count, and the
-    device busy share."""
+def g1_chain_kernels(layout, device, n: int) -> None:
+    """One call of the chain (n merges) under torch.profiler: each of its
+    kernels' launches and mean device µs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shredword_tpu_torch.ops import _kernels
+
+    st = g1_state(layout, GIANT_VOCAB, GIANT["unk_id"], device)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAUSE_S)
+        _kernels.giant_sharded_train(
+            *st, base=0, **group_reduces(), unk=GIANT["unk_id"],
+            min_freq=GIANT["min_pair_freq"], n_done=0, init_done=0,
+            allowed=n, steps=n, nc_used=g1_nc_used(layout))
+        torch.cuda.synchronize(device)
+        time.sleep(PROFILE_PAUSE_S)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for name in ("apply_pick_kernel", "merge_kernel"):
+        us = [e.time_range.elapsed_us() for e in dev if name in e.name]
+        mean = f"mean {sum(us) / len(us):.3f} µs" if us else "none seen"
+        print(f"[g1] chain: {name} under torch.profiler, one call of {n} "
+              f"merges: {len(us)} launches, {mean}")
+
+
+def profile_g1_train(corpus, device, mesh, vocab: int) -> None:
+    """One sharded train() at `vocab` under torch.profiler: G1's launches
+    against the wrapper's count (one a call at world 1), and the device
+    busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2274,8 +2373,8 @@ def profile_g1_train(corpus, device, mesh) -> None:
     from shredword_tpu_torch.ops import _kernels
 
     kernel = _kernels.giant_sharded_train
-    t = BPETrainer(target_vocab_size=GIANT_VOCAB, backend="cuda",
-                   device=device, mesh=mesh, **GIANT)
+    t = BPETrainer(target_vocab_size=vocab, backend="cuda", device=device,
+                   mesh=mesh, **GIANT)
     try:
         t.load_corpus(corpus)
         torch.cuda.synchronize(device)
@@ -2292,26 +2391,27 @@ def profile_g1_train(corpus, device, mesh) -> None:
         t.destroy()
     launches = kernel.launches - n0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ours = [e for e in dev if "apply_pick_kernel" in e.name
-            or "merge_kernel<" in e.name]
-    print(f"[sharded giant] profiled train() vocab {GIANT_VOCAB}, NCCL "
-          f"world 1: {merges} merges, {len(ours)} G1 launches "
-          f"({launches} counted), {len(dev)} device events, device busy "
+    ours = [e for e in dev if "sharded_train_kernel" in e.name
+            or "apply_pick_kernel" in e.name or "merge_kernel<" in e.name]
+    print(f"[sharded giant] profiled train() vocab {vocab}, NCCL world 1: "
+          f"{merges} merges, {len(ours)} G1 launches ({launches} counted), "
+          f"{len(dev)} device events, device busy "
           f"{busy_us(dev) / wall_us:.3f} of the run ({wall_us / 1e3:.2f} "
           f"ms under the profiler), G1 {busy_us(ours) / 1e3:.2f} ms")
-    check(len(ours) == launches > 2 * merges,
-          "the profiler saw every G1 launch of the sharded train()")
+    check(len(ours) == launches and 0 < launches <= merges // 256 + 1,
+          f"the profiler saw every G1 launch of the sharded train() at "
+          f"{vocab}, one a call")
 
 
-def g1_train_layers(corpus, device, mesh) -> None:
-    """One sharded train() at vocab GIANT_VOCAB split into its layers on
-    the host clock: the hist engine's decline; in the giant engine the
-    int32 layout (shard_layout), the initial rows (init_row_shard, the
-    device synchronized after it), the call loop (drive_calls) and the
-    rest (the upload); in the loop G1's enqueue (the wrapper's host
-    time), the wait for each call's records (a synchronize after the
-    call, where their readback would wait) and the driver's own work; and
-    train() outside the engines."""
+def g1_train_layers(corpus, device, mesh, vocab: int) -> None:
+    """One sharded train() at `vocab` split into its layers on the host
+    clock: the hist engine's decline; in the giant engine the int32
+    layout (shard_layout), the rank's chunked layout (rank_layout), the
+    initial rows (init_row_shard, the device synchronized after it), the
+    call loop (drive_calls) and the rest (the upload); in the loop G1's
+    enqueue (the wrapper's host time), the wait for each call's records
+    (a synchronize after the call, where their readback would wait) and
+    drive_calls' own work; and train() outside the engines."""
     from shredword_tpu_torch import BPETrainer
     from shredword_tpu_torch.ops import _kernels, bpe_hist
     from shredword_tpu_torch.parallel import giant as par_giant
@@ -2336,12 +2436,13 @@ def g1_train_layers(corpus, device, mesh) -> None:
     patches = [(par_hist, "sharded_hist_train", False),
                (par_giant, "sharded_giant_train", False),
                (par_hist, "shard_layout", False),
+               (par_giant, "rank_layout", False),
                (par_giant, "init_row_shard", True),
                (bpe_hist, "drive_calls", False),
                (_kernels, "giant_sharded_train", True)]
     saved = [getattr(m, name) for m, name, _ in patches]
-    t = BPETrainer(target_vocab_size=GIANT_VOCAB, backend="cuda",
-                   device=device, mesh=mesh, **GIANT)
+    t = BPETrainer(target_vocab_size=vocab, backend="cuda", device=device,
+                   mesh=mesh, **GIANT)
     try:
         t.load_corpus(corpus)
         for (m, name, sync), fn in zip(patches, saved):
@@ -2360,6 +2461,7 @@ def g1_train_layers(corpus, device, mesh) -> None:
         - secs["sharded_giant_train"],
         "hist engine's decline": secs["sharded_hist_train"],
         "int32 layout (shard_layout)": secs["shard_layout"],
+        "chunked layout (rank_layout)": secs["rank_layout"],
         "initial rows (init_row_shard, host)": secs["init_row_shard"],
         "initial rows (device wait)": secs["init_row_shard wait"],
         "G1 enqueue": secs["giant_sharded_train"],
@@ -2367,14 +2469,15 @@ def g1_train_layers(corpus, device, mesh) -> None:
         "driver": secs["drive_calls"] - secs["giant_sharded_train"]
         - secs["giant_sharded_train wait"],
         "giant engine's rest (upload)": secs["sharded_giant_train"]
-        - secs["shard_layout"] - secs["init_row_shard"]
-        - secs["init_row_shard wait"] - secs["drive_calls"]}
-    print(f"[sharded giant] train() vocab {GIANT_VOCAB}, NCCL world 1, "
-          f"layer by layer: {merges} merges in {total:.4f} s")
+        - secs["shard_layout"] - secs["rank_layout"]
+        - secs["init_row_shard"] - secs["init_row_shard wait"]
+        - secs["drive_calls"]}
+    print(f"[sharded giant] train() vocab {vocab}, NCCL world 1, layer by "
+          f"layer: {merges} merges in {total:.4f} s")
     for name, sec in sorted(layers.items(), key=lambda kv: -kv[1]):
         print(f"[sharded giant]   {name}: {sec:.4f} s ({sec / total:.3f}, "
               f"{sec / merges * 1e3:.6f} ms per merge)")
-    check(merges == GIANT_VOCAB - 256, "the layered train() merges")
+    check(merges == vocab - 256, f"the layered train() merges at {vocab}")
 
 
 def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
@@ -2382,7 +2485,8 @@ def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
     BPETrainer(mesh=...) load_corpus -> train -> save at vocab 32768
     (== phase 6's single-device giant bytes) and 65536 (== the
     single-device flat engine's, its first merges == the 32768 run's),
-    then the 32768 run profiled, then the sharded flat engine forced (the
+    then both runs profiled and split into layers, then the sharded flat
+    engine forced (the
     table engines patched to decline, as tests/test_parallel.py:132) at
     the headline (== the JAX golden digest).  Returns G1's launches in
     the 32768 run (every count set to 0 just before it, read just
@@ -2421,7 +2525,8 @@ def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
                   f"{peak / 1e9:.3f} GB, {out[vocab][0]} G1 launches in "
                   f"{len(timer.events)} calls, the calls' span "
                   f"{timer.ms() / n:.6f} ms per merge (CUDA events)")
-            check(out[vocab][0] > 2 * n, f"vocab {vocab} launched G1")
+            check(0 < out[vocab][0] == len(timer.events),
+                  f"vocab {vocab} launched G1 once a call")
         launches, model, vocab_b = out[GIANT_VOCAB]
         check((model, vocab_b) == giant_bytes,
               f"sharded giant == single-device giant bytes at "
@@ -2442,8 +2547,9 @@ def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
         print(f"[sharded giant] vocab {SHARDED_VOCAB}: .model/.vocab equal "
               f"the flat engine's; its first {len(m32)} merges equal the "
               f"{GIANT_VOCAB} run's")
-        profile_g1_train(corpus, device, mesh)
-        g1_train_layers(corpus, device, mesh)
+        for vocab in (GIANT_VOCAB, SHARDED_VOCAB):
+            profile_g1_train(corpus, device, mesh, vocab)
+            g1_train_layers(corpus, device, mesh, vocab)
         engines = (par_hist.sharded_hist_train,
                    par_giant.sharded_giant_train)
         par_hist.sharded_hist_train = par_giant.sharded_giant_train = \
@@ -2582,7 +2688,8 @@ def phase_pretok(device, enc_text: str) -> tuple[dict, int]:
             lambda: [pretok_ops.gpt_starts_mask_plain(cls, n)
                      for _ in range(3)], device) / 3
         per_call = kernel_launches(
-            lambda: pretok_ops.gpt_starts_mask(cls, n), P1_KERNELS) / 3
+            lambda: pretok_ops.gpt_starts_mask(cls, n), P1_KERNELS,
+            expect=3) / 3
         # a class byte in and a mask byte out per character; the six
         # scans' combines, one per character each (the boolean algebra
         # around them not counted)
@@ -2909,8 +3016,8 @@ def main() -> int:
         try:
             first_collective(device)
             g1_err = phase_g1_vs_plain(device, tmp)
-            timing["g1"] = phase_g1_timed(device, g1_layout(
-                *token_arrays(corpus, device, GIANT)))
+            timing["g1"] = phase_g1_timed(
+                device, token_arrays(corpus, device, GIANT))
         finally:
             dist.destroy_process_group()
         timing["g1"]["max_abs_err"] = max(g1_err,

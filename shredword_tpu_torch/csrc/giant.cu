@@ -26,6 +26,8 @@
 //   - one launch per call, every block co-resident (grid sized from the
 //     occupancy calculator); a grid barrier after each row read of the
 //     pick, after the corpus pass and after the update;
+//   - the group keys, the pick, the flagged-chunk corpus pass and the
+//     presence update are giant_table.cuh's, shared with giant_sharded.cu;
 //   - a key per group of 32 rows (the largest bound, then the smallest
 //     row holding it, as one 64-bit max_key), kept exact: the pick reads
 //     v / 32 group keys, one load each, instead of v bounds, and the
@@ -58,6 +60,7 @@
 #include <limits.h>
 
 #include "block_reduce.cuh"
+#include "giant_table.cuh"
 #include "merge_column.cuh"
 #include "phase_clock.cuh"
 
@@ -66,12 +69,10 @@ namespace {
 namespace cg = cooperative_groups;
 using namespace shred;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = GIANT_THREADS;
 // co-resident blocks per SM, at most: more only make the grid barrier
 // dearer
 constexpr int BLOCKS_PER_SM = 2;
-constexpr int WARPS = THREADS / 32;
-constexpr int GROUP = 32;  // rows per group key: one warp's lanes
 
 // phases of a merge, as phase_clock.cuh counts them; the pick's three
 // repeat with each row read
@@ -99,64 +100,20 @@ struct GiantArgs {
       allowed;
 };
 
-// chunk bits of the corpus pass
-constexpr int CB_MATCHED = 1, CB_HAS_A = 2, CB_HAS_B = 4;
-
-__device__ __forceinline__ int thresh(int x, int min_freq) {
-  return x >= min_freq ? x : 0;
-}
-
-// The key of group g: max_key of its largest bound and the smallest row
-// that holds it.  regroup rewrites the keys of the groups of rows r[k]
-// (r[k] < 0: none), row r[k] taken as val[k] whatever rowmax holds; warp
-// 0 of the block, all groups' loads at once.  Every block writes the same
-// values.
-__device__ __forceinline__ void regroup(const int* rowmax,
-                                        unsigned long long* gkey,
-                                        const int (&r)[3], const int (&val)[3],
-                                        int v) {
-  const int lane = threadIdx.x & 31;
-  int x[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    x[k] = r[k] >= 0 ? rowmax[r[k] / GROUP * GROUP + lane] : 0;
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    if (r[k] >= 0) {
-      const int row = r[k] / GROUP * GROUP + lane;
-#pragma unroll
-      for (int q = 0; q < 3; ++q)
-        if (row == r[q]) x[k] = val[q];
-      const unsigned long long key = warp_max_u64(max_key(x[k], row, v));
-      if (lane == 0) gkey[r[k] / GROUP] = key;
-    }
-}
-
 template <int L>
 __global__ void __launch_bounds__(THREADS) giant_train_kernel(GiantArgs p) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ int s_m, s_a;
-  __shared__ unsigned long long s_key;
-  __shared__ int s_warp[WARPS];
-  __shared__ int s_list[THREADS];
   const int v = p.v, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, nthreads = G * THREADS;
   const int gtid = blockIdx.x * THREADS + tid;
   const int gwarp = gtid >> 5, nwarps = nthreads >> 5;
-  const int NC = p.NC;
   int* rowmax = p.rowmax;
   unsigned long long* gkey = p.gkey;
-  const auto same = [](int, int h) { return h; };
   PhaseClock clk;
 
-  for (int g = gtid; g < v / GROUP; g += nthreads) {
-    unsigned long long k = 0ull;
-    for (int r = g * GROUP; r < (g + 1) * GROUP; ++r)
-      k = umax64(k, max_key(rowmax[r], r, v));
-    gkey[g] = k;
-  }
+  init_group_keys(rowmax, gkey, v, gtid, nthreads);
   for (int c = gtid; c < 2 * v; c += nthreads) p.dl[c] = p.dr[c] = 0;
-  for (int c = gtid; c < NC; c += nthreads) p.bits[c] = 0;
+  for (int c = gtid; c < p.NC; c += nthreads) p.bits[c] = 0;
   if (gtid < 3) p.keys[gtid] = 0ull;
   if (gtid < 2 * SL_LEN) p.slots[gtid] = 0;
   clk.mark(PH_INIT);
@@ -171,55 +128,11 @@ __global__ void __launch_bounds__(THREADS) giant_train_kernel(GiantArgs p) {
     int* dr = p.dr + (i & 1) * v;
     int* slot = p.slots + (i & 1) * SL_LEN;
 
-    // lazy pick (bpe_giant.py:327-368), every block alike: the largest
-    // thresholded bound (smallest row on ties); read that row; if its
-    // true maximum differs, store it as the row's bound and repeat
-    int m = 0, a = 0, b = 0, n_refresh = 0;
-    for (;;) {
-      ++n_refresh;
-      const int ng = (lim + GROUP - 1) / GROUP;
-      unsigned long long best = 0ull;
-      for (int g = tid; g < ng; g += THREADS) {
-        const unsigned long long gk = gkey[g];
-        best = umax64(best, max_key(thresh(key_val(gk), p.min_freq),
-                                    key_idx(gk, v), v));
-      }
-      best = block_max_u64(best);
-      if (tid == 0) {
-        s_m = key_val(best);
-        s_a = key_idx(best, v);
-      }
-      __syncthreads();
-      m = s_m;
-      if (m <= 0) break;
-      a = s_a;
-      clk.mark(PH_PICK);
-      // the row read, spread over the grid: (max, first column) as a key
-      unsigned long long* key = p.keys + t % 3;
-      if (gtid == 0) p.keys[(t + 1) % 3] = 0ull;  // last read two reads ago
-      const unsigned long long k = block_max_u64(row_max_key(
-          p.hist + (size_t)a * v, lim, v, gtid, nthreads, same));
-      if (tid == 0 && k) atomicMax(key, k);
-      clk.mark(PH_ROW_READ);
-      grid.sync();
-      clk.mark(PH_ROW_SYNC);
-      ++t;
-      // one load of the key per block: a line that every thread loads at
-      // once queues at its L2 slice
-      if (tid == 0) s_key = *key;
-      __syncthreads();
-      const unsigned long long row_key = s_key;
-      const int true_max = key_val(row_key);
-      if (true_max == m) {
-        b = key_idx(row_key, v);
-        break;
-      }
-      if (warp == 0) {  // refresh the bound, retry
-        regroup(rowmax, gkey, {a, -1, -1}, {true_max, 0, 0}, v);
-        if (lane == 0) rowmax[a] = true_max;
-      }
-      __syncthreads();
-    }
+    // lazy pick (giant_table.cuh), every block alike
+    const LazyPick pk =
+        lazy_pick(grid, p.hist, rowmax, gkey, p.keys, t, lim, lim, v, v,
+                  p.min_freq, clk, PH_PICK, PH_ROW_READ, PH_ROW_SYNC);
+    const int m = pk.m, a = pk.a, b = pk.b, n_refresh = pk.n_refresh;
     if (!(m > 0 && !p.init_done && i < p.allowed)) {
       // nothing changes any more: every later step confirms the same
       // pick with one row read
@@ -241,43 +154,9 @@ __global__ void __launch_bounds__(THREADS) giant_train_kernel(GiantArgs p) {
       rec[4] = n_refresh;
     }
 
-    // corpus (bpe_giant.py:375-518): the chunks c < nc_used whose
-    // presence holds a and b, in units of THREADS columns; unit u of the
-    // merge goes to block u % G
-    const int per_chunk = p.cw / THREADS;
-    int base = 0;
-    for (int w0 = 0; w0 < p.nc_used; w0 += THREADS) {
-      const int c = w0 + tid;
-      const bool flagged = c < p.nc_used && p.presT[(size_t)a * NC + c] &&
-                           p.presT[(size_t)b * NC + c];
-      const unsigned bal = __ballot_sync(0xffffffffu, flagged);
-      if (lane == 0) s_warp[warp] = __popc(bal);
-      __syncthreads();
-      int before = 0, n_flagged = 0;
-      for (int w = 0; w < WARPS; ++w) {
-        before += w < warp ? s_warp[w] : 0;
-        n_flagged += s_warp[w];
-      }
-      if (flagged) s_list[before + __popc(bal & ((1u << lane) - 1u))] = c;
-      __syncthreads();
-      const int units = n_flagged * per_chunk;
-      for (int u = ((int)blockIdx.x - base % G + G) % G; u < units; u += G) {
-        const int chunk = s_list[u / per_chunk];
-        const int col =
-            chunk * p.cw + (u % per_chunk) * THREADS + tid;
-        const int r = merge_column<L>(p.tw, p.W, col, a, b, nw, p.unk,
-                                      p.wcount, dl, dr);
-        // every unit of a flagged chunk reports, matched or not: a and b
-        // must be looked for in the whole chunk after the merge
-        const int bits =
-            (__syncthreads_or(r & MC_MATCHED) ? CB_MATCHED : 0) |
-            (__syncthreads_or(r & MC_HAS_A) ? CB_HAS_A : 0) |
-            (__syncthreads_or(r & MC_HAS_B) ? CB_HAS_B : 0);
-        if (tid == 0 && bits) atomicOr(&p.bits[chunk], bits);
-      }
-      base += units;
-      __syncthreads();  // s_warp and s_list are rewritten next window
-    }
+    // corpus (giant_table.cuh): the chunks that hold a and b
+    flagged_pass<L>(p.tw, p.wcount, p.presT, p.bits, p.W, p.NC, p.cw,
+                    p.nc_used, a, b, nw, p.unk, dl, dr);
     clk.mark(PH_CORPUS);
     grid.sync();
     clk.mark(PH_CORPUS_SYNC);
@@ -339,16 +218,8 @@ __global__ void __launch_bounds__(THREADS) giant_train_kernel(GiantArgs p) {
     }
     clk.mark(PH_UPDATE_OTHERS);
     // presence rows a, b, new of the chunks that matched (:520-540)
-    for (int c = gtid; c < p.nc_used; c += nthreads) {
-      const int x = p.bits[c];
-      if (!x) continue;
-      p.bits[c] = 0;
-      if (x & CB_MATCHED) {
-        p.presT[(size_t)a * NC + c] = (x & CB_HAS_A) ? 1 : 0;
-        p.presT[(size_t)b * NC + c] = (x & CB_HAS_B) ? 1 : 0;
-        p.presT[(size_t)nw * NC + c] = 1;
-      }
-    }
+    presence_update(p.presT, p.bits, p.NC, p.nc_used, a, b, nw, gtid,
+                    nthreads);
     // the other deltas and slots were last read by the previous merge
     int* dl_next = p.dl + ((i + 1) & 1) * v;
     int* dr_next = p.dr + ((i + 1) & 1) * v;

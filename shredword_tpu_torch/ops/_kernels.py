@@ -133,10 +133,11 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_unigram_fb.restype = i
     L.shred_unigram_viterbi.argtypes = [p] * 3 + [i] * 3 + [p] * 6
     L.shred_unigram_viterbi.restype = i
-    L.shred_giant_sharded_apply_pick.argtypes = [p] * 6 + [i] * 7 + [p]
-    L.shred_giant_sharded_apply_pick.restype = i
-    L.shred_giant_sharded_merge.argtypes = [p] * 6 + [i] * 9 + [p]
-    L.shred_giant_sharded_merge.restype = i
+    L.shred_giant_sharded_train.argtypes = [p] * 9 + [i] * 13 + [p]
+    L.shred_giant_sharded_train.restype = i
+    for f in (L.shred_giant_sharded_apply_pick, L.shred_giant_sharded_merge):
+        f.argtypes = [p] * 9 + [i] * 14 + [p]
+        f.restype = i
     L.shred_gpt_starts_mask.argtypes = [p, i, p, p, p, p]
     L.shred_gpt_starts_mask.restype = i
     L.shred_cuda_error_string.argtypes = [i]
@@ -462,11 +463,8 @@ def giant_train_step_plain(tw, wcount, hist, presT, rowmax, *, unk,
                            min_freq, n_done, init_done, allowed, nc_used,
                            steps) -> torch.Tensor:
     """Plain PyTorch version of :func:`giant_train_step`: the same lazy
-    pick and bound rules; the flagged chunks' columns are gathered, run
-    through :func:`merge_pass_plain` and scattered back, and the chunks'
-    presence comes from ``any()`` over each chunk."""
-    L, W = tw.shape
-    cw = W // presT.shape[1]
+    pick and bound rules, and :func:`chunk_pass_plain` over the flagged
+    chunks."""
     dev = tw.device
     records = torch.zeros((steps, 5), dtype=torch.int32, device=dev)
     done = bool(init_done)
@@ -482,21 +480,8 @@ def giant_train_step_plain(tw, wcount, hist, presT, rowmax, *, unk,
         new = 256 + n_done + i
         records[i] = torch.tensor([a, b, m, 1, n_refresh])
         # corpus: only chunks that hold both a and b can match
-        chunks = ((presT[a, :nc_used] != 0)
-                  & (presT[b, :nc_used] != 0)).nonzero()[:, 0]
-        cols = (chunks[:, None] * cw
-                + torch.arange(cw, device=dev)).reshape(-1)
-        sub = tw[:, cols]
-        t = sub.to(torch.int32)
-        matched = ((t[:-1] == a) & (t[1:] == b)).any(0).view(-1, cw).any(1)
-        dl, dr, _ = merge_pass_plain(sub, wcount[cols], a, b, new, unk,
-                                     hist.shape[0])
-        tw[:, cols] = sub
-        per_chunk = sub.view(L, len(chunks), cw)
-        hit = chunks[matched]
-        presT[a, hit] = (per_chunk == a).any(2).any(0)[matched].to(torch.int8)
-        presT[b, hit] = (per_chunk == b).any(2).any(0)[matched].to(torch.int8)
-        presT[new, hit] = 1
+        dl, dr = chunk_pass_plain(tw, wcount, presT, a, b, new, unk,
+                                  hist.shape[0], nc_used)
         # table, in the TPU kernel's order, with its row-max bound rules
         hist[b] -= dr
         rowmax[b] = hist[b].max()
@@ -522,92 +507,112 @@ def pick_key(m: int, a: int, b: int) -> int:
 
 
 def giant_sharded_train(tw: torch.Tensor, wcount: torch.Tensor,
-                        hist: torch.Tensor, bounds: torch.Tensor, *,
-                        base: int, reduce_key=None, reduce_deltas=None,
-                        unk: int, min_freq: int, n_done: int,
-                        init_done: int, allowed: int,
-                        steps: int) -> torch.Tensor:
+                        hist: torch.Tensor, bounds: torch.Tensor,
+                        presT: torch.Tensor, *, base: int, reduce_key=None,
+                        reduce_deltas=None, unk: int, min_freq: int,
+                        n_done: int, init_done: int, allowed: int,
+                        nc_used: int, steps: int) -> torch.Tensor:
     """``steps`` greedy merges of the row-sharded giant engine on one
     rank, in place.
 
     Replaces the per-merge body of ``shredword_tpu.parallel.giant``
     (``shard_body`` of ``build_sharded_giant_loop``): tw int32 [L, W]
-    (this rank's word columns), wcount int32 [W], hist int32 [rows, v]
-    (the global rows [base, base + rows) of the pair table), bounds int32
-    [rows] (upper bounds of those rows' maxima).  Each merge, on every
-    rank alike: the local lex-first pick through the bounds (a stale
-    bound is refreshed from its row) as one int64 key
-    (:func:`pick_key`, freq 0 below min_freq) that ``reduce_key`` reduces
-    in place by MAX over the ranks -- one collective for the JAX loop's
-    pmax/pmin/pmin, with the same (freq desc, row asc, col asc)
-    tie-break; the merge over this rank's columns, whose deltas dl ‖ dr
-    (int32 [2v]) ``reduce_deltas`` sums in place over the ranks; and the
-    table update of the own rows in ``apply_hist_updates`` order.  None
-    for either reduce on a single rank.  The scalars are those of
-    :func:`hist_sharded_train`; merge step i creates id 256 + n_done + i.
-    Returns int32 [steps, 5] records (a, b, freq, did, n_refresh), where
-    n_refresh counts this rank's row reads in the pick (0 after the
-    first step that could not merge).
+    (this rank's word columns, sorted by length into NC chunks of W // NC
+    columns, ``parallel.giant.rank_layout``), wcount int32 [W], hist int32
+    [rows, v] (the global rows [base, base + rows) of the pair table),
+    bounds int32 [rows] (upper bounds of those rows' maxima), presT int8
+    [v, NC] (exact presence of each id in each chunk; only chunks below
+    nc_used hold words).  Each merge, on every rank alike: the local
+    lex-first pick through the bounds (a stale bound is refreshed from
+    its row) as one int64 key (:func:`pick_key`, freq 0 below min_freq)
+    that ``reduce_key`` reduces in place by MAX over the ranks -- one
+    collective for the JAX loop's pmax/pmin/pmin, with the same (freq
+    desc, row asc, col asc) tie-break; the merge over this rank's chunks
+    that hold both ids, whose deltas dl ‖ dr (int32 [2v]) ``reduce_deltas``
+    sums in place over the ranks; the table update of the own rows in
+    ``apply_hist_updates`` order and the presence of the chunks that
+    matched.  Both reduces None: a rank alone (world 1).  The scalars are
+    those of :func:`giant_train_step`; merge step i creates id 256 +
+    n_done + i.  Returns int32 [steps, 5] records (a, b, freq, did,
+    n_refresh), where n_refresh counts this rank's row reads in the pick
+    (0 after the first step that could not merge).
 
     CPU tensors run :func:`giant_sharded_train_plain`; CUDA tensors run
-    ``csrc/giant_sharded.cu``: per merge one cooperative launch (apply
-    the previous merge, pick), ``reduce_key``, one launch (merge) and
-    ``reduce_deltas`` on the current stream, then one launch that
-    applies the last merge; nothing waits for the device.  Every launch
-    counts: 2 * steps + 1 per call."""
+    ``csrc/giant_sharded.cu``: with no reduce, one persistent launch for
+    all ``steps``; else per merge one cooperative launch (apply the
+    previous merge, pick), ``reduce_key``, one launch (merge) and
+    ``reduce_deltas`` on the current stream, then one launch that applies
+    the last merge, 2 * steps + 1 in all; nothing waits for the device.
+    Every launch counts."""
     L, W = tw.shape
     rows, v = hist.shape
-    if tw.dtype != torch.int32 or any(x.dtype != torch.int32
-                                      for x in (wcount, hist, bounds)):
-        raise TypeError("tw, wcount, hist and bounds must be int32")
-    if wcount.shape != (W,) or bounds.shape != (rows,) or v > 65536 \
-            or v % 128 or rows % 128 or not 0 <= base <= v - rows:
+    NC = presT.shape[1]
+    if tw.dtype != torch.int32 or presT.dtype != torch.int8 or any(
+            x.dtype != torch.int32 for x in (wcount, hist, bounds)):
+        raise TypeError("tw, wcount, hist and bounds must be int32, presT "
+                        "int8")
+    if wcount.shape != (W,) or bounds.shape != (rows,) \
+            or presT.shape[0] != v or W % NC or v > 65536 or v % 128 \
+            or rows % 128 or not 0 <= base <= v - rows:
         raise ValueError(
             f"shape mismatch (v and rows multiples of 128, v <= 65536, "
             f"base + rows <= v): tw {tuple(tw.shape)}, wcount "
             f"{tuple(wcount.shape)}, hist {tuple(hist.shape)}, bounds "
-            f"{tuple(bounds.shape)}, base {base}")
-    tensors = (tw, wcount, hist, bounds)
+            f"{tuple(bounds.shape)}, presT {tuple(presT.shape)}, base {base}")
+    tensors = (tw, wcount, hist, bounds, presT)
     if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("tw, wcount, hist and bounds must be contiguous")
+        raise ValueError("tw, wcount, hist, bounds and presT must be "
+                         "contiguous")
     if L not in (16, 32, 64):
         raise ValueError(f"word rows L must be 16, 32 or 64, got {L}")
+    if (W // NC) % 256:
+        raise ValueError(f"chunk width {W // NC} must be a multiple of 256")
+    if not 1 <= nc_used <= NC:
+        raise ValueError(f"nc_used {nc_used} must be in [1, {NC}]")
     if 256 + n_done + min(steps, allowed) > v:
         raise ValueError("merge ids would exceed the table size v")
     if len({x.device for x in tensors}) != 1:
-        raise ValueError("tw, wcount, hist and bounds must share one device")
+        raise ValueError("tw, wcount, hist, bounds and presT must share one "
+                         "device")
     kw = dict(base=base, reduce_key=reduce_key, reduce_deltas=reduce_deltas,
               unk=unk, min_freq=min_freq, n_done=n_done,
-              init_done=init_done, allowed=allowed, steps=steps)
+              init_done=init_done, allowed=allowed, nc_used=nc_used,
+              steps=steps)
     if tw.device.type == "cpu":
         return giant_sharded_train_plain(*tensors, **kw)
     if tw.device.type != "cuda":
         raise ValueError(f"unsupported device {tw.device}")
     dev = tw.device
-    d = torch.empty(2 * v, dtype=torch.int32, device=dev)
-    key = torch.empty(1, dtype=torch.int64, device=dev)
-    state = torch.empty(4, dtype=torch.int32, device=dev)
-    records = torch.empty((steps, 5), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    d = torch.empty((2, 2 * v), **i32)       # two dl | dr buffers in turn
+    # group keys, row-read keys, the pick's key
+    keys = torch.empty(rows // 32 + 4, dtype=torch.int64, device=dev)
+    scratch = torch.empty(NC + 10, **i32)    # chunk bits, slots, state
+    records = torch.empty((steps, 5), **i32)
     k = lib()
+    args = (tw.data_ptr(), wcount.data_ptr(), hist.data_ptr(),
+            bounds.data_ptr(), presT.data_ptr(), d.data_ptr(),
+            keys.data_ptr(), scratch.data_ptr(), records.data_ptr(), L, W,
+            NC, nc_used, rows, v, base, steps, unk, min_freq, n_done,
+            init_done, allowed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        bufs = (d.data_ptr(), key.data_ptr(), state.data_ptr(),
-                records.data_ptr())
+        if reduce_key is None and reduce_deltas is None:
+            _check(k.shred_giant_sharded_train(*args, stream))
+            giant_sharded_train.launches += 1
+            return records
+        key = keys[-1:]
         for i in range(steps + 1):
-            _check(k.shred_giant_sharded_apply_pick(
-                hist.data_ptr(), bounds.data_ptr(), *bufs, rows, v, base, i,
-                steps, min_freq, n_done, stream))
+            _check(k.shred_giant_sharded_apply_pick(*args, i, stream))
             giant_sharded_train.launches += 1
             if i == steps:
                 break
             if reduce_key is not None:
                 reduce_key(key)
-            _check(k.shred_giant_sharded_merge(
-                tw.data_ptr(), wcount.data_ptr(), *bufs, L, W, v, i, steps,
-                unk, n_done, init_done, allowed, stream))
+            _check(k.shred_giant_sharded_merge(*args, i, stream))
             giant_sharded_train.launches += 1
             if reduce_deltas is not None:
-                reduce_deltas(d)
+                reduce_deltas(d[i & 1])
     return records
 
 
@@ -635,14 +640,40 @@ def apply_row_shard(hist, bounds, base, a, b, new, dl, dr) -> None:
             bounds[r - base] = hist[r - base].max()
 
 
-def giant_sharded_train_plain(tw, wcount, hist, bounds, *, base,
+def chunk_pass_plain(tw, wcount, presT, a, b, new, unk, v, nc_used):
+    """:func:`merge_pass_plain` over the chunks c < nc_used of tw [L, W]
+    (chunk c: the columns [c * cw, (c + 1) * cw), cw = W // NC) whose
+    presence presT [v, NC] holds a and b, tw and presT in place: their
+    columns are gathered, merged and scattered back, and the presence of
+    a, b and new is rewritten in the chunks that matched, as the giant
+    kernels rewrite it; returns (dl, dr)."""
+    L, W = tw.shape
+    cw = W // presT.shape[1]
+    chunks = ((presT[a, :nc_used] != 0)
+              & (presT[b, :nc_used] != 0)).nonzero()[:, 0]
+    cols = (chunks[:, None] * cw
+            + torch.arange(cw, device=tw.device)).reshape(-1)
+    sub = tw[:, cols]
+    t = sub.to(torch.int32)
+    matched = ((t[:-1] == a) & (t[1:] == b)).any(0).view(-1, cw).any(1)
+    dl, dr, _ = merge_pass_plain(sub, wcount[cols], a, b, new, unk, v)
+    tw[:, cols] = sub
+    per_chunk = sub.view(L, len(chunks), cw)
+    hit = chunks[matched]
+    presT[a, hit] = (per_chunk == a).any(2).any(0)[matched].to(torch.int8)
+    presT[b, hit] = (per_chunk == b).any(2).any(0)[matched].to(torch.int8)
+    presT[new, hit] = 1
+    return dl, dr
+
+
+def giant_sharded_train_plain(tw, wcount, hist, bounds, presT, *, base,
                               reduce_key=None, reduce_deltas=None, unk,
-                              min_freq, n_done, init_done, allowed,
+                              min_freq, n_done, init_done, allowed, nc_used,
                               steps) -> torch.Tensor:
     """Plain PyTorch version of :func:`giant_sharded_train`: per merge
     the lazy pick of the giant engine (:func:`_lazy_pick`) on the own
-    rows, ``reduce_key``, :func:`merge_pass_plain` on this rank's
-    columns, ``reduce_deltas`` and :func:`apply_row_shard`."""
+    rows, ``reduce_key``, :func:`chunk_pass_plain` on this rank's flagged
+    chunks, ``reduce_deltas`` and :func:`apply_row_shard`."""
     v = hist.shape[1]
     dev = tw.device
     records = torch.zeros((steps, 5), dtype=torch.int32, device=dev)
@@ -665,7 +696,8 @@ def giant_sharded_train_plain(tw, wcount, hist, bounds, *, base,
             break
         new = 256 + n_done + i
         records[i] = torch.tensor([a, b, m, 1, n_refresh])
-        dl, dr, _ = merge_pass_plain(tw, wcount, a, b, new, unk, v)
+        dl, dr = chunk_pass_plain(tw, wcount, presT, a, b, new, unk, v,
+                                  nc_used)
         d = torch.cat([dl, dr])
         if reduce_deltas is not None:
             reduce_deltas(d)

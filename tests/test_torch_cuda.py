@@ -191,13 +191,14 @@ def test_sparse_hist_train_on_cuda_matches_cpu(cuda):
         np.testing.assert_array_equal(g, d)
 
 
-def _calls(kernel, plain, states, merges, steps, **kw):
+def _calls(kernel, plain, states, merges, steps, start=0, **kw):
     """Drive the kernel on states[1] and its plain version on states[0]
-    with the same calls of `steps` merges; after every call the records
-    and every state tensor must be identical.  Returns the merges done."""
-    n_done, done = 0, 0
-    while n_done < merges and not done:
-        allowed = merges - n_done
+    with the same calls of `steps` merges from merge `start`; after every
+    call the records and every state tensor must be identical.  Returns
+    the merges done."""
+    n_done, done = start, 0
+    while n_done < start + merges and not done:
+        allowed = start + merges - n_done
         ckw = dict(kw, n_done=n_done, init_done=done, allowed=allowed,
                    steps=min(steps, allowed))
         want = plain(*states[0], **ckw)
@@ -208,7 +209,7 @@ def _calls(kernel, plain, states, merges, steps, **kw):
         n_new = int(want[:, 3].sum())
         done = int(n_new < ckw["steps"])
         n_done += n_new
-    return n_done
+    return n_done - start
 
 
 # name: (corpus arguments, v, steps per call, merges, min_pair_freq)
@@ -386,7 +387,12 @@ SHARDED_GIANT_CASES = {
                   1500, 2, 98),
     "min_freq_stop_v1024": (dict(seed=63, n_words=1500), 1024, 64, 700,
                             300, -1),
+    # the int16-crossing resume of tests/test_giant_64k_envelope.py
+    # (merges 32510-32524, ids past 32767), on the own rows [30976, v)
+    # that hold every pair of its words
+    "int16_resume_v32896": (None, 32896, 5, 14, 2, -1),
 }
+G1_CW = 256       # chunk width: several chunks on these corpora
 
 
 @pytest.mark.cuda
@@ -394,39 +400,58 @@ SHARDED_GIANT_CASES = {
 @pytest.mark.parametrize("case", sorted(SHARDED_GIANT_CASES))
 def test_sharded_giant_kernel_call_by_call(case, reduce, cuda, request):
     """The row-sharded giant step (G1, giant_sharded_train) on one rank's
-    whole table against its plain version after every call: all five
-    record lanes, tokens, the table and the row bounds; 2 * steps + 1
-    launches a call; the reduces over a one-rank NCCL group or none."""
+    chunked layout against its plain version after every call: all five
+    record lanes, tokens, the table, the row bounds and the presence; no
+    reduce: one persistent launch a call; the reduces over a one-rank
+    NCCL group: 2 * steps + 1 launches a call."""
+    from torch_dist_workers import ENVELOPE_N_PREV, envelope_corpus
+
     from shredword_tpu_torch.parallel import giant as par_giant
+    from shredword_tpu_torch.parallel import hist as par_hist
 
     corpus_kw, v, steps, merges, minf, unk = SHARDED_GIANT_CASES[case]
-    c = bpe_hist.build_layout(*_corpus(**corpus_kw), 64, dtype=np.int32)
+    start, base = 0, 0
+    if corpus_kw is None:
+        tokens, word_id, counts, _ = envelope_corpus()
+        start, base = ENVELOPE_N_PREV, 30976
+        assert tokens.min() >= base
+    else:
+        tokens, word_id, counts = _corpus(**corpus_kw)
+    c = par_hist.shard_layout(tokens, word_id, counts, 1, dtype=np.int32)
+    lay = par_giant.rank_layout(par_hist.local_shard(c, 0, 1), v, cw=G1_CW)
     states = []
     for dev in ("cpu", cuda):
-        tw = torch.tensor(c.tw, device=dev)
-        wc = torch.tensor(c.wcount.reshape(-1), device=dev)
-        states.append([tw, wc, *par_giant.init_row_shard(tw, wc, unk, v, 0,
-                                                         v)])
-    kw = {}
+        tw = torch.tensor(lay.tw, device=dev)
+        wc = torch.tensor(lay.wc.reshape(-1), device=dev)
+        states.append([tw, wc, *par_giant.init_row_shard(
+            tw, wc, unk, v, base, v - base),
+            torch.tensor(lay.presT, device=dev)])
+    kw = dict(base=base, nc_used=-(-lay.n_words // G1_CW))
+    reduces = {}
     if reduce == "nccl1":
         dist = request.getfixturevalue("nccl_world1")
-        kw = dict(reduce_key=lambda k: dist.all_reduce(
+        reduces = dict(reduce_key=lambda k: dist.all_reduce(
             k, op=dist.ReduceOp.MAX), reduce_deltas=dist.all_reduce)
     kernel = _kernels.giant_sharded_train
-    calls = []
+    calls, recs = [], []
 
     def run(*state, **ckw):
         n0 = kernel.launches
-        recs = kernel(*state, base=0, **kw, **ckw)
+        recs.append(kernel(*state, **reduces, **kw, **ckw))
         calls.append((kernel.launches - n0, ckw["steps"]))
-        return recs
+        return recs[-1]
 
     def plain(*state, **ckw):
-        return _kernels.giant_sharded_train_plain(*state, base=0, **ckw)
+        return _kernels.giant_sharded_train_plain(*state, **kw, **ckw)
 
-    n = _calls(run, plain, states, merges, steps, unk=unk, min_freq=minf)
-    assert all(k == 2 * s + 1 for k, s in calls) and calls
+    n = _calls(run, plain, states, merges, steps, start=start, unk=unk,
+               min_freq=minf)
+    per_call = (lambda s: 1) if reduce == "none" else (lambda s: 2 * s + 1)
+    assert all(k == per_call(s) for k, s in calls) and calls
     assert (n == merges) == (minf == 2) and n > 0
+    if corpus_kw is None:
+        done = torch.cat(recs).cpu()
+        assert bool((done[done[:, 3] == 1, :2] > 32767).any())
 
 
 # ---------------------------------------------------------------------
