@@ -88,24 +88,30 @@ Phases (any failure exits non-zero, and no result line is printed):
      directly (the main path) against the route through the distinct
      chunks (native dedup, device, native expansion), layer by layer
  14. Unigram: the lattice kernels of csrc/unigram.cu (U1 fb_kernel, the
-     EM forward-backward; U2 viterbi_kernel) against their plain
-     versions on the card, on the seeded lattices of
+     EM forward-backward; U2 viterbi_kernel; sixteen lanes per word)
+     against their plain versions on the card, on the seeded lattices of
      tests/torch_unigram_cases.py (absent cells, an all-absent row, an
      uncovered word, pieces pruned to -1e30, lengths 1 and L, ties, L 70
-     for the global-scratch mode): U1's counts within rtol 1e-5 / atol
-     1e-6 and its log-likelihood within 1e-6 relative, U2 identical; then
-     on the default config's real slabs at the seed pieces (U1 on the
-     three E-step slabs, U2 on the first prune's first slab, scores only
-     as train() calls it): checked and timed (CUDA events), the plain
-     versions' time, launches per call (torch.profiler), the bound from
-     the cells inside the words and the operations on the present cells,
-     and U1 again with every present cell's id distinct (no hot-piece
+     for the global-scratch mode, words whose one path through pruned
+     pieces overflows U1's posteriors): U1's counts within rtol 1e-5 /
+     atol 1e-6 and its log-likelihood within 1e-6 relative, U2
+     identical; the overflow corpus of tests/torch_unigram_cases.py
+     trained on the card and with device="cpu": finite log-probs, the
+     same pieces, a model that encodes its corpus; then on the default
+     config's real slabs at the seed pieces (U1 on the three E-step
+     slabs, U2 on the first prune's first slab, scores only as train()
+     calls it): checked and timed (CUDA events), the plain versions'
+     time, launches per call (torch.profiler), the bound from the cells
+     inside the words and the operations on the present cells, and U1
+     again with no hot ids in shared memory (every count a global
+     atomic) and with every present cell's id distinct (no hot-piece
      atomics); then the main path at the JAX bench's default config
      (bench.py:400-420): UnigramTrainer(8192, seed 100,000) load_corpus
      -> train -> save on the 16 MB corpus (8192 pieces; U1 and U2
      launches per train(), device busy share, final LL, the host layers
-     of train()), UnigramTokenizer.load(...).encode_array on its first
-     1,000,000 characters (decodes to the normalized text; ids == the
+     of train(), its e_step and prune seconds),
+     UnigramTokenizer.load(...).encode_array on its first 1,000,000
+     characters (decodes to the normalized text; ids == the
      host DP encode_word on every distinct word, or another path of the
      same score within 1e-6 relative; pieces per word, encode and decode
      MB/s); the bench's 1,024-piece config (bench.py:378-397) on the card
@@ -1622,12 +1628,15 @@ def phase_uni_vs_plain(device) -> None:
     lattices of tests/torch_unigram_cases.py: absent cells, an all-absent
     row, a word no piece covers, pieces pruned to logp -1e30 (and a word
     whose one path goes through one), words of length 1 and L, ties
-    everywhere, K = 1, and L = 70 (the kernels' global-scratch mode)."""
+    everywhere, K = 1, L = 70 (the kernels' global-scratch mode), and
+    words whose one path runs through pruned pieces until U1's
+    posteriors overflow (counted as 1)."""
     from shredword_tpu_torch.ops import unigram_ops as U
-    from torch_unigram_cases import LATTICES, random_lattice
+    from torch_unigram_cases import LATTICES, overflow_lattice, random_lattice
 
-    for case in sorted(LATTICES):
-        table, wlen, wcount, logp = random_lattice(case)
+    for case in sorted(LATTICES) + ["overflow"]:
+        table, wlen, wcount, logp = (overflow_lattice() if case == "overflow"
+                                     else random_lattice(case))
         dt = U.make_device_table(table, wlen, wcount, device)
         err, ll_rel, close, same = uni_both(uni_args(dt, logp))
         W, L, K = table.shape
@@ -1652,14 +1661,18 @@ def cells_inside(wlen: np.ndarray, K: int) -> int:
                         K * (K + 1) // 2 + (n - K) * K).sum())
 
 
-def uni_kernel_ms(args, *, fb: bool, backtrace: bool = False) -> float:
+def uni_kernel_ms(args, *, fb: bool, backtrace: bool = False,
+                  hot: int = 0) -> float:
     """Device ms per launch of U1 (fb) or U2 alone on these inputs:
     KERNEL_REPS back-to-back launches through the library (uncounted)
-    between two CUDA events, the outputs allocated once."""
+    between two CUDA events, the outputs allocated once.  U1 sums the
+    `hot` most frequent ids of the table per block in shared memory."""
     from shredword_tpu_torch.ops import _kernels
+    from shredword_tpu_torch.ops import unigram_ops as U
 
     ids, lp, wlen, wcount = args
     L, K, W = ids.shape
+    check(L <= U.LOCAL_L, "the timed slabs need no global scratch")
     dev = ids.device
     k = _kernels.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1669,17 +1682,22 @@ def uni_kernel_ms(args, *, fb: bool, backtrace: bool = False) -> float:
     out = torch.empty((L, W), dtype=torch.int32, device=dev)
     count = torch.empty(W, dtype=torch.int32, device=dev)
     ptr = (lambda t: t.data_ptr() if backtrace else None)
+    h_ids, slot = U.hot_ids(ids, hot)
+    H = h_ids.shape[0]
 
     def calls():
         for _ in range(KERNEL_REPS):
             rc = (k.shred_unigram_fb(ids.data_ptr(), lp.data_ptr(),
-                                     wlen.data_ptr(), wcount.data_ptr(), L,
-                                     K, W, None, counts.data_ptr(),
-                                     ll.data_ptr(), stream) if fb
+                                     lp.shape[0], wlen.data_ptr(),
+                                     wcount.data_ptr(), L, K, W,
+                                     h_ids.data_ptr() if H else None,
+                                     slot.data_ptr() if H else None, H,
+                                     None, counts.data_ptr(), ll.data_ptr(),
+                                     stream) if fb
                   else k.shred_unigram_viterbi(
                       ids.data_ptr(), lp.data_ptr(), wlen.data_ptr(), L, K,
-                      W, None, None, ptr(out), ptr(count),
-                      final.data_ptr(), stream))
+                      W, None, ptr(out), ptr(count), final.data_ptr(),
+                      stream))
             check(rc == 0, "unigram kernel launch")
 
     calls()
@@ -1745,9 +1763,10 @@ def uni_slab(tag: str, args, *, fb: bool) -> dict:
     """One real slab: the kernel against its plain version (the form
     train() calls: U1, or U2 scores-only), both timed, its launches per
     call, its bound from the bytes and operations this slab needs, and
-    for U1 the same launch with every present cell's id made distinct
-    (the same work without the hot pieces' atomics).  Returns the
-    kernels-line record."""
+    for U1 the same launch with no hot ids in shared memory (every
+    count a global atomic, as in a one-thread-per-word kernel) and with
+    every present cell's id made distinct (the same work without the
+    hot pieces' atomics).  Returns the kernels-line record."""
     from shredword_tpu_torch.ops import unigram_ops as U
 
     ids, lp, wlen, wcount = args
@@ -1762,7 +1781,8 @@ def uni_slab(tag: str, args, *, fb: bool) -> dict:
     wl = wlen.cpu().numpy()
     inside = cells_inside(wl, K)
     if fb:
-        ms = uni_kernel_ms(args, fb=True)
+        ms = uni_kernel_ms(args, fb=True, hot=U.HOT_IDS)
+        ms_cold = uni_kernel_ms(args, fb=True, hot=0)
         plain = lambda: U.fb_core_plain(*args)             # noqa: E731
         launch = lambda: U.fb_core(*args)                  # noqa: E731
         # the table's cells, lp, wlen, wcount in; float64 counts and ll
@@ -1774,7 +1794,8 @@ def uni_slab(tag: str, args, *, fb: bool) -> dict:
         spread = torch.where(present, torch.arange(
             ids.numel(), device=ids.device, dtype=torch.int32).view_as(ids)
             % n, -1)
-        ms_spread = uni_kernel_ms((spread, lp, wlen, wcount), fb=True)
+        ms_spread = uni_kernel_ms((spread, lp, wlen, wcount), fb=True,
+                                  hot=U.HOT_IDS)
         name = "fb_kernel"
     else:
         ms = uni_kernel_ms(args, fb=False)
@@ -1798,7 +1819,9 @@ def uni_slab(tag: str, args, *, fb: bool) -> dict:
             f"{n_present} present cells of {inside} inside the words, the "
             f"hottest piece in {hot}; ")
     if fb:
-        line += (f"U1 {ms:.6f} ms per call ({ms_spread:.6f} with every "
+        line += (f"U1 {ms:.6f} ms per call with {U.HOT_IDS} hot ids "
+                 f"in shared memory ({ms_cold:.6f} with none: every "
+                 f"count a global atomic; {ms_spread:.6f} with every "
                  f"cell's id distinct: no hot atomics), plain "
                  f"{plain_ms:.4f} ms, max |U1 - plain| = {err:.3e} (ll "
                  f"relative {ll_rel:.3e}), ")
@@ -1840,6 +1863,45 @@ def phase_uni_slabs(device, corpus) -> dict:
     out["viterbi"] = uni_slab("prune slab 0", (ids, lp, wlen, zero),
                               fb=False)
     return out
+
+
+def phase_uni_overflow(device, out_dir) -> None:
+    """Training that reaches words split only through pruned pieces
+    (tests/torch_unigram_cases.OVERFLOW_TEXT): U1 on the card gives a
+    finite model that encodes its own corpus, with the pieces of the
+    plain versions' run (device="cpu")."""
+    from shredword_tpu_torch import UnigramTokenizer, UnigramTrainer
+    from shredword_tpu_torch.ops import unigram_ops as U
+    from torch_unigram_cases import OVERFLOW_CONFIG, OVERFLOW_TEXT
+
+    path = os.path.join(out_dir, "overflow.txt")
+    with open(path, "w") as f:
+        f.write(OVERFLOW_TEXT)
+    runs = []
+    for dev in (device, "cpu"):
+        n0 = U.fb_core.launches
+        t = UnigramTrainer(**OVERFLOW_CONFIG, device=dev)
+        t.load_corpus(path)
+        t.train()
+        runs.append((t, U.fb_core.launches - n0))
+    (card, u1), (cpu, _) = runs
+    check(u1 > 0, "U1 launched on the overflow corpus")
+    check(bool(np.isfinite(card.log_probs).all())
+          and bool(np.isfinite(card.final_ll)),
+          "U1 gives finite log-probs on the overflow corpus")
+    check(card.pieces == cpu.pieces, "overflow corpus: card pieces == "
+          "device='cpu'")
+    model = os.path.join(out_dir, "overflow.model")
+    card.save(model)
+    tok = UnigramTokenizer.load(model, device=device)
+    check(tok.decode(tok.encode_array(OVERFLOW_TEXT))
+          == OVERFLOW_TEXT.lower(), "the overflow model encodes its corpus")
+    print(f"[unigram] overflow corpus: {len(card.pieces)} pieces, all "
+          f"log-probs finite, final LL {card.final_ll!r} on the card "
+          f"({u1} U1 launches), {cpu.final_ll!r} with device='cpu', pieces "
+          f"identical, max |log_probs diff| "
+          f"{float(np.abs(card.log_probs - cpu.log_probs).max()):.3e}; "
+          f"the model encodes its corpus")
 
 
 def path_score(log_probs: np.ndarray, ids: list[int]) -> float:
@@ -1885,6 +1947,8 @@ def phase_uni_main(device, corpus, text: str, out_dir) -> dict:
     model = os.path.join(out_dir, "uni_default.model")
     t.save(model)
     layers = ", ".join(f"{k} {v:.3f}" for k, v in t.timings.items())
+    print(f"{tag}: timings e_step {t.timings['e_step']!r} s, prune "
+          f"{t.timings['prune']!r} s")
     print(f"{tag}: {n} pieces, train {train_s:.3f} s (under torch.profiler,"
           f" CUDA activity), load_corpus {load_s:.3f} s; final LL "
           f"{t.final_ll:.6g}, {t.final_ll_per_word:.6f} per word, "
@@ -3004,6 +3068,7 @@ def main() -> int:
                   for v, m in merges.items()}
         pretok, launches["gpt_starts"] = phase_pretok(device, enc_text)
         phase_uni_vs_plain(device)
+        phase_uni_overflow(device, tmp)
         unigram = phase_uni_slabs(device, corpus)
         uni_launches = phase_uni_main(device, corpus,
                                       enc_text[:UNI_ENCODE_CHARS], tmp)

@@ -11,7 +11,7 @@ save/load API and ids; its device encoder's merge loop is
 ``csrc/encode.cu`` (one thread per chunk).  ``UnigramTrainer`` and
 ``UnigramTokenizer`` keep the JAX package's Unigram API, pieces and
 model file; their lattice forward-backward (the EM E-step) and Viterbi
-are ``csrc/unigram.cu`` (one thread per word), and sharded EM runs over
+are ``csrc/unigram.cu`` (sixteen lanes per word), and sharded EM runs over
 ``torch.distributed``.  The package stands alone: it keeps its own host
 layer (native corpus loader, faithful trainer and CPU encoder under
 ``runtime/``, pre-tokenization, serialization, checkpoints, errors,
@@ -26,10 +26,13 @@ from .models.unigram import UnigramTokenizer, UnigramTrainer
 from .tokenizer import (Tokenizer, build_vocab, get_stats, merge,
                         render_token)
 
+__version__ = "0.1.0"       # the JAX package's
+
 __all__ = [
     "BPETrainer", "Tokenizer", "BPEConfig", "render_token",
     "get_stats", "merge", "build_vocab",
     "UnigramTrainer", "UnigramTokenizer", "UnigramConfig",
     "ShredError", "CorpusError", "ConfigError", "TrainingError",
     "SerializationError", "EncodeError", "DecodeError",
+    "__version__",
 ]

@@ -179,7 +179,7 @@ def _daemon(args) -> int:
         print("daemon running" if ok else "daemon failed to start")
         return 0 if ok else 1
     if args.action == "stop":
-        state = daemon.stop(args.socket)
+        state = daemon.stop_state(args.socket)
         print({"stopped": "daemon stopped",
                "not running": "no daemon running",
                "busy": "daemon busy: it stops after its current "

@@ -300,7 +300,8 @@ def start(socket_path: str | None = None, *, wait: float = 60.0,
     return False
 
 
-def stop(socket_path: str | None = None, timeout: float = 10.0) -> str:
+def stop_state(socket_path: str | None = None,
+               timeout: float = 10.0) -> str:
     """Ask the daemon to exit: "stopped" once it has answered,
     "not running" when nothing listens on the socket, "busy" when it
     took the request but is still running a command after ``timeout``
@@ -313,6 +314,12 @@ def stop(socket_path: str | None = None, timeout: float = 10.0) -> str:
     except _Timeout:
         return "busy"
     return "stopped" if r is not None else "not running"
+
+
+def stop(socket_path: str | None = None, timeout: float = 10.0) -> bool:
+    """Ask the daemon to exit; True once it has answered (the JAX
+    package's API).  :func:`stop_state` tells a busy daemon from none."""
+    return stop_state(socket_path, timeout) == "stopped"
 
 
 def _reads_stdin(argv: list[str]) -> bool:

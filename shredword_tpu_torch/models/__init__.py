@@ -1,0 +1,1 @@
+from .bpe import BPETrainer  # noqa: F401

@@ -129,9 +129,10 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_encode_chunks.restype = i
     L.shred_encode_pack.argtypes = [p] * 4 + [i, p, i, p]
     L.shred_encode_pack.restype = i
-    L.shred_unigram_fb.argtypes = [p] * 4 + [i] * 3 + [p] * 4
+    L.shred_unigram_fb.argtypes = ([p, p, i, p, p] + [i] * 3 + [p, p, i]
+                                   + [p] * 4)
     L.shred_unigram_fb.restype = i
-    L.shred_unigram_viterbi.argtypes = [p] * 3 + [i] * 3 + [p] * 6
+    L.shred_unigram_viterbi.argtypes = [p] * 3 + [i] * 3 + [p] * 5
     L.shred_unigram_viterbi.restype = i
     L.shred_giant_sharded_train.argtypes = [p] * 9 + [i] * 13 + [p]
     L.shred_giant_sharded_train.restype = i

@@ -16,11 +16,20 @@ Only the cells inside a word count (j + k + 1 <= its length), as
 expected count of every piece and the corpus log-likelihood) and
 :func:`viterbi_core` its ``_viterbi_device`` plus the host backtrace of
 ``viterbi``; on a CUDA tensor each launches its kernel of
-``csrc/unigram.cu`` (one thread per word), on a CPU tensor its plain
+``csrc/unigram.cu`` (sixteen lanes per word), on a CPU tensor its plain
 version (:func:`fb_core_plain`, :func:`viterbi_core_plain`).  The DP is
 float32 in the JAX package's order of operations, with its subnormal
 posteriors flushed to zero as XLA flushes them; the expected counts and
-the log-likelihood are accumulated in float64 on both sides.
+the log-likelihood are accumulated in float64 on both sides.  U1 sums
+the counts of a slab's most frequent pieces (:func:`hot_ids`, kept with
+the resident table) per block in shared memory.
+
+One departure from the JAX package, in both versions: a posterior whose
+product with its word's count overflows float32 counts as the word's
+count (posterior 1).  It overflows only where a word's alpha is -1e30
+or below (a word split only through pieces pruned to logp -1e30), where
+the JAX package counts inf and its next M-step gives NaN log-probs;
+wherever its counts are finite the results are the same.
 
 Left out of the port: the JAX package's power-of-two buckets of W and of
 the piece count (``_pow2``, ``nb``), which existed only to share XLA
@@ -33,6 +42,8 @@ package's "cpu" backend, copied.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -43,8 +54,10 @@ from . import _kernels
 NEG_INF = float("-inf")
 FLT_MIN = float(np.finfo(np.float32).tiny)      # smallest normal float32
 MAX_K = 15              # csrc/unigram.cu's KMAX, UnigramConfig's limit
-LOCAL_L = 64            # the longest L the kernels keep in registers and
-                        # local memory; a longer one takes global scratch
+LOCAL_L = 64            # the longest L the kernels keep in shared
+                        # memory; a longer one takes global scratch
+HOT_IDS = 1024          # csrc/unigram.cu's HOT_MAX: the ids a block of
+                        # U1 sums in shared memory
 
 
 # ---------------------------------------------------------------------
@@ -118,14 +131,35 @@ def _fb_numpy(ids_s, ids_e, lp_ext, wlen, wcount, n_pieces: int):
 # renumber), so it lives on the device for the whole training run: built
 # once per slab and remapped by a gather at every prune.
 
+class HotIds(NamedTuple):
+    """The piece ids to which U1 gives per-block shared accumulators."""
+
+    ids: torch.Tensor           # int32 [H], H <= HOT_IDS, distinct
+    slot: torch.Tensor          # int32 [S], S > every id of the table:
+                                # slot[ids[i]] == i, else -1
+
+
+def hot_ids(ids: torch.Tensor, h: int = HOT_IDS) -> HotIds:
+    """The ``h`` piece ids that fill the most cells of a table (ties to
+    the smaller id), and the map from every id to its place among them.
+    On the table's device."""
+    dev = ids.device
+    occ = torch.bincount(ids[ids >= 0].long())
+    top = torch.argsort(occ, descending=True, stable=True)[:h]
+    slot = torch.full((occ.shape[0],), -1, dtype=torch.int32, device=dev)
+    slot[top] = torch.arange(top.shape[0], dtype=torch.int32, device=dev)
+    return HotIds(top.to(torch.int32), slot)
+
+
 class DeviceTable:
-    """One slab's resident lattice table."""
+    """One slab's resident lattice table, with its hot ids."""
 
     def __init__(self, ids, wlen, wcount, n_words: int):
         self.ids = ids              # int32 [L, K, W], -1 = absent
         self.wlen = wlen            # int32 [W]
         self.wcount = wcount        # float32 [W]
         self.n_words = n_words      # words (== W: the port pads nothing)
+        self.hot = hot_ids(ids)
 
 
 def _device_ids(table: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -184,11 +218,11 @@ def remap_device_table(dt: DeviceTable, perm: np.ndarray) -> DeviceTable:
 # the kernels' wrappers
 # ---------------------------------------------------------------------
 
-def _check_lattice(ids, lp, wlen, wcount=None) -> None:
+def _check_lattice(ids, lp, wlen, wcount=None) -> int:
     """Types, shapes and values every lattice kernel takes: ids int32
     [L, K, W] with 1 <= K <= 15 and every id below len(lp); lp float32;
     wlen int32 [W] in [0, L]; wcount float32 [W]; contiguous, one
-    device."""
+    device.  Returns the table's largest id (-1 when it has none)."""
     if ids.dtype != torch.int32 or lp.dtype != torch.float32 \
             or wlen.dtype != torch.int32 \
             or (wcount is not None and wcount.dtype != torch.float32):
@@ -217,10 +251,33 @@ def _check_lattice(ids, lp, wlen, wcount=None) -> None:
         if lmax > L or lmin < 0:
             raise ValueError(f"word lengths must be in [0, L={L}], got "
                              f"[{lmin}, {lmax}]")
+        return hi
+    return -1
+
+
+def _check_hot(hot: HotIds, hi: int, device) -> None:
+    """What U1 takes as hot ids: int32 vectors on the table's device, at
+    most HOT_IDS ids, and a slot for every id up to ``hi``, the table's
+    largest.  Their values are not read back: the kernel is safe with
+    any, and :func:`hot_ids` builds a map whose counts are right."""
+    ids, slot = hot
+    if ids.dtype != torch.int32 or slot.dtype != torch.int32 \
+            or ids.dim() != 1 or slot.dim() != 1:
+        raise TypeError("hot ids and slots must be int32 vectors")
+    if ids.device != device or slot.device != device \
+            or not (ids.is_contiguous() and slot.is_contiguous()):
+        raise ValueError("hot ids and slots must be contiguous, on the "
+                         "table's device")
+    if ids.shape[0] > HOT_IDS:
+        raise ValueError(f"at most {HOT_IDS} hot ids, got {ids.shape[0]}")
+    if slot.shape[0] <= hi:
+        raise ValueError(f"hot slots must cover every id up to {hi}, got "
+                         f"{slot.shape[0]}")
 
 
 def fb_core(ids: torch.Tensor, lp: torch.Tensor, wlen: torch.Tensor,
-            wcount: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            wcount: torch.Tensor, hot: HotIds | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The E-step over one slab: the expected count of every piece
     (float64 [n_pieces]: the posterior of each occurrence times its
     word's count) and the corpus log-likelihood (float64 [], alpha[len]
@@ -228,11 +285,15 @@ def fb_core(ids: torch.Tensor, lp: torch.Tensor, wlen: torch.Tensor,
 
     ids int32 [L, K, W], lp float32 [n_pieces] (the pieces' log
     probabilities; -1e30 for a piece pruned to zero counts, finite),
-    wlen int32 [W], wcount float32 [W].  Replaces the JAX package's
-    ``unigram_ops._fb_core``.  CPU tensors run :func:`fb_core_plain`;
-    CUDA tensors run ``csrc/unigram.cu``'s ``fb_kernel`` (U1), one launch,
-    which counts."""
-    _check_lattice(ids, lp, wlen, wcount)
+    wlen int32 [W], wcount float32 [W]; ``hot``, the ids that U1 sums
+    per block in shared memory, as :func:`hot_ids` builds them (the
+    table's :class:`DeviceTable` ``.hot``; computed here when None).
+    Replaces the JAX package's ``unigram_ops._fb_core``.  CPU tensors run
+    :func:`fb_core_plain`; CUDA tensors run ``csrc/unigram.cu``'s
+    ``fb_kernel`` (U1), one launch, which counts."""
+    hi = _check_lattice(ids, lp, wlen, wcount)
+    if hot is not None:
+        _check_hot(hot, hi, ids.device)
     if ids.device.type == "cpu":
         return fb_core_plain(ids, lp, wlen, wcount)
     L, K, W = ids.shape
@@ -241,13 +302,17 @@ def fb_core(ids: torch.Tensor, lp: torch.Tensor, wlen: torch.Tensor,
     ll = torch.zeros(1, dtype=torch.float64, device=dev)
     if W == 0:
         return counts, ll[0]
-    scratch = (torch.empty(2 * (L + 1) * W, dtype=torch.float32,
-                           device=dev) if L > LOCAL_L else None)
+    if hot is None:
+        hot = hot_ids(ids)
+    H = hot.ids.shape[0]
+    scratch = (torch.empty((L + 1) * W, dtype=torch.float32, device=dev)
+               if L > LOCAL_L else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _kernels._check(_kernels.lib().shred_unigram_fb(
-            ids.data_ptr(), lp.data_ptr(), wlen.data_ptr(),
-            wcount.data_ptr(), L, K, W,
+            ids.data_ptr(), lp.data_ptr(), lp.shape[0], wlen.data_ptr(),
+            wcount.data_ptr(), L, K, W, hot.ids.data_ptr() if H else None,
+            hot.slot.data_ptr() if H else None, H,
             None if scratch is None else scratch.data_ptr(),
             counts.data_ptr(), ll.data_ptr(), stream))
     fb_core.launches += 1
@@ -284,17 +349,14 @@ def viterbi_core(ids: torch.Tensor, lp: torch.Tensor, wlen: torch.Tensor,
         count = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return out, count, final
-    score = back = None
-    if L > LOCAL_L:
-        score = torch.empty((L + 1) * W, dtype=torch.float32, device=dev)
-        back = torch.empty((L + 1) * W, dtype=torch.uint8, device=dev)
+    back = (torch.empty((L + 1) * W, dtype=torch.uint8, device=dev)
+            if backtrace and L > LOCAL_L else None)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _kernels._check(_kernels.lib().shred_unigram_viterbi(
             ids.data_ptr(), lp.data_ptr(), wlen.data_ptr(), L, K, W,
-            ptr(score), ptr(back), ptr(out), ptr(count), final.data_ptr(),
-            stream))
+            ptr(back), ptr(out), ptr(count), final.data_ptr(), stream))
     viterbi_core.launches += 1
     return out, count, final
 
@@ -346,7 +408,8 @@ def fb_core_plain(ids, lp, wlen, wcount) -> tuple[torch.Tensor,
                                                   torch.Tensor]:
     """Plain PyTorch version of :func:`fb_core`: the same float32 DP, the
     positions in lockstep over every word, and an ``index_add_`` of the
-    posteriors into float64 counts."""
+    posteriors into float64 counts.  A posterior whose product with the
+    count overflows counts as the word's count, as in the kernel."""
     L, K, W = ids.shape
     dev = ids.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -369,6 +432,8 @@ def fb_core_plain(ids, lp, wlen, wcount) -> tuple[torch.Tensor,
     ok = torch.isfinite(lpc) & torch.isfinite(norm)[None, None, :]
     post = _flush(_flush(torch.exp(((alpha[:L, None, :] + lpc) + beta[end])
                                    - norm[None, None, :])) * wcount)
+    # an overflowed posterior counts as 1 (see the module's notes)
+    post = torch.where(torch.isfinite(post), post, wcount)
     counts = torch.zeros(lp.shape[0], dtype=torch.float64, device=dev)
     counts.index_add_(0, ids[ok].long(), post[ok].double())
     fin = torch.isfinite(norm)
@@ -423,7 +488,7 @@ def forward_backward_resident(dt: DeviceTable, logp: np.ndarray,
     resident slab, :func:`fb_core` on its device."""
     lp = torch.from_numpy(np.asarray(logp[:n_pieces], np.float32)).to(
         dt.ids.device)
-    counts, ll = fb_core(dt.ids, lp, dt.wlen, dt.wcount)
+    counts, ll = fb_core(dt.ids, lp, dt.wlen, dt.wcount, dt.hot)
     return counts.cpu().numpy(), float(ll)
 
 

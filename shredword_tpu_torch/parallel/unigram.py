@@ -49,7 +49,8 @@ def sharded_forward_backward(dt: unigram_ops.DeviceTable,
     then one all_reduce on the table's device."""
     lp = torch.from_numpy(np.asarray(logp[:n_pieces], np.float32)).to(
         dt.ids.device)
-    counts, ll = unigram_ops.fb_core(dt.ids, lp, dt.wlen, dt.wcount)
+    counts, ll = unigram_ops.fb_core(dt.ids, lp, dt.wlen, dt.wcount,
+                                     dt.hot)
     buf = torch.cat([counts, ll[None]])
     dist.all_reduce(buf, group=group)
     out = buf.cpu().numpy()

@@ -79,6 +79,14 @@ def _declare(L: ctypes.CDLL) -> None:
     L.shred_trainer_token_count.restype = i64
     L.shred_trainer_export_tokens.argtypes = [p, p, p]
     L.shred_trainer_export_tokens.restype = None
+    L.shred_trainer_save.argtypes = [p, ctypes.c_char_p, ctypes.c_char_p]
+    L.shred_trainer_save.restype = i32
+    L.shred_trainer_token_freqs.argtypes = [p, p, i64]
+    L.shred_trainer_token_freqs.restype = None
+    L.shred_trainer_kept_chars.argtypes = [p]
+    L.shred_trainer_kept_chars.restype = i32
+    L.shred_trainer_unique_chars.argtypes = [p]
+    L.shred_trainer_unique_chars.restype = i32
     L.shred_trainer_free.argtypes = [p]
     L.shred_trainer_free.restype = None
 
@@ -245,12 +253,35 @@ class FaithfulTrainer:
         lib().shred_trainer_get_merge_freqs(self._h, _ptr(out))
         return out
 
+    def save(self, model_path: str, vocab_path: str) -> None:
+        """The reference's ``.model`` and ``.vocab`` files."""
+        rc = lib().shred_trainer_save(self._h, model_path.encode(),
+                                      vocab_path.encode())
+        if rc != 0:
+            raise IOError("save failed")
+
     def tokens(self) -> tuple[np.ndarray, np.ndarray]:
         n = lib().shred_trainer_token_count(self._h)
         toks = np.empty(n, dtype=np.int32)
         wids = np.empty(n, dtype=np.int32)
         lib().shred_trainer_export_tokens(self._h, _ptr(toks), _ptr(wids))
         return toks, wids
+
+    def token_freqs(self) -> np.ndarray:
+        """The frequency of every token id (the 256 bytes, then the
+        merges) in the trained corpus, uint64."""
+        n = 256 + self.num_merges
+        out = np.zeros(n, dtype=np.uint64)
+        lib().shred_trainer_token_freqs(self._h, _ptr(out), n)
+        return out
+
+    @property
+    def kept_chars(self) -> int:
+        return lib().shred_trainer_kept_chars(self._h)
+
+    @property
+    def unique_chars(self) -> int:
+        return lib().shred_trainer_unique_chars(self._h)
 
     def free(self) -> None:
         if self._h:

@@ -1,0 +1,2 @@
+from . import logging  # noqa: F401
+from .logging import Timer  # noqa: F401

@@ -12,7 +12,8 @@ import pytest
 import torch
 from torch_encode_cases import FHUS, random_chunks, random_merges
 from torch_pretok_cases import all_inputs, code_points
-from torch_unigram_cases import LATTICES, random_lattice
+from torch_unigram_cases import (LATTICES, OVERFLOW_CONFIG, OVERFLOW_TEXT,
+                                 overflow_lattice, random_lattice)
 
 from shredword_tpu_torch import (BPETrainer, Tokenizer, UnigramTokenizer,
                                  UnigramTrainer)
@@ -522,19 +523,21 @@ def test_tokenizer_on_cuda_matches_cpu(cuda):
 # ---------------------------------------------------------------------
 
 def _lattice_on(dev, case):
-    table, wlen, wcount, logp = random_lattice(case)
+    table, wlen, wcount, logp = (overflow_lattice() if case == "overflow"
+                                 else random_lattice(case))
     dt = unigram_ops.make_device_table(table, wlen, wcount, dev)
     return (dt.ids, torch.from_numpy(logp.astype(np.float32)).to(dev),
             dt.wlen, dt.wcount)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(LATTICES))
+@pytest.mark.parametrize("case", sorted(LATTICES) + ["overflow"])
 def test_unigram_kernels_match_plain(case, cuda):
     """U1 within rtol=1e-5, atol=1e-6 of its plain version (both sum in
-    float64; their float32 posteriors may differ by an ulp of expf) and
-    its log-likelihood within 1e-6 relative; U2 identical.  "long_l70"
-    runs the kernels' global-scratch mode."""
+    float64; their float32 log-sum-exps sum in other orders) and its
+    log-likelihood within 1e-6 relative; U2 identical.  "long_l70" runs
+    the kernels' global-scratch mode; "overflow" U1's overflowed
+    posteriors (counted as 1)."""
     cpu = _lattice_on("cpu", case)
     dev = _lattice_on(cuda, case)
     n0 = (unigram_ops.fb_core.launches, unigram_ops.viterbi_core.launches)
@@ -550,6 +553,53 @@ def test_unigram_kernels_match_plain(case, cuda):
     assert torch.equal(final, got[2])
     assert (unigram_ops.fb_core.launches - n0[0],
             unigram_ops.viterbi_core.launches - n0[1]) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "rows32", "long_l70"])
+def test_unigram_fb_with_any_hot_ids(case, cuda):
+    """U1 with no hot ids, a few and the table's own (every id's count
+    in shared memory or straight in global memory) agrees with its plain
+    version as in test_unigram_kernels_match_plain, and so does a map
+    with slots outside [0, H) (counted as none) and hot ids outside
+    [0, n) (never added)."""
+    cpu = _lattice_on("cpu", case)
+    dev = _lattice_on(cuda, case)
+    want_c, want_ll = unigram_ops.fb_core_plain(*cpu)
+    n = dev[1].shape[0]
+    slot = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    slot[3], slot[5], slot[9] = 2, 7, -5
+    odd = unigram_ops.HotIds(
+        torch.tensor([n + 5, -1, 3], dtype=torch.int32, device=cuda), slot)
+    for hot in [unigram_ops.hot_ids(dev[0], h)
+                for h in (0, 7, unigram_ops.HOT_IDS)] + [odd]:
+        counts, ll = unigram_ops.fb_core(*dev, hot=hot)
+        torch.testing.assert_close(counts.cpu(), want_c, rtol=1e-5,
+                                   atol=1e-6)
+        assert abs(float(ll) - float(want_ll)) <= 1e-6 * abs(float(want_ll))
+
+
+@pytest.mark.cuda
+def test_unigram_overflow_corpus_on_cuda(cuda, tmp_path):
+    """Training reaches words split only through pruned pieces: U1 gives
+    a finite model that encodes its corpus, with the pieces of the plain
+    versions' run."""
+    (tmp_path / "c.txt").write_text(OVERFLOW_TEXT)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = UnigramTrainer(**OVERFLOW_CONFIG, device=dev)
+        t.load_corpus(str(tmp_path / "c.txt"))
+        t.train()
+        assert np.isfinite(t.log_probs).all() and np.isfinite(t.final_ll)
+        out[str(dev)] = t
+    a, b = out.values()
+    assert a.pieces == b.pieces
+    np.testing.assert_allclose(a.log_probs, b.log_probs, rtol=1e-5,
+                               atol=1e-5)
+    b.save(str(tmp_path / "u.model"))
+    tok = UnigramTokenizer.load(str(tmp_path / "u.model"), device=cuda)
+    assert tok.decode(tok.encode_array(OVERFLOW_TEXT)) \
+        == OVERFLOW_TEXT.lower()
 
 
 @pytest.mark.cuda

@@ -278,15 +278,29 @@ def test_stop_on_a_busy_server_is_not_not_running(tmp_path):
     hold = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     try:
         hold.connect(sock)       # an unfinished request keeps it busy
-        assert daemon.stop(sock, timeout=1.0) == "busy"
+        assert daemon.stop_state(sock, timeout=1.0) == "busy"
         assert proc.poll() is None and daemon.alive(sock)
     finally:
         hold.close()
     assert proc.wait(timeout=60) == 0
-    assert daemon.stop(sock) == "not running"
+    assert daemon.stop_state(sock) == "not running"
     assert _cli_out(["daemon", "stop", "--socket", sock]) == \
         (1, "no daemon running\n")
     assert _cli_out(["daemon", "status", "--socket", sock]) == \
+        (1, "no daemon running\n")
+
+
+def test_stop_returns_a_bool_as_the_jax_package(tmp_path):
+    """stop() answers True once the daemon has stopped and False when
+    none runs, as the JAX package's stop() does; the CLI prints the
+    three-way stop_state()."""
+    sock = str(tmp_path / "s.sock")
+    proc = _spawn(sock, str(tmp_path / "s.log"))
+    assert daemon.stop(sock) is True
+    assert proc.wait(timeout=60) == 0
+    assert daemon.stop(sock) is False
+    assert jax_daemon.stop(sock) is False
+    assert _cli_out(["daemon", "stop", "--socket", sock]) == \
         (1, "no daemon running\n")
 
 

@@ -208,6 +208,58 @@ def test_wrappers_reject_bad_input():
             fn(ids, lp, wlen[:5], *args[3:])
 
 
+@pytest.mark.parametrize("case", sorted(LATTICES))
+def test_hot_ids_are_the_most_frequent(case):
+    """U1's hot ids: the table's HOT_IDS ids that fill the most cells
+    (ties to the smaller id), their slots, recomputed by a remap."""
+    table, wlen, wcount, _ = random_lattice(case)
+    n = LATTICES[case][4]
+    dt = unigram_ops.make_device_table(table, wlen, wcount, "cpu")
+    occ = np.bincount(table[table >= 0])
+    want = np.argsort(-occ, kind="stable")[:unigram_ops.HOT_IDS]
+    hot, slot = dt.hot
+    assert hot.dtype == slot.dtype == torch.int32
+    np.testing.assert_array_equal(hot.numpy(), want)
+    assert len(slot) == table.max() + 1
+    np.testing.assert_array_equal(slot.numpy()[want], np.arange(len(want)))
+    assert (slot >= 0).sum() == len(want)
+    few = unigram_ops.hot_ids(dt.ids, 5)
+    np.testing.assert_array_equal(few.ids.numpy(), want[:5])
+    keep = np.random.RandomState(3).rand(n) < 0.5
+    perm = np.where(keep, np.cumsum(keep) - 1, -1).astype(np.int32)
+    got = unigram_ops.remap_device_table(dt, perm)
+    again = unigram_ops.hot_ids(got.ids)
+    assert torch.equal(got.hot.ids, again.ids)
+    assert torch.equal(got.hot.slot, again.slot)
+
+
+def test_fb_core_rejects_bad_hot_ids():
+    """fb_core raises on hot ids the kernel does not take: other types or
+    ranks, more than HOT_IDS, slots short of the table's largest id,
+    non-contiguous vectors."""
+    ids, lp, wlen, wcount = _port_tensors(*random_lattice("mixed"))
+    hot = unigram_ops.hot_ids(ids, 50)
+    want = unigram_ops.fb_core_plain(ids, lp, wlen, wcount)
+    for h in (hot, unigram_ops.hot_ids(ids, 0)):
+        got = unigram_ops.fb_core(ids, lp, wlen, wcount, h)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    H = unigram_ops.HOT_IDS
+    bad = {
+        TypeError: [hot._replace(ids=hot.ids.long()),
+                    hot._replace(slot=hot.slot[None])],
+        ValueError: [
+            unigram_ops.HotIds(torch.arange(H + 1, dtype=torch.int32),
+                               hot.slot),
+            hot._replace(slot=hot.slot[:int(ids.max())]),
+            hot._replace(ids=hot.ids.repeat(2)[::2]),
+        ],
+    }
+    for err, cases in bad.items():
+        for h in cases:
+            with pytest.raises(err):
+                unigram_ops.fb_core(ids, lp, wlen, wcount, h)
+
+
 def test_cuda_entry_points_need_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -8,6 +8,20 @@ import numpy as np
 
 PRUNED = -1e30      # the trainer's logp of a piece pruned to zero counts
 
+# A corpus whose training reaches words split only through pruned pieces
+# (16 words, each written `count` times), and its trainer config: the
+# JAX package's device E-step overflows there and its model has NaN
+# log-probs; the port's gives the float64 "cpu" backend's model.
+OVERFLOW_WORDS = {
+    "ca中文Ab": 898, "Ab": 234, "x": 128, "tzzer": 98, "AB": 86,
+    "23sasqua": 82, "1ABAB中文": 76, "23😀": 75, "1quAbaing": 64,
+    "onontont": 64, "t": 54, "😀quing": 52, "ABa": 40, "xABer": 36,
+    "quABa": 33, "😀theéABx": 29}
+OVERFLOW_TEXT = " ".join(w for w, c in OVERFLOW_WORDS.items()
+                         for _ in range(c))
+OVERFLOW_CONFIG = dict(target_vocab_size=20, seed_size=5000,
+                       max_word_len=32, num_em_rounds=3)
+
 # name: (seed, W, L, K, n_pieces)
 LATTICES = {
     "mixed": (0, 300, 16, 15, 400),
@@ -57,3 +71,22 @@ def random_lattice(name: str):
         table[4, 0, 1] = np.nonzero(pruned)[0][0]
     wcount = rng.randint(1, 50, W).astype(np.float32)
     return table.astype(np.int32), wlen, wcount, logp
+
+
+def overflow_lattice():
+    """The "pruned_path" lattice with 16 words appended, of lengths 1..16,
+    each with one path: single bytes through the first four pruned pieces
+    (logp -1e30) in turn.  Their alphas reach -1.6e31, where one float32
+    ulp is near 1e24, so the posteriors ((alpha + lp) + beta) - norm of
+    the longer ones are far from 0 and the JAX package's E-step counts
+    inf there.  Same tuple as :func:`random_lattice`."""
+    table, wlen, wcount, logp = random_lattice("pruned_path")
+    W, L, K = table.shape
+    pruned = np.nonzero(logp == np.float64(PRUNED))[0][:4]
+    extra = np.full((16, L, K), -1, np.int32)
+    elen = np.arange(1, 17, dtype=np.int32)
+    for w, n in enumerate(elen):
+        extra[w, :n, 0] = pruned[np.arange(n) % 4]
+    ecount = np.random.RandomState(7).randint(1, 900, 16).astype(np.float32)
+    return (np.concatenate([table, extra]), np.concatenate([wlen, elen]),
+            np.concatenate([wcount, ecount]), logp)
