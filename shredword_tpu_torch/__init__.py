@@ -8,7 +8,7 @@ kernel on a CUDA device (``csrc/hist_fused.cu`` up to vocab 4096,
 on the CPU.  Sharded training runs over ``torch.distributed``
 (``parallel/``).  ``Tokenizer`` keeps the JAX package's encode/decode/
 save/load API and ids; its device encoder's merge loop is
-``csrc/encode.cu`` (one thread per chunk).  ``UnigramTrainer`` and
+``csrc/encode.cu`` (lane groups per chunk).  ``UnigramTrainer`` and
 ``UnigramTokenizer`` keep the JAX package's Unigram API, pieces and
 model file; their lattice forward-backward (the EM E-step) and Viterbi
 are ``csrc/unigram.cu`` (sixteen lanes per word), and sharded EM runs over

@@ -139,8 +139,10 @@ def bind(path: str) -> ctypes.CDLL:
     for f in (L.shred_giant_sharded_apply_pick, L.shred_giant_sharded_merge):
         f.argtypes = [p] * 9 + [i] * 14 + [p]
         f.restype = i
-    L.shred_gpt_starts_mask.argtypes = [p, i, p, p, p, p]
+    L.shred_gpt_starts_mask.argtypes = [p, i, p, p, p]
     L.shred_gpt_starts_mask.restype = i
+    L.shred_gpt_status_ints.argtypes = [i]
+    L.shred_gpt_status_ints.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
     return L

@@ -11,7 +11,7 @@ left to right, until no adjacent pair is a known merge.
 replaces the JAX package's XLA merge loops, ``_encode_core`` (through
 ``_encode_device`` and ``_encode_device_hash``) and ``encode_flat``
 (through ``encode_chunks``): on a CUDA tensor it runs
-``csrc/encode.cu`` (one thread per chunk; chunks of any length), on a
+``csrc/encode.cu`` (lane groups per chunk; chunks of any length), on a
 CPU tensor its plain versions, :func:`encode_core_plain` (chunks of at
 most ``MAX_TW_LEN`` bytes, the locked-pair rounds over an [L, W] layout)
 and :func:`encode_flat_plain` (any length, the flat-stream rounds).
@@ -19,7 +19,7 @@ and :func:`encode_flat_plain` (any length, the flat-stream rounds).
 The host entry points (:func:`encode_stream`, :func:`encode_ws_text`,
 :func:`encode_chunks`) are the JAX package's, less what existed only for
 XLA or the TPU: no power-of-two shape buckets, no length-bucketed blocks
-(one thread per chunk has no [L, W] block to fill), no 2 GiB stream
+(the kernel sorts no chunk into an [L, W] block), no 2 GiB stream
 windows (the kernel takes int64 offsets), no splice of chunks over 64
 bytes (the kernel takes any length) and no dedup of repeated chunks (on
 the H100 encoding every chunk is faster).  Ids and the per-group split
@@ -200,9 +200,11 @@ def encode_core(flat: torch.Tensor, lens: torch.Tensor, table, *, v: int,
     bytes) and ``encode_flat`` (through ``encode_chunks``, any length).
     CPU tensors run :func:`encode_core_plain` when every chunk is at most
     ``MAX_TW_LEN`` bytes, else :func:`encode_flat_plain`; CUDA tensors
-    run ``csrc/encode.cu``: one launch that merges every chunk (one
-    thread per chunk) and one that packs the ids, with a ``torch.cumsum``
-    of the counts between them.  Each launch counts.  A given
+    run ``csrc/encode.cu``: one launch that merges every chunk (lane
+    groups by chunk length) and one that packs the ids, with a
+    ``torch.cumsum`` of the counts between them; two launches per call,
+    each counted in ``.launches``, and the host reads the ids' length
+    once, after both.  A given
     ``lookups`` (int64 [1] on the card) gets the kernel's rank lookups
     added to it."""
     dense = not isinstance(table, MergeTable)
@@ -260,12 +262,14 @@ def encode_core(flat: torch.Tensor, lens: torch.Tensor, table, *, v: int,
             None if lookups is None else lookups.data_ptr(), stream))
         encode_core.launches += 1
         ends = torch.cumsum(counts, 0, dtype=torch.int64)
-        out = torch.empty(int(ends[-1]), dtype=out_dtype(v), device=dev)
+        # at most one id a byte: pack into n slots, then read the length
+        # once both launches are queued
+        out = torch.empty(n, dtype=out_dtype(v), device=dev)
         _kernels._check(k.shred_encode_pack(
             tok.data_ptr(), start.data_ptr(), counts.data_ptr(),
             ends.data_ptr(), W, out.data_ptr(), out.element_size(), stream))
         encode_core.launches += 1
-    return out, counts
+    return out[:int(ends[-1])], counts
 
 
 encode_core.launches = 0

@@ -289,7 +289,7 @@ def gpt_chunk_lens_bytes(data: bytes) -> np.ndarray:
 # algebra.  Input is the int8 class array (class 16 = out of text) and
 # the true length n; output is the boolean match-start mask.
 
-GPT_TILE = 1024          # csrc/pretok.cu: positions per block
+GPT_TILE = 16384         # csrc/pretok.cu: positions per block
 GPT_MAX_N = 2**30        # csrc/pretok.cu keys a run start as 2 p + bit
 
 
@@ -436,6 +436,22 @@ def gpt_starts_mask_plain(cls: torch.Tensor, n: int) -> torch.Tensor:
     return out & intext
 
 
+_status: dict = {}       # (device, stream) -> P1's tile-status array
+
+
+def p1_status(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """P1's tile-status array for n positions on ``stream`` of ``dev``:
+    int32, zeroed when allocated, then kept and grown per stream, since
+    each call leaves it ready for the next call on its stream."""
+    need = _kernels.lib().shred_gpt_status_ints(n)
+    key = (dev, stream)
+    buf = _status.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.int32, device=dev)
+        _status[key] = buf
+    return buf
+
+
 def gpt_starts_mask(cls: torch.Tensor, n: int) -> torch.Tensor:
     """The GPT pattern's match-start mask: bool [N] for int8 classes
     ``cls`` [N] (:func:`class_table` values) of which the first ``n`` are
@@ -444,9 +460,9 @@ def gpt_starts_mask(cls: torch.Tensor, n: int) -> torch.Tensor:
     Replaces the JAX package's ``gpt_starts_mask_jnp``
     (``shredword_tpu/ops/pretok_ops.py:313``, XLA).  CPU tensors run
     :func:`gpt_starts_mask_plain`; CUDA tensors run ``csrc/pretok.cu``
-    (P1): three launches per call with n >= 1 (the tiles' scan totals,
-    their carries, then the scans and the mask), each counted in
-    ``.launches``."""
+    (P1): two launches per call with n >= 1 (the tiles' totals and
+    forward carries, then the reverse carries and the mask), each
+    counted in ``.launches``."""
     if cls.dtype != torch.int8 or cls.dim() != 1:
         raise TypeError("cls must be int8 [N]")
     N = cls.shape[0]
@@ -463,15 +479,12 @@ def gpt_starts_mask(cls: torch.Tensor, n: int) -> torch.Tensor:
     if n == 0:
         return out
     text = cls[:n].contiguous()
-    nt = -(-n // GPT_TILE)
-    agg = torch.empty(6 * nt, dtype=torch.int32, device=dev)
-    carry = torch.empty_like(agg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        status = p1_status(dev, stream, n)
         _kernels._check(_kernels.lib().shred_gpt_starts_mask(
-            text.data_ptr(), n, agg.data_ptr(), carry.data_ptr(),
-            out.data_ptr(), stream))
-    gpt_starts_mask.launches += 3
+            text.data_ptr(), n, status.data_ptr(), out.data_ptr(), stream))
+    gpt_starts_mask.launches += 2
     return out
 
 

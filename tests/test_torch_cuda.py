@@ -10,7 +10,8 @@ there with
 import numpy as np
 import pytest
 import torch
-from torch_encode_cases import FHUS, random_chunks, random_merges
+from torch_encode_cases import (FHUS, boundary_cases, random_chunks,
+                                random_merges)
 from torch_pretok_cases import all_inputs, code_points
 from torch_unigram_cases import (LATTICES, OVERFLOW_CONFIG, OVERFLOW_TEXT,
                                  overflow_lattice, random_lattice)
@@ -496,6 +497,53 @@ def test_encode_kernel_matches_plain(case, cuda):
     assert int(lookups) >= int((lens - 1).sum())
 
 
+def _edge_case(case):
+    """(flat, lens, merges) of a length-class edge case: the shared ones,
+    a stream with no chunk over one byte (and empty chunks), and one with
+    every chunk over 64 bytes."""
+    if case in ("one_byte", "all_long"):
+        merges = random_merges(31, 500)
+        if case == "all_long":
+            return (*random_chunks(32, 0, n_long=60), merges)
+        lens = np.random.RandomState(33).randint(0, 2, 5000)
+        return (np.frombuffer(b"ab" * 5000, np.uint8)[:lens.sum()].copy(),
+                lens, merges)
+    return boundary_cases()[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "hash"])
+@pytest.mark.parametrize("case", sorted(boundary_cases())
+                         + ["one_byte", "all_long"])
+def test_encode_kernel_length_class_edges(case, kind, cuda):
+    """E1 against its plain versions on the edges of its length classes
+    (tests/torch_encode_cases.py), on one-byte chunks only and on chunks
+    over 64 bytes only, with the dense and the hash table; the lookups
+    the kernel counts are one per pair of a chunk at least."""
+    flat, lens, merges = _edge_case(case)
+    v = 256 + len(merges)
+    out = {}
+    for dev in ("cpu", cuda):
+        table = (encode_ops.build_rank_table(merges, v, dev)
+                 if kind == "dense"
+                 else encode_ops.build_merge_table(merges, dev))
+        args = (torch.from_numpy(flat).to(dev),
+                torch.from_numpy(lens.astype(np.int32)).to(dev), table)
+        n0 = encode_ops.encode_core.launches
+        out[dev] = encode_ops.encode_core(*args, v=v)
+        assert encode_ops.encode_core.launches - n0 == (2 if dev == cuda
+                                                        else 0)
+    (ip, cp), (ik, ck) = out["cpu"], out[cuda]
+    torch.testing.assert_close(ck.cpu(), cp, rtol=0, atol=0)
+    torch.testing.assert_close(ik.cpu(), ip, rtol=0, atol=0)
+    lookups = torch.zeros(1, dtype=torch.int64, device=cuda)
+    encode_ops.encode_core(*args, v=v, lookups=lookups)
+    assert int(lookups) >= int(np.maximum(lens - 1, 0).sum())
+    if case == "one_byte":
+        assert int(lookups) == 0 and torch.equal(cp, torch.from_numpy(
+            lens.astype(np.int32)))
+
+
 @pytest.mark.cuda
 def test_tokenizer_on_cuda_matches_cpu(cuda):
     merges = random_merges(7, 600, alpha=26)
@@ -636,8 +684,9 @@ def test_unigram_trainer_on_cuda_matches_cpu(cuda, tmp_path):
 @pytest.mark.cuda
 def test_gpt_splitter_kernel_matches_plain(cuda):
     """P1's mask equals its plain version's on the splitter's seeded
-    inputs (cases, fuzz strings, long runs across tiles), three launches
-    a call, and the device splitter's starts equal the host splitter's."""
+    inputs (cases, fuzz strings, long runs across tiles and their edges),
+    two launches a call, and the device splitter's starts equal the host
+    splitter's."""
     table = pretok_ops.class_table()
     for s in all_inputs():
         cp = code_points(s)
@@ -645,7 +694,7 @@ def test_gpt_splitter_kernel_matches_plain(cuda):
         padded = torch.cat([cls, torch.full((5,), 16, dtype=torch.int8)])
         n0 = pretok_ops.gpt_starts_mask.launches
         got = pretok_ops.gpt_starts_mask(padded.to(cuda), len(cp))
-        assert pretok_ops.gpt_starts_mask.launches - n0 == 3
+        assert pretok_ops.gpt_starts_mask.launches - n0 == 2
         want = pretok_ops.gpt_starts_mask_plain(padded, len(cp))
         assert torch.equal(got.cpu(), want), repr(s[:40])
         np.testing.assert_array_equal(
@@ -653,3 +702,24 @@ def test_gpt_splitter_kernel_matches_plain(cuda):
             pretok_ops.gpt_starts(cp))
     empty = torch.full((4,), 16, dtype=torch.int8, device=cuda)
     assert not pretok_ops.gpt_starts_mask(empty, 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, pretok_ops.GPT_TILE - 1,
+                               pretok_ops.GPT_TILE + 1])
+def test_gpt_splitter_kernel_tile_edges(n, cuda):
+    """P1 at one position (each class) and one under and one over a tile,
+    on seeded random classes, with a padded tail: the mask equals its
+    plain version's, two launches a call."""
+    rng = np.random.RandomState(n)
+    inputs = ([np.array([c], np.int8) for c in range(16)] if n == 1
+              else [rng.randint(0, 16, n).astype(np.int8),
+                    rng.choice([1, 2, 4, 5, 6], n).astype(np.int8)])
+    for cls in inputs:
+        padded = torch.from_numpy(np.concatenate(
+            [cls, np.full(7, 16, np.int8)]))
+        n0 = pretok_ops.gpt_starts_mask.launches
+        got = pretok_ops.gpt_starts_mask(padded.to(cuda), n)
+        assert pretok_ops.gpt_starts_mask.launches - n0 == 2
+        assert torch.equal(got.cpu(),
+                           pretok_ops.gpt_starts_mask_plain(padded, n))

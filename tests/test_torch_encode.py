@@ -9,7 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_encode_cases import FHUS, random_chunks, random_merges
+from torch_encode_cases import (FHUS, boundary_cases, random_chunks,
+                                random_merges)
 
 from shredword_tpu.ops import encode_ops as J
 from shredword_tpu.pretokenize import whitespace_keep_split
@@ -92,6 +93,40 @@ def test_encode_core_plain_matches_jax(v):
     got = P.encode_core(tf, tl, pt, v=v)
     np.testing.assert_array_equal(P.ids_to_numpy(got[0]), want_ids)
     np.testing.assert_array_equal(got[1].numpy(), want_counts)
+
+
+@pytest.mark.parametrize("kind", ["dense", "hash"])
+@pytest.mark.parametrize("case", sorted(boundary_cases()))
+def test_length_class_edges_match_jax(case, kind):
+    """The edges of the kernel's length classes (chunks of exactly 1, 2,
+    8, 9, 16, 17, 32, 33, 64 and 65 bytes; 'a' runs of 2-70 bytes under
+    (a, a) merges; windows mixing one-byte chunks with longer ones)
+    through encode_core on the CPU: the chunks of at most 64 bytes
+    against _encode_device / _encode_device_hash, and all of them against
+    encode_chunks."""
+    flat, lens, merges = boundary_cases()[case]
+    v = 256 + len(merges)
+    jt, pt = (J.build_rank_table(merges, v), P.build_rank_table(
+        merges, v, "cpu")) if kind == "dense" else (
+        J.build_merge_table(merges), P.build_merge_table(merges, "cpu"))
+    short = lens <= P.MAX_TW_LEN
+    starts = np.cumsum(lens) - lens
+    chunks = [flat[s:s + n].tobytes() for s, n in zip(starts, lens)]
+    sflat = np.frombuffer(b"".join(c for c, k in zip(chunks, short) if k),
+                          np.uint8).copy()
+    want_ids, want_counts = _jax_encode_device(sflat, lens[short], jt, v)
+    ids, counts = P.encode_core(torch.from_numpy(sflat), torch.from_numpy(
+        lens[short].astype(np.int32)), pt, v=v)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(P.ids_to_numpy(ids), want_ids)
+    want, want_cid = J.encode_chunks(chunks, J.build_merge_table(merges),
+                                     return_chunk_ids=True)
+    ids, counts = P.encode_core(torch.from_numpy(flat), torch.from_numpy(
+        lens.astype(np.int32)), pt, v=v)
+    np.testing.assert_array_equal(P.ids_to_numpy(ids), want)
+    np.testing.assert_array_equal(
+        counts.numpy(), np.bincount(want_cid, minlength=len(lens)))
+    assert len(want) < 0.8 * len(flat) and (lens > P.MAX_TW_LEN).any()
 
 
 @pytest.mark.parametrize("v", [300, 5000])

@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import regex as _re
 import torch
-from torch_pretok_cases import (CASES, LONG_NS, LONG_SEEDS, RUNS_TEXT,
-                                code_points, fuzz, long_text)
+from torch_pretok_cases import (CASES, EDGE_RUNS, LONG_NS, LONG_RUNS,
+                                LONG_SEEDS, RUNS_TEXT, TILE, TILE_NS,
+                                TILE_SEEDS, code_points, edge_run_text, fuzz,
+                                long_run_text, long_text)
 
 from shredword_tpu import pretokenize as jax_pretokenize
 from shredword_tpu.ops import pretok_ops as J
@@ -92,6 +94,31 @@ def test_runs_of_each_class_match_jax(n):
     _check(RUNS_TEXT[:n])
 
 
+@pytest.mark.parametrize("seed", TILE_SEEDS)
+@pytest.mark.parametrize("n", TILE_NS)
+def test_tile_edges_match_jax(n, seed):
+    """Lengths around the kernel's tile of 16,384 positions."""
+    s = long_text(n, seed)
+    assert len(s) == n
+    _check(s)
+
+
+@pytest.mark.parametrize("run", EDGE_RUNS)
+def test_runs_across_tile_edges_match_jax(run):
+    s = edge_run_text(run)
+    assert len(s) == 2 * TILE + 1
+    for edge in (TILE, 2 * TILE):
+        assert set(s[edge - 1:edge + 1]) <= set(run)
+    _check(s)
+
+
+@pytest.mark.parametrize("run", LONG_RUNS)
+def test_runs_longer_than_a_tile_match_jax(run):
+    s = long_run_text(run)
+    assert set(s[3:2 * TILE + 3]) == set(run)
+    _check(s)
+
+
 def test_empty_and_padded_inputs():
     assert P.gpt_starts(np.zeros(0, np.uint32)).tolist() == []
     assert P.gpt_starts_device(np.zeros(0, np.uint32), device="cpu").size \
@@ -133,4 +160,4 @@ def test_device_splitter_defaults_to_the_card():
         return
     n0 = P.gpt_starts_mask.launches
     np.testing.assert_array_equal(P.gpt_starts_device(cp), P.gpt_starts(cp))
-    assert P.gpt_starts_mask.launches == n0 + 3
+    assert P.gpt_starts_mask.launches == n0 + 2
