@@ -187,8 +187,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      --vocab-size 1024 --seed-size 10000 == phase 14's pieces; the
      daemon is stopped at the end, also on failure
 
-The corpus is generated here (make_corpus, the JAX bench's generator) and
-checked against its known digest.  The last lines of standard output are
+ 18. (runs last) the port's bench, python -m shredword_tpu_torch.bench
+     --corpus <this corpus>, in a fresh process on the card: exit 0, the
+     last line bench.py's four keys (metric train_mb_s, value and
+     vs_baseline above 0), the hist == giant == flat cross-check on its
+     standard error; its standard error is echoed as [bench] lines, with
+     the phase's seconds
+
+The corpus is generated here (shredword_tpu_torch.bench.make_corpus, the
+JAX bench's generator) and checked against its known digest.  The last lines of standard output are
 the card's name and power limit, the kernels' JSON record and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -229,9 +236,6 @@ TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               "shredword_tpu/ops/pretok_ops.py:313"}
 TIMED_MERGES = 128
 LATE_START = 16128   # the giant late window: new ids from 16384 on
-CORPUS_BYTES = 16_153_229
-CORPUS_SHA256 = ("0d4249769060f86272db067c48fda469"
-                 "c47e0d4eb4114d3ad37e2c62beb58dfc")
 # One H100 SXM (NVIDIA's data sheet): memory
 # rate, and the float32 rate outside the tensor cores, taken as the rate
 # of the int32 compares and adds these kernels do
@@ -250,41 +254,6 @@ GIANT_PHASES = ["init", "init sync", "pick scan", "row read", "row sync",
                 "update", "update sync", "bounds"]
 CLOCKED_BLOCKS, CLOCKED_PHASES = 1024, 16     # csrc/phase_clock.cuh
 CARD = ""            # the card's name and power limit, read in phase 1
-
-
-def make_corpus(path: str, raw_mb: int = 16, seed: int = 1234) -> None:
-    """Deterministic zipf-ish corpus: ~100k distinct words, raw_mb MB.
-    The JAX bench's generator (bench.py make_corpus), kept here so that
-    this script needs nothing of the JAX side; main() checks the bytes
-    against CORPUS_SHA256."""
-    rng = np.random.RandomState(seed)
-    n_vocab = 100_000
-    # synthetic word shapes: letter bigram chains, lengths 2..14
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    lens = rng.randint(2, 15, n_vocab)
-    words = ["".join(letters[rng.randint(0, 26, L)]) for L in lens]
-    ranks = np.arange(1, n_vocab + 1)
-    probs = 1.0 / ranks ** 1.05
-    probs /= probs.sum()
-    target = raw_mb * 10**6
-    with open(path, "w") as f:
-        written = 0
-        while written < target:
-            idx = rng.choice(n_vocab, size=20_000, p=probs)
-            chunk_words = [words[i] for i in idx]
-            line_len = 0
-            parts = []
-            for w in chunk_words:
-                parts.append(w)
-                line_len += len(w) + 1
-                if line_len > 80:
-                    parts.append("\n")
-                    line_len = 0
-                else:
-                    parts.append(" ")
-            s = "".join(parts)
-            f.write(s)
-            written += len(s)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -1387,39 +1356,10 @@ def encode_kernel_ms(df, dl, table, v: int, device) -> tuple[float, ...]:
     inputs, and of each launch alone (merge, pack): KERNEL_REPS
     back-to-back calls between two CUDA events, launched through the
     library directly (uncounted), the buffers and the output offsets
-    prepared once."""
-    from shredword_tpu_torch.ops import _kernels, encode_ops
+    prepared once (the bench's encode_launch_ms)."""
+    from shredword_tpu_torch.bench import encode_launch_ms
 
-    ids, counts = encode_ops.encode_core(df, dl, table, v=v)
-    start = torch.cumsum(dl, 0, dtype=torch.int64) - dl
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    tok, rk = torch.empty_like(df, dtype=torch.int32), torch.empty_like(
-        df, dtype=torch.int32)
-    if isinstance(table, encode_ops.MergeTable):
-        targs = (None, table.ka.data_ptr(), table.kb.data_ptr(),
-                 table.rank.data_ptr(), v, table.capacity, table.max_probe)
-    else:
-        targs = (table.data_ptr(), None, None, None, v, 0, 0)
-    k = _kernels.lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    W = dl.shape[0]
-
-    def calls(merge=True, pack=True):
-        for _ in range(KERNEL_REPS):
-            if merge:
-                check(k.shred_encode_chunks(
-                    df.data_ptr(), start.data_ptr(), dl.data_ptr(), W,
-                    *targs, tok.data_ptr(), rk.data_ptr(), counts.data_ptr(),
-                    None, stream) == 0, "encode launch")
-            if pack:
-                check(k.shred_encode_pack(
-                    tok.data_ptr(), start.data_ptr(), counts.data_ptr(),
-                    ends.data_ptr(), W, ids.data_ptr(), ids.element_size(),
-                    stream) == 0, "pack launch")
-
-    calls()
-    return tuple(elapsed_ms(lambda: calls(*f), device) / KERNEL_REPS
-                 for f in ((True, True), (True, False), (False, True)))
+    return encode_launch_ms(df, dl, table, v, device, KERNEL_REPS)
 
 
 def encode_kernel_cost(df, lens: np.ndarray, table, v: int, device):
@@ -3146,6 +3086,42 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
           f"phase 14's pieces); fresh process each")
 
 
+# ---------------------------------------------------------------------
+# phase 18
+# ---------------------------------------------------------------------
+
+BENCH_TIMEOUT = 900
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}     # bench.py's
+
+
+def phase_bench(corpus) -> None:
+    """python -m shredword_tpu_torch.bench on this corpus, in a fresh
+    process on the card: exit 0, bench.py's four keys last with a value
+    and vs_baseline above 0, and the engines' cross-check on its
+    standard error, which is echoed."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "shredword_tpu_torch.bench",
+                        "--corpus", corpus], capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        print(line if line.startswith("[bench]") else f"[bench] {line}")
+    check(r.returncode == 0, f"the bench exited {r.returncode}")
+    lines = r.stdout.strip().splitlines()
+    check(bool(lines), "the bench printed its line")
+    out = json.loads(lines[-1])
+    print(f"[bench] its line: {lines[-1]}")
+    check(set(out) == BENCH_KEYS and out["metric"] == "train_mb_s"
+          and out["unit"] == "MB/s", "the bench's line has bench.py's keys")
+    check(out["value"] > 0 and out["vs_baseline"] > 0,
+          "the bench's value and vs_baseline are above 0")
+    check("device engine cross-check: hist == giant == flat" in r.stderr,
+          "the bench's cross-check held")
+    print(f"[bench] phase 18: python -m shredword_tpu_torch.bench in "
+          f"{secs:.1f} s ({CARD})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3154,6 +3130,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))   # the seeded lattices
     import torch.distributed as dist
 
+    from shredword_tpu_torch.bench import (CORPUS_BYTES, CORPUS_SHA256,
+                                           make_corpus)
     from shredword_tpu_torch.ops import bpe_giant, bpe_hist
     from shredword_tpu_torch.parallel import multihost
 
@@ -3234,6 +3212,7 @@ def main() -> int:
         launches["g1"] = phase_sharded_giant_main(corpus, tmp, device,
                                                   (model_giant, vocab_giant))
         phase_sharded_giant_gloo(corpus, tmp, device)
+        phase_bench(corpus)
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),

@@ -4,7 +4,7 @@ engine, checkpoints, resumes and saves, encodes, decodes, saves and
 loads a Tokenizer, trains, saves, loads and encodes Unigram, trains
 the sharded giant and flat engines on one gloo rank, runs
 ``python -m shredword_tpu_torch`` train/encode/decode/info and the
-device splitter on the CPU) and in its sources (an AST scan of the
+device splitter on the CPU; another runs the port's bench on the CPU) and in its sources (an AST scan of the
 package and of chip_smoke.py); its own copy of the native corpus loader
 gives the JAX package's arrays; and its profiling hooks work on the
 CPU."""
@@ -26,19 +26,24 @@ def _blocked(name: str) -> bool:
     return any(name == b or name.startswith(b + ".") for b in BLOCKED)
 
 
+# the prelude of each subprocess: an import of a blocked name raises
+BLOCK = textwrap.dedent(f"""
+    import sys
+
+    BLOCKED = {BLOCKED!r}
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".")
+                   for b in BLOCKED):
+                raise ImportError(name + " is blocked")
+
+    sys.meta_path.insert(0, Block())
+""")
+
+
 def test_runs_with_jax_and_the_jax_package_blocked(tmp_path):
-    code = textwrap.dedent(f"""
-        import sys
-
-        BLOCKED = {BLOCKED!r}
-
-        class Block:
-            def find_spec(self, name, path=None, target=None):
-                if any(name == b or name.startswith(b + ".")
-                       for b in BLOCKED):
-                    raise ImportError(name + " is blocked")
-
-        sys.meta_path.insert(0, Block())
+    code = BLOCK + textwrap.dedent(f"""
         from shredword_tpu_torch import BPETrainer
 
         data = b"hello world, hello there, low lower lowest\\n" * 40
@@ -153,6 +158,44 @@ def test_runs_with_jax_and_the_jax_package_blocked(tmp_path):
                        text=True, timeout=180, cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_bench_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    """The port's bench imports nothing blocked, and its main runs on
+    the CPU (baseline, headline, cross-check) and prints bench.py's
+    four keys."""
+    code = BLOCK + textwrap.dedent(f"""
+        import contextlib
+        import io
+        import json
+
+        import torch
+
+        from shredword_tpu_torch import bench
+
+        torch.set_num_threads(1)        # beside the other test workers
+        # the smallest corpus make_corpus writes (one block of 20,000
+        # words), one timed headline and no warm-up
+        bench.WARMUP, bench.RUNS = 0, 1
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert bench.main(["--device", "cpu", "--raw-mb", "0.1",
+                               "--no-side", "--corpus",
+                               {str(tmp_path / "corpus.txt")!r}]) == 0
+        line = json.loads(out.getvalue().splitlines()[-1])
+        assert set(line) == {{"metric", "value", "unit", "vs_baseline"}}
+        assert line["metric"] == "train_mb_s" and line["value"] > 0
+
+        loaded = [m for m in sys.modules
+                  if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+        assert not loaded, loaded
+        print("ok")
+    """)
+    # about 20 s alone on one core
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=900, cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
 
 
 def _sources():
