@@ -17,10 +17,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      min_pair_freq 50, coverage 0.9999, backend "cuda") load_corpus ->
      train -> save on the 16 MB corpus of make_corpus; the kernel
      must have launched, and the .model/.vocab bytes must equal the
-     port's flat engine on the card and the JAX package's golden digest
-     (tests/golden/bench_v768.json); the merge loop's ms per merge over
-     the whole run, from CUDA events around each kernel call inside
-     train() (no synchronise added to the run)
+     port's flat engine on the card (F1, csrc/flat.cu, which must have
+     launched: two independent kernel designs) and the JAX package's
+     golden digest (tests/golden/bench_v768.json); the merge loop's ms
+     per merge over the whole run, from CUDA events around each kernel
+     call inside train() (no synchronise added to the run)
   4. the same at vocab 4096, cross-checked against the flat engine
   5. the giant kernel against its plain PyTorch version on the card, on
      seeded random corpora at vocab 5120 and 8192 (chunk widths 512 and
@@ -193,7 +194,27 @@ Phases (any failure exits non-zero, and no result line is printed):
      vs_baseline above 0), the hist == giant == flat cross-check on its
      standard error; its standard error is echoed as [bench] lines, with
      the phase's seconds
+ 19. (runs after phase 6) the flat engine's loop F1 (csrc/flat.cu,
+     _kernels.flat_train: one persistent launch per call) against its
+     plain version (bpe_ops.train_loop) on the card, call by call in
+     calls of 7 and 64 merges with a call past the end, on the seeded
+     streams of tests/torch_flat_cases.py (words up to 1,000 tokens, a
+     run of 1,001 'a's, unk bytes, ids past 65535, a min_pair_freq stop,
+     words merged down to one token): records, the merge count, done and
+     the compacted stream identical; then the first 128 merges on the
+     16 MB long-word corpus (bench.make_long_corpus, checked against its
+     digest; its unique words and stream length printed) at vocab 32768,
+     F1 and plain from the same arrays, timed (CUDA events), with the
+     bound of what the merges move (counted in a rerun, one merge a
+     call); then the slice: BPETrainer(vocab 32768, min_pair_freq 2,
+     coverage 1.0) load_corpus -> train -> save on that corpus, which
+     routes to the flat engine (words over 64 bytes): one F1 launch per
+     call of merges_per_device_call merges, the whole run's ms per merge
+     (CUDA events around each call, its readback included), and the
+     bytes equal to the plain flat engine's on the card over the whole
+     run
 
+The long-word corpus is generated here too (make_long_corpus).
 The corpus is generated here (shredword_tpu_torch.bench.make_corpus, the
 JAX bench's generator) and checked against its known digest.  The last lines of standard output are
 the card's name and power limit, the kernels' JSON record and
@@ -500,7 +521,8 @@ def reset_counts() -> None:
 
     for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
               _kernels.hist_sharded_train, _kernels.hist_sparse_train,
-              _kernels.giant_sharded_train, encode_ops.encode_core,
+              _kernels.giant_sharded_train, _kernels.flat_train,
+              encode_ops.encode_core,
               unigram_ops.fb_core, unigram_ops.viterbi_core,
               pretok_ops.gpt_starts_mask):
         k.launches = 0
@@ -536,9 +558,13 @@ def phase_main_path(corpus, out_dir, vocab, device, *, engine="auto",
           f"calls){extra}")
     check(launches > 0, f"the main path launched {kernel}")
     check(n > 0, "merges learned")
+    f1 = _kernels.flat_train.launches
     fn, fsecs, _, _, fmodel, fvocab = train_and_save(
         corpus, out_dir, vocab, device, "flat", cfg)
-    print(f"{tag}: flat engine {fn} merges in {fsecs:.4f} s")
+    f1 = _kernels.flat_train.launches - f1
+    print(f"{tag}: flat engine {fn} merges in {fsecs:.4f} s ({f1} F1 "
+          f"launches)")
+    check(f1 > 0, "the flat engine ran F1")
     check(model == fmodel and vocab_b == fvocab,
           f"{engine} == flat .model/.vocab bytes at vocab {vocab}")
     if golden is not None:
@@ -3087,6 +3113,175 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
 
 
 # ---------------------------------------------------------------------
+# phase 19
+# ---------------------------------------------------------------------
+
+F1_SOURCE = "shredword_tpu/ops/bpe_ops.py:243"       # train_loop
+F1_TOO_FAR = 2**31 - 1       # a difference in a count, done or a length
+
+
+def flat_diff(k, p) -> int:
+    """max |F1 - plain| over two flat TrainStates: merges, frequencies
+    and the compacted stream; F1_TOO_FAR if the merge count, done or a
+    stream length differ."""
+    from shredword_tpu_torch.ops import bpe_ops
+
+    if (k.n_merges, k.done) != (p.n_merges, p.done):
+        return F1_TOO_FAR
+    err = max(int(np.abs(k.merges - p.merges).max()),
+              int(np.abs(k.merge_freqs - p.merge_freqs).max()))
+    for a, b in zip(bpe_ops.final_corpus(k.corpus), p.corpus):
+        err = max(err, max_abs_diff(a, b) if a.shape == b.shape
+                  else F1_TOO_FAR)
+    return err
+
+
+def flat_states(arrays, device, target, n_prev=0):
+    """Two flat TrainStates of the same arrays on the card: F1's (its
+    FlatState built) and the plain version's."""
+    from shredword_tpu_torch.ops import bpe_ops
+
+    k, p = (bpe_ops.train_init(bpe_ops.make_state(*arrays, device=device),
+                               target, n_prev_merges=n_prev)
+            for _ in range(2))
+    return k._replace(corpus=bpe_ops.FlatState(k.corpus)), p
+
+
+def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps):
+    """F1 and its plain version call by call from the same arrays, then
+    one call past the end (no launch, nothing changes); returns (max
+    |diff| after every call, merges done, F1 ms, plain ms)."""
+    from shredword_tpu_torch.ops import _kernels
+
+    k, p = flat_states(arrays, device, target, n_prev)
+    err, ms_k, ms_p, calls = 0, 0.0, 0.0, 0
+    kw = dict(target_merges=target, max_steps=steps)
+    n0 = _kernels.flat_train.launches
+    while not p.done and p.n_merges < target:
+        out = {}
+        ms_k += elapsed_ms(lambda: out.__setitem__(
+            "k", _kernels.flat_train(k, unk, minf, **kw)), device)
+        ms_p += elapsed_ms(lambda: out.__setitem__(
+            "p", _kernels.flat_train_plain(p, unk, minf, **kw)), device)
+        k, p = out["k"], out["p"]
+        calls += 1
+        err = max(err, flat_diff(k, p))
+    k = _kernels.flat_train(k, unk, minf, **kw)
+    err = max(err, flat_diff(k, p))
+    check(_kernels.flat_train.launches - n0 == calls,
+          "one F1 launch per call with merges to make, none past the end")
+    return err, p.n_merges - n_prev, ms_k, ms_p
+
+
+def flat_cost(arrays, device, n: int) -> dict:
+    """bound() per merge of the first n flat merges, from what they must
+    move on this data: once, the stream's tokens in and out and each
+    word's offset, length and count; per merge every entry whose count
+    changed (its key and count read, its count written) and the record.
+    A compare per live entry and per live token, each merge.  F1 runs
+    one merge a call and what changed is found by comparing the counts
+    before and after."""
+    from shredword_tpu_torch.ops import _kernels
+
+    k, _ = flat_states(arrays, device, n)
+    fs = k.corpus
+    before = fs.ecnt.clone()
+    nbytes, ops = 8 * fs.n + 12 * fs.n_words, 0
+    for _ in range(n):
+        k = _kernels.flat_train(k, GIANT["unk_id"], GIANT["min_pair_freq"],
+                                target_merges=n, max_steps=1)
+        nbytes += 16 * int((fs.ecnt != before).sum()) + 12
+        ops += int(fs.st[0]) + fs.stream_len
+        before.copy_(fs.ecnt)
+    check(k.n_merges == n, "F1 merges through the counted window")
+    return bound(nbytes / n, ops / n)
+
+
+def phase_flat(device, out_dir) -> tuple[int, dict]:
+    """F1 against its plain version, then the long-word slice; returns
+    F1's launches in the slice's train() and its kernels-line timing."""
+    from shredword_tpu_torch.bench import (LONG_CORPUS_BYTES,
+                                           LONG_CORPUS_SHA256,
+                                           make_long_corpus)
+    from shredword_tpu_torch.ops import _kernels
+    from torch_flat_cases import FLAT_CASES, flat_corpus
+
+    err = 0
+    for case, (ckw, target, n_prev, unk, minf) in sorted(FLAT_CASES.items()):
+        for steps in (7, 64):
+            e, n, _, _ = flat_both(flat_corpus(**ckw), device, target=target,
+                                   n_prev=n_prev, unk=unk, minf=minf,
+                                   steps=steps)
+            print(f"[flat] {case}: {n} merges in calls of {steps}, max "
+                  f"|F1 - plain| = {e}")
+            check(e == 0 and n > 0, f"F1 == plain on {case}")
+            err = max(err, e)
+
+    corpus = os.path.join(out_dir, "long.txt")
+    make_long_corpus(corpus)
+    with open(corpus, "rb") as f:
+        data = f.read()
+    check(len(data) == LONG_CORPUS_BYTES
+          and hashlib.sha256(data).hexdigest() == LONG_CORPUS_SHA256,
+          "the long-word corpus matches its digest")
+    del data
+    tokens, word_id, counts = token_arrays(corpus, device, GIANT)
+    arrays = (tokens, word_id, counts[word_id])
+    lens = np.bincount(word_id)
+    print(f"[flat] long-word corpus: {LONG_CORPUS_BYTES} bytes, "
+          f"{len(lens)} unique words ({int((lens > 64).sum())} over 64 "
+          f"bytes, the longest {int(lens.max())}), stream N {len(tokens)}")
+    target = GIANT_VOCAB - 256
+    kw = dict(unk=GIANT["unk_id"], minf=GIANT["min_pair_freq"])
+    e, n, ms_k, ms_p = flat_both(arrays, device, target=TIMED_MERGES,
+                                 steps=TIMED_MERGES, **kw)
+    check(e == 0 and n == TIMED_MERGES, "F1 == plain, first 128 merges")
+    err = max(err, e)
+    cost = flat_cost(arrays, device, TIMED_MERGES)
+    print(f"[flat] first {n} merges at vocab {GIANT_VOCAB}: F1 "
+          f"{ms_k / n:.6f} ms/merge (bound {cost['bound_ms']:.8f}, "
+          f"{cost['bound_by']}), plain {ms_p / n:.4f} ms/merge, max "
+          f"|F1 - plain| = {e}")
+
+    # the slice, through the public API
+    reset_counts()
+    timer = Timed(_kernels.flat_train)
+    _kernels.flat_train = timer
+    try:
+        n, secs, raw, peak, model, vocab_b = train_and_save(
+            corpus, out_dir, GIANT_VOCAB, device, "auto", GIANT,
+            tag="_long")
+    finally:
+        _kernels.flat_train = timer.fn
+    launches = _kernels.flat_train.launches
+    calls = len(timer.events)
+    print(f"[flat] slice: BPETrainer(vocab {GIANT_VOCAB}) on the long-word "
+          f"corpus: {n} merges, train {secs:.4f} s ({raw / 1e6 / secs:.3f} "
+          f"MB/s), {launches} F1 launches in {calls} calls, whole run "
+          f"{timer.ms() / n:.6f} ms per merge (CUDA events around each "
+          f"call, its readback included), peak device memory "
+          f"{peak / 1e9:.3f} GB")
+    check(n == target, "the slice learns every merge")
+    check(launches == calls > 0, "the slice ran F1, one launch per call")
+    _kernels.flat_train = _kernels.flat_train_plain
+    try:
+        pn, psecs, _, _, pmodel, pvocab = train_and_save(
+            corpus, out_dir, GIANT_VOCAB, device, "auto", GIANT,
+            tag="_long_plain")
+    finally:
+        _kernels.flat_train = timer.fn
+    print(f"[flat] the plain flat engine on the card: {pn} merges in "
+          f"{psecs:.4f} s ({psecs / pn * 1e3:.4f} ms per merge)")
+    check(model == pmodel and vocab_b == pvocab,
+          "the slice's bytes == the plain flat engine's")
+    print(f"[flat] slice .model/.vocab == the plain flat engine's over "
+          f"the whole run ({CARD})")
+    return launches, dict(max_abs_err=err, ms=ms_k / TIMED_MERGES,
+                          plain_ms=ms_p / TIMED_MERGES, **cost,
+                          library_ms=None)
+
+
+# ---------------------------------------------------------------------
 # phase 18
 # ---------------------------------------------------------------------
 
@@ -3164,6 +3359,7 @@ def main() -> int:
         launches[GIANT_VOCAB], model_giant, vocab_giant = phase_main_path(
             corpus, tmp, GIANT_VOCAB, device, cfg=GIANT,
             kernel="giant_train_step")
+        launches["flat"], timing["flat"] = phase_flat(device, tmp)
         # the merges that phases 3, 4 and 6 trained, for phase 13
         merges = {768: merges_of(model_768), 4096: merges_of(fused_4096[0]),
                   GIANT_VOCAB: merges_of(model_giant)}
@@ -3236,6 +3432,9 @@ def main() -> int:
                         source=src + "pretok.cu",
                         replaces=TPU_KERNEL["gpt_starts"],
                         launches=launches["gpt_starts"], **pretok))
+    kernels.append(dict(name=f"flat_train@long v{GIANT_VOCAB}", route="cuda",
+                        source=src + "flat.cu", replaces=F1_SOURCE,
+                        launches=launches["flat"], **timing["flat"]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,10 @@ RUNS = 3            # timed headline runs after the warm-up; the best counts
 CORPUS_BYTES = 16_153_229
 CORPUS_SHA256 = ("0d4249769060f86272db067c48fda469"
                  "c47e0d4eb4114d3ad37e2c62beb58dfc")
+# the bytes make_long_corpus(path) writes at RAW_MB and SEED
+LONG_CORPUS_BYTES = 16_015_003
+LONG_CORPUS_SHA256 = ("acc12ae8d14a198d935cd40514555bcf"
+                      "7d2ee79db29453be08cd8bf4610825b7")
 GIANT_VOCAB = 32768
 ENGINES = ("hist", "giant", "flat")     # the cross-check's
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -112,6 +116,46 @@ def make_corpus(path: str, raw_mb: float = RAW_MB,
             written += len(s)
 
 
+def make_long_corpus(path: str, raw_mb: float = RAW_MB,
+                     seed: int = SEED) -> None:
+    """Deterministic corpus of long words: CJK text split at its
+    punctuation, so each clause is one word of the loader.  100,000
+    clause shapes of 2-40 characters (uniform), each character drawn
+    zipf(1.05) over the 3,500 code points from U+4E00 (3 bytes each in
+    UTF-8), so about half the clauses are over 64 bytes; clauses drawn
+    zipf(1.05) over the shapes as :func:`make_corpus` draws its words
+    (1,000 a draw, so a small raw_mb stays small), one space between
+    them and a newline past 80 characters, until raw_mb MB of UTF-8.
+    It always writes the file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    n_shapes, n_chars = 100_000, 3_500
+    lens = rng.randint(2, 41, n_shapes)
+    p_char = 1.0 / np.arange(1, n_chars + 1) ** 1.05
+    chars = rng.choice(n_chars, size=int(lens.sum()),
+                       p=p_char / p_char.sum())
+    cps = np.split(0x4E00 + chars, np.cumsum(lens)[:-1])
+    shapes = ["".join(map(chr, c)) for c in cps]
+    probs = 1.0 / np.arange(1, n_shapes + 1) ** 1.05
+    probs /= probs.sum()
+    target = raw_mb * 10**6
+    with open(path, "w", encoding="utf-8") as f:
+        written = 0
+        while written < target:
+            parts, line_len = [], 0
+            for i in rng.choice(n_shapes, size=1_000, p=probs):
+                parts.append(shapes[i])
+                line_len += len(shapes[i]) + 1
+                if line_len > 80:
+                    parts.append("\n")
+                    line_len = 0
+                else:
+                    parts.append(" ")
+            s = "".join(parts)
+            f.write(s)
+            written += len(s.encode("utf-8"))
+
+
 def _sha256(path: str) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
@@ -155,8 +199,8 @@ def _counters() -> dict:
     from .ops import _kernels, encode_ops, unigram_ops
 
     return {"K1": _kernels.hist_fused_train, "K3": _kernels.giant_train_step,
-            "E1": encode_ops.encode_core, "U1": unigram_ops.fb_core,
-            "U2": unigram_ops.viterbi_core}
+            "F1": _kernels.flat_train, "E1": encode_ops.encode_core,
+            "U1": unigram_ops.fb_core, "U2": unigram_ops.viterbi_core}
 
 
 @contextlib.contextmanager
@@ -275,13 +319,13 @@ def read_model(prefix: str) -> tuple[bytes, bytes]:
 
 
 def check_device_engines(corpus: str, device, work: str) -> dict:
-    """Cross-check: the hist (K1), giant (K3) and flat (PyTorch ops)
-    engines are three independent device counting paths that must save
+    """Cross-check: the hist (K1), giant (K3) and flat (F1) engines
+    are three independent device counting paths that must save
     bit-identical models at the headline config.  Raises BenchError if
     they disagree.  Returns each engine's (.model, .vocab) bytes."""
     dev = resolve_device(device)
     outs = {}
-    with launches(dev, "K1", "K3") as got:
+    with launches(dev, "K1", "K3", "F1") as got:
         for eng in ENGINES:
             prefix = os.path.join(work, f"check_{eng}")
             train_once(corpus, dev, engine=eng, save_to=prefix)

@@ -18,7 +18,8 @@ Backends:
                   vocab <= 4096 and the giant kernel above it, up to
                   32768 (auto falls to flat when the table engines
                   decline the corpus); "giant" -> the giant kernel at
-                  any vocab; "flat" -> the sort-based stream engine.
+                  any vocab; "flat" -> the flat stream engine (F1,
+                  ``csrc/flat.cu``, on a CUDA device).
                   ``mesh`` (a 1-D ``DeviceMesh`` or a ``ProcessGroup``)
                   or ``shards=N`` (the default ``torch.distributed``
                   group, of world size N) trains data-parallel: the
@@ -42,7 +43,7 @@ from .. import checkpoint as ckpt
 from .. import serialization
 from ..config import BPEConfig, resolve_device
 from ..errors import TrainingError
-from ..ops import bpe_giant, bpe_hist, bpe_ops
+from ..ops import _kernels, bpe_giant, bpe_hist, bpe_ops
 from ..parallel import giant as par_giant
 from ..parallel import hist as par_hist
 from ..parallel import mesh as par_mesh
@@ -331,12 +332,13 @@ class BPETrainer:
         with log.Timer("train", nbytes=self._arrays.total_raw_bytes) as t:
             while True:
                 n_before = ts.n_merges
-                ts = bpe_ops.train_loop(ts, cfg.unk_id, cfg.min_pair_freq,
-                                        target_merges=target,
-                                        max_steps=chunk)
+                # F1 on a CUDA device, its plain version on the CPU
+                ts = _kernels.flat_train(ts, cfg.unk_id, cfg.min_pair_freq,
+                                         target_merges=target,
+                                         max_steps=chunk)
                 n_after = ts.n_merges
                 log.progress("Completed %d/%d merges (stream %d)", n_after,
-                             target, len(ts.corpus.tokens))
+                             target, bpe_ops.stream_length(ts.corpus))
                 if cfg.checkpoint_path and cfg.checkpoint_every and \
                         n_after // cfg.checkpoint_every \
                         > n_before // cfg.checkpoint_every:
@@ -349,8 +351,9 @@ class BPETrainer:
         self._merge_freqs = np.concatenate(
             [self._merge_freqs[:n_prev],
              ts.merge_freqs[n_prev:n_merges].astype(np.int64)])
-        self._final_tokens = ts.corpus.tokens.cpu().numpy()
-        self._final_word_id = ts.corpus.word_id.cpu().numpy()
+        final = bpe_ops.final_corpus(ts.corpus)
+        self._final_tokens = final.tokens.cpu().numpy()
+        self._final_word_id = final.word_id.cpu().numpy()
         self._trained = True
         log.info("Training completed: %d merges performed. (%.2f s, flat "
                  "engine)", n_merges - n_prev, t.elapsed)

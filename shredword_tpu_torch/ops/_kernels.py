@@ -10,8 +10,8 @@ builds nothing.
 Every wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; it never falls back from one to
 the other.  Each wrapper counts its kernel launches in ``.launches``.
-The wrappers of the BPE training kernels (K1-K5 and the row-sharded
-giant step G1) live here; the encoder's
+The wrappers of the BPE training kernels (K1-K5, the row-sharded
+giant step G1 and the flat engine's loop F1) live here; the encoder's
 (``csrc/encode.cu``) is ``encode_ops.encode_core`` and the Unigram
 lattice kernels' (``csrc/unigram.cu``) are ``unigram_ops.fb_core`` and
 ``unigram_ops.viterbi_core``, and the GPT splitter's (``csrc/pretok.cu``)
@@ -29,6 +29,8 @@ import tempfile
 
 import torch
 
+from . import bpe_ops
+
 PAD = -3
 CHUNK = 512       # columns per chunk of the hist layout (its W is a
                   # multiple) and per presence bit of the sparse step
@@ -37,7 +39,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu", "encode.cu",
-           "unigram.cu", "giant_sharded.cu", "pretok.cu"]
+           "unigram.cu", "giant_sharded.cu", "pretok.cu", "flat.cu"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # the persistent kernels read data that other blocks of the same launch
@@ -143,6 +145,8 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_gpt_starts_mask.restype = i
     L.shred_gpt_status_ints.argtypes = [i]
     L.shred_gpt_status_ints.restype = i
+    L.shred_flat_train.argtypes = [p] * 11 + [i] * 9 + [p]
+    L.shred_flat_train.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
     return L
@@ -915,3 +919,87 @@ def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
     of :func:`hist_sparse_train`."""
     return _step_out(tw, lambda a, b, new, unk: sparse_pass_plain(
         tw, wcount, presT, a, b, new, unk, v), scal, v)
+
+
+# ---------------------------------------------------------------------
+# the flat engine's merge loop (F1)
+# ---------------------------------------------------------------------
+
+FLAT_MAX_BLOCKS = 1024     # block results the wrapper makes room for
+FLAT_ST_ENTRIES, FLAT_ST_OVERFLOW, FLAT_ST_MERGED, FLAT_ST_STEPS, \
+    FLAT_ST_DONE = range(5)                   # csrc/flat.cu's st[]
+
+
+def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
+               target_merges: int, max_steps: int) -> bpe_ops.TrainState:
+    """Up to ``max_steps`` greedy merges of the flat engine, from merge
+    ``ts.n_merges`` to ``target_merges``: merge k creates id 256 + k, is
+    the highest-count pair that reaches ``min_pair_freq`` (pairs holding
+    ``unk_id`` are never counted), ties to the smallest (a, b), and
+    ``done`` is set when no pair reaches it.  Returns the advanced
+    ``ts``, its ``merges`` / ``merge_freqs`` filled in place.
+
+    Replaces ``shredword_tpu.ops.bpe_ops.train_loop`` (a ``lax.while_loop``
+    of ``best_pair`` and ``apply_merge``).  A corpus on the CPU runs
+    :func:`flat_train_plain` (``bpe_ops.train_loop``).  On a CUDA device
+    the first call makes ``ts.corpus`` a ``bpe_ops.FlatState`` (its tokens
+    are then merged in place; ``bpe_ops.final_corpus`` gives the plain
+    arrays) and every call that has a merge to make is one launch of
+    ``csrc/flat.cu``: the first counts the stream's pairs, then each
+    merge picks, records and merges every word with the table's exact
+    deltas, all in the launch; the records, the merges made and ``done``
+    come back in one copy after it.  A call after ``done`` or at
+    ``target_merges`` changes nothing and launches nothing."""
+    corpus = ts.corpus
+    dev = corpus.tokens.device
+    if dev.type == "cpu":
+        if isinstance(corpus, bpe_ops.FlatState):
+            raise ValueError("F1's FlatState runs on a CUDA device only")
+        return flat_train_plain(ts, unk_id, min_pair_freq,
+                                target_merges=target_merges,
+                                max_steps=max_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    fs = (corpus if isinstance(corpus, bpe_ops.FlatState)
+          else bpe_ops.FlatState(corpus))
+    ts = ts._replace(corpus=fs)
+    n = ts.n_merges
+    steps = min(max_steps, target_merges - n)
+    if ts.done or steps <= 0:
+        return ts
+    if n + steps > len(ts.merges) or 256 + n + steps > 2**31 - 1:
+        raise ValueError(f"merges {n}..{n + steps} exceed the records "
+                         f"({len(ts.merges)}) or the int32 ids")
+    i32 = dict(dtype=torch.int32, device=dev)
+    records = torch.empty((steps, 3), **i32)
+    bbest = torch.empty(2 * FLAT_MAX_BLOCKS, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().shred_flat_train(
+            fs.tokens.data_ptr(), fs.off.data_ptr(), fs.len.data_ptr(),
+            fs.wcnt.data_ptr(), fs.tkey.data_ptr(), fs.tent.data_ptr(),
+            fs.ekey.data_ptr(), fs.ecnt.data_ptr(), fs.st.data_ptr(),
+            bbest.data_ptr(), records.data_ptr(), fs.n_words, fs.cap,
+            fs.cap // 2, steps, unk_id, min(min_pair_freq, 2**31 - 1), n,
+            int(not fs.counted), FLAT_MAX_BLOCKS, stream)
+    _check(rc)
+    flat_train.launches += 1
+    fs.counted = True
+    out = torch.cat([fs.st, records.view(-1)]).cpu().numpy()
+    st, rec = out[:8], out[8:].reshape(steps, 3)
+    if st[FLAT_ST_OVERFLOW]:
+        raise RuntimeError("F1's pair table is full: its counts are no "
+                           "longer exact")
+    k = int(st[FLAT_ST_STEPS])
+    ts.merges[n:n + k] = rec[:k, :2]
+    ts.merge_freqs[n:n + k] = rec[:k, 2]
+    fs.merged = int(st[FLAT_ST_MERGED])
+    return ts._replace(n_merges=n + k, done=bool(st[FLAT_ST_DONE]))
+
+
+flat_train.launches = 0
+
+# The plain version of flat_train: the flat engine's per-merge loop in
+# PyTorch ops (recount, argmax, select, compact), also the sharded flat
+# engine's loop with its cross-rank pick.
+flat_train_plain = bpe_ops.train_loop

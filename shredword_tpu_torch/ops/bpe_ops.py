@@ -15,7 +15,9 @@ JAX engine's capacity buckets and re-compaction have nothing to do.
 
 It is the auto route for corpora whose words exceed the hist layout, and
 the independent cross-check of the hist engine; ``parallel/train.py``
-runs it on the ranks' shards of the stream.
+runs it on the ranks' shards of the stream.  :func:`train_loop` is the
+plain version of F1 (``csrc/flat.cu``, ``_kernels.flat_train``), which
+runs the same merges on the card from a :class:`FlatState`.
 """
 
 from __future__ import annotations
@@ -115,6 +117,85 @@ def apply_merge(state: CorpusState, a: int, b: int,
     keep = torch.ones_like(sel)
     keep[1:] = ~sel[:-1]                # drop the right half of each match
     return CorpusState(t[keep], state.word_id[keep], state.wcount[keep])
+
+
+class FlatState:
+    """F1's state (on the card), built once per ``train()`` from a
+    :class:`CorpusState` and advanced in place by every call of
+    ``_kernels.flat_train`` (layout in ``csrc/flat.cu``'s header).
+
+    The words are the runs of equal ``word_id`` (the pairs of
+    :func:`pair_counts`), each with one count.  ``corpus.tokens`` is
+    taken, not copied: F1 merges every word in place, left-aligned, and
+    keeps its live length; :meth:`compact` gives the plain version's
+    arrays.  The pair counts are a hash table of ``cap`` int64 keys (a
+    power of two of at least 6N, so at most half full: the run inserts
+    at most 3N keys) and ``cap // 2`` dense entries with their int32
+    counts; the table is empty until the first call counts the stream."""
+
+    def __init__(self, corpus: CorpusState):
+        t, wid, wc = corpus
+        if any(x.dtype != torch.int32 or x.dim() != 1 or len(x) != len(t)
+               or x.device != t.device for x in corpus):
+            raise ValueError("tokens, word_id and wcount must be int32 [N] "
+                             "on one device")
+        n = len(t)
+        dev = t.device
+        first = torch.ones(n, dtype=torch.bool, device=dev)
+        first[1:] = wid[1:] != wid[:-1]
+        starts = first.nonzero()[:, 0]
+        if not torch.equal(wc, torch.repeat_interleave(
+                wc[starts], torch.diff(starts, append=starts.new_tensor(
+                    [n])))):
+            raise ValueError("wcount must be one count per word")
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.tokens = t.contiguous()
+        self.word_id, self.wcount = wid, wc
+        self.off = torch.cat([starts, starts.new_tensor([n])]).to(
+            torch.int32)
+        self.len = torch.diff(self.off)
+        self.wcnt = wc[starts].contiguous()
+        self.cap = 1 << max(10, (6 * max(n, 1) - 1).bit_length())
+        self.tkey = torch.full((self.cap,), -1, dtype=torch.int64,
+                               device=dev)
+        self.tent = torch.full((self.cap,), -1, **i32)
+        self.ekey = torch.empty(self.cap // 2, dtype=torch.int64, device=dev)
+        self.ecnt = torch.zeros(self.cap // 2, **i32)
+        self.st = torch.zeros(8, **i32)
+        self.counted = False      # the first call counts the stream
+        self.n, self.merged = n, 0
+
+    @property
+    def stream_len(self) -> int:
+        """The live tokens, as of the last call."""
+        return self.n - self.merged
+
+    @property
+    def n_words(self) -> int:
+        return len(self.wcnt)
+
+    def compact(self) -> CorpusState:
+        """The live (tokens, word_id, wcount) in stream order: the
+        arrays :func:`train_loop` leaves after the same merges."""
+        lengths = torch.diff(self.off).long()
+        word = torch.repeat_interleave(
+            torch.arange(len(lengths), device=self.tokens.device), lengths)
+        pos = torch.arange(self.n, device=self.tokens.device) \
+            - self.off[word]
+        keep = pos < self.len[word]
+        return CorpusState(self.tokens[keep], self.word_id[keep],
+                           self.wcount[keep])
+
+
+def stream_length(corpus: CorpusState | FlatState) -> int:
+    if isinstance(corpus, FlatState):
+        return corpus.stream_len
+    return len(corpus.tokens)
+
+
+def final_corpus(corpus: CorpusState | FlatState) -> CorpusState:
+    """The merged stream as the plain version keeps it."""
+    return corpus.compact() if isinstance(corpus, FlatState) else corpus
 
 
 def train_init(corpus: CorpusState, max_merges: int,

@@ -12,13 +12,15 @@ import pytest
 import torch
 from torch_encode_cases import (FHUS, boundary_cases, random_chunks,
                                 random_merges)
+from torch_flat_cases import FLAT_CASES, flat_corpus
 from torch_pretok_cases import all_inputs, code_points
 from torch_unigram_cases import (LATTICES, OVERFLOW_CONFIG, OVERFLOW_TEXT,
                                  overflow_lattice, random_lattice)
 
 from shredword_tpu_torch import (BPETrainer, Tokenizer, UnigramTokenizer,
                                  UnigramTrainer)
-from shredword_tpu_torch.ops import (_kernels, bpe_giant, bpe_hist,
+from shredword_tpu_torch.bench import make_long_corpus
+from shredword_tpu_torch.ops import (_kernels, bpe_giant, bpe_hist, bpe_ops,
                                      encode_ops, pretok_ops, unigram_ops)
 
 
@@ -723,3 +725,58 @@ def test_gpt_splitter_kernel_tile_edges(n, cuda):
         assert pretok_ops.gpt_starts_mask.launches - n0 == 2
         assert torch.equal(got.cpu(),
                            pretok_ops.gpt_starts_mask_plain(padded, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [7, 64])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_kernel_call_by_call(case, steps, cuda):
+    """F1 against its plain version (bpe_ops.train_loop on the CPU) after
+    every call of `steps` merges: merges, frequencies, the merge count,
+    done and the compacted stream identical; one launch a call that has
+    a merge to make, none for a call past the end."""
+    corpus_kw, target, n_prev, unk, minf = FLAT_CASES[case]
+    arrays = flat_corpus(**corpus_kw)
+    want, got = (bpe_ops.train_init(bpe_ops.make_state(*arrays, device=d),
+                                    target, n_prev_merges=n_prev)
+                 for d in ("cpu", cuda))
+    n0, calls = _kernels.flat_train.launches, 0
+    kw = dict(target_merges=target, max_steps=steps)
+    while not want.done and want.n_merges < target:
+        want = _kernels.flat_train_plain(want, unk, minf, **kw)
+        got = _kernels.flat_train(got, unk, minf, **kw)
+        calls += 1
+        assert (got.n_merges, got.done) == (want.n_merges, want.done)
+        np.testing.assert_array_equal(got.merges, want.merges)
+        np.testing.assert_array_equal(got.merge_freqs, want.merge_freqs)
+        for g, w in zip(bpe_ops.final_corpus(got.corpus), want.corpus):
+            assert torch.equal(g.cpu(), w)
+    assert _kernels.flat_train.launches - n0 == calls
+    assert want.done == (case in ("min_freq_stop", "to_one_token"))
+    assert want.n_merges > n_prev
+    if case == "to_one_token":              # every word is one token
+        assert bool((got.corpus.len == 1).all())
+    again = _kernels.flat_train(got, unk, minf, **kw)
+    assert _kernels.flat_train.launches - n0 == calls
+    assert (again.n_merges, again.done) == (got.n_merges, got.done)
+
+
+@pytest.mark.cuda
+def test_flat_trainer_on_cuda_matches_cpu(cuda, tmp_path):
+    """The long-word route through BPETrainer on the card (F1, one launch
+    per call of merges_per_device_call merges) and on the CPU (its plain
+    version): the same bytes."""
+    path = str(tmp_path / "long.txt")
+    make_long_corpus(path, raw_mb=0.05)
+    out = {}
+    for dev in ("cpu", cuda):
+        n0 = _kernels.flat_train.launches
+        t = BPETrainer(640, 0, 0.995, 2, device=dev)
+        t.load_corpus(path)
+        assert t.train() == 384
+        launches = _kernels.flat_train.launches - n0
+        assert launches == (6 if dev == cuda else 0)
+        mp, vp = tmp_path / "m", tmp_path / "v"
+        t.save(str(mp), str(vp))
+        out[str(dev)] = (mp.read_bytes(), vp.read_bytes())
+    assert out["cpu"] == out[str(cuda)]
