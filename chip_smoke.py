@@ -65,10 +65,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      group's first all_reduce (the communicator's set-up) is timed apart
      from train()
  12. the phase clocks: the hist kernel at vocab 768 and 4096, K5 and K4's
-     chain at 768 and the giant kernel at 32768 (first 128 merges and the
-     whole run), as the main path calls them, once with each build from
-     equal states: records and state must be identical; prints the µs
-     per merge of each phase
+     chain at 768, the giant kernel at 32768 and F1 on the long-word
+     corpus at 32768 (each the first 128 merges and the whole run), as
+     the main path calls them, once with each build from equal states:
+     records and state must be identical; prints the µs per merge of
+     each phase (F1 also its chunks visited, words merged past their
+     signatures and segment maxima recomputed per merge)
  13. encode, with the merges that phases 3, 4 and 6 trained (vocab 768
      and 4096 on the dense rank table, 32768 on the hash table): the
      encode kernel (csrc/encode.cu) against its two plain versions on
@@ -200,19 +202,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      calls of 7 and 64 merges with a call past the end, on the seeded
      streams of tests/torch_flat_cases.py (words up to 1,000 tokens, a
      run of 1,001 'a's, unk bytes, ids past 65535, a min_pair_freq stop,
-     words merged down to one token): records, the merge count, done and
-     the compacted stream identical; then the first 128 merges on the
-     16 MB long-word corpus (bench.make_long_corpus, checked against its
-     digest; its unique words and stream length printed) at vocab 32768,
-     F1 and plain from the same arrays, timed (CUDA events), with the
-     bound of what the merges move (counted in a rerun, one merge a
-     call); then the slice: BPETrainer(vocab 32768, min_pair_freq 2,
+     words merged down to one token, a long tail of count-1 merges over
+     4,001 words, late pairs held only by a chunk's first or last word, a
+     resumed stream holding ids past 65535): records, the merge count,
+     done and the compacted stream identical; then the first 128 merges
+     on the 16 MB long-word corpus (bench.make_long_corpus, checked
+     against its digest; its unique words and stream length printed) at
+     vocab 32768, F1 and plain from the same arrays, timed (CUDA events),
+     with the chunks its passes visit per merge and the bound of what the
+     merges move (the plain version's pair counts before and after each
+     merge); then the slice: BPETrainer(vocab 32768, min_pair_freq 2,
      coverage 1.0) load_corpus -> train -> save on that corpus, which
      routes to the flat engine (words over 64 bytes): one F1 launch per
      call of merges_per_device_call merges, the whole run's ms per merge
-     (CUDA events around each call, its readback included), and the
-     bytes equal to the plain flat engine's on the card over the whole
-     run
+     (CUDA events around each call, its readback included) and chunks
+     visited per merge, the final compaction and copy to the host timed
+     apart, and the bytes equal to the plain flat engine's on the card
+     over the whole run
 
 The long-word corpus is generated here too (make_long_corpus).
 The corpus is generated here (shredword_tpu_torch.bench.make_corpus, the
@@ -273,6 +279,10 @@ CHAIN_PHASES = ["apply rows", "apply", "apply sync", "pick", "corpus"]
 GIANT_PHASES = ["init", "init sync", "pick scan", "row read", "row sync",
                 "corpus", "corpus sync", "update rows", "update others",
                 "update", "update sync", "bounds"]
+# csrc/flat.cu's loop (F1); "init count" holds its barrier, "pass table"
+# is the pass's last adds to the pair table
+FLAT_PHASES = ["init count", "pick scan", "pick barrier", "pick reduce",
+               "word pass", "pass table", "pass barrier"]
 CLOCKED_BLOCKS, CLOCKED_PHASES = 1024, 16     # csrc/phase_clock.cuh
 CARD = ""            # the card's name and power limit, read in phase 1
 
@@ -1185,7 +1195,8 @@ def drive(kernel, state, merges: int, steps: int, **kw):
     return torch.cat(recs), ms
 
 
-def phase_clocks(device, clocked: str, hist_layout, giant_layout) -> None:
+def phase_clocks(device, clocked: str, hist_layout, giant_layout,
+                 long_arrays) -> None:
     """The build with phase clocks against the plain build, on the main
     path's kernel calls from equal states (records and state identical),
     and where each merge's time goes: per phase, the µs per merge of the
@@ -1250,10 +1261,80 @@ def phase_clocks(device, clocked: str, hist_layout, giant_layout) -> None:
         print(f"[clocks] {tag}: {n} merges, clocked kernel {ms / n:.6f} ms "
               f"per merge, {len(cycles)} blocks at {per_us / 1e3:.3f} GHz, "
               f"records and state equal the plain build's")
-        us = cycles / per_us / n
-        for k, name in enumerate(names):
-            print(f"[clocks] {tag}:   {name:<13} mean {us[:, k].mean():7.4f},"
-                  f" largest block {us[:, k].max():7.4f} µs per merge")
+        print_split(tag, cycles / per_us / n, names)
+    flat_clocks(device, lib, long_arrays)
+
+
+def print_split(tag: str, us: np.ndarray, names: list[str]) -> None:
+    """µs per merge of each phase, [blocks, phases]: the mean block's and
+    the largest."""
+    for k, name in enumerate(names):
+        print(f"[clocks] {tag}:   {name:<13} mean {us[:, k].mean():7.4f},"
+              f" largest block {us[:, k].max():7.4f} µs per merge")
+
+
+def flat_outcome(ts) -> list[torch.Tensor]:
+    """What a flat run leaves, in a form that does not depend on where
+    F1's blocks inserted keys: the records, the merge count and done, the
+    words and their live lengths, the (key, count) pairs of the table
+    sorted by key, F1's state words, the presence index and the word
+    signatures."""
+    fs = ts.corpus
+    used = fs.tkey != -1
+    key, order = torch.sort(fs.tkey[used])
+    return [torch.from_numpy(ts.merges), torch.from_numpy(ts.merge_freqs),
+            torch.tensor([ts.n_merges, int(ts.done)]), fs.tokens, fs.len,
+            key, fs.cnt[used][order], fs.st, fs.pres, fs.sig]
+
+
+def flat_clocks(device, lib, arrays) -> None:
+    """F1's clocked build against its plain build on the long-word corpus
+    at vocab 32768 (the first 128 merges, then the whole run in calls of
+    64, as the trainer calls it), and the split of a merge by phase."""
+    from shredword_tpu_torch.ops import _kernels
+
+    lib.shred_flat_phase_cycles.argtypes = [ctypes.c_void_p]
+    lib.shred_flat_phase_cycles.restype = ctypes.c_int
+    plain = _kernels.lib()
+    for what, merges, steps in ((f"first {TIMED_MERGES}", TIMED_MERGES,
+                                 TIMED_MERGES),
+                                ("whole run", GIANT_VOCAB - 256, 64)):
+        tag = f"flat v {GIANT_VOCAB} {what}"
+        runs = []
+        for build in (plain, lib):
+            read_cycles(lib, "shred_flat_phase_cycles")
+            ts, _ = flat_states(arrays, device, merges)
+            _kernels._lib = build
+            ms = 0.0
+            try:
+                while not ts.done and ts.n_merges < merges:
+                    out = {}
+                    ms += elapsed_ms(lambda: out.__setitem__(
+                        "ts", _kernels.flat_train(
+                            ts, GIANT["unk_id"], GIANT["min_pair_freq"],
+                            target_merges=merges, max_steps=steps)), device)
+                    ts = out["ts"]
+            finally:
+                _kernels._lib = plain
+            runs.append((ts, ms))
+        cycles = read_cycles(lib, "shred_flat_phase_cycles")
+        (tp, _), (tc, ms) = runs
+        err = max(max_abs_diff(a.to(device), b.to(device))
+                  if a.shape == b.shape else F1_TOO_FAR
+                  for a, b in zip(flat_outcome(tc), flat_outcome(tp)))
+        n = tc.n_merges
+        check(err == 0 and n == merges,
+              f"the phase-clock build equals the plain build, {tag}")
+        per_us = cycles[0].sum() / (ms * 1e3)
+        print(f"[clocks] {tag}: {n} merges, clocked kernel {ms / n:.6f} ms "
+              f"per merge, {len(cycles)} blocks at {per_us / 1e3:.3f} GHz, "
+              f"records and state equal the plain build's; the passes "
+              f"visit {tc.corpus.visited / n:.2f} of "
+              f"{-(-tc.corpus.n_words // 32)} chunks per merge and merge "
+              f"{tc.corpus.candidates / n:.2f} words whose signature "
+              f"holds the pair, the picks recompute "
+              f"{tc.corpus.refreshed / n:.2f} segment maxima")
+        print_split(tag, cycles / per_us / n, FLAT_PHASES)
 
 
 # ---------------------------------------------------------------------
@@ -3150,7 +3231,8 @@ def flat_states(arrays, device, target, n_prev=0):
 def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps):
     """F1 and its plain version call by call from the same arrays, then
     one call past the end (no launch, nothing changes); returns (max
-    |diff| after every call, merges done, F1 ms, plain ms)."""
+    |diff| after every call, merges done, F1 ms, plain ms, the chunks F1's
+    passes visited)."""
     from shredword_tpu_torch.ops import _kernels
 
     k, p = flat_states(arrays, device, target, n_prev)
@@ -3170,52 +3252,47 @@ def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps):
     err = max(err, flat_diff(k, p))
     check(_kernels.flat_train.launches - n0 == calls,
           "one F1 launch per call with merges to make, none past the end")
-    return err, p.n_merges - n_prev, ms_k, ms_p
+    return err, p.n_merges - n_prev, ms_k, ms_p, k.corpus.visited
 
 
 def flat_cost(arrays, device, n: int) -> dict:
     """bound() per merge of the first n flat merges, from what they must
     move on this data: once, the stream's tokens in and out and each
-    word's offset, length and count; per merge every entry whose count
+    word's offset, length and count; per merge every pair whose count
     changed (its key and count read, its count written) and the record.
-    A compare per live entry and per live token, each merge.  F1 runs
-    one merge a call and what changed is found by comparing the counts
-    before and after."""
-    from shredword_tpu_torch.ops import _kernels
+    A compare per pair ever counted and per live token, each merge.  The
+    pair counts are the plain version's (bpe_ops.pair_counts), before
+    and after each merge, so the bound does not depend on F1's layout;
+    the first merge's changes include the initial count, as F1 counts
+    the stream in its first call."""
+    from shredword_tpu_torch.ops import _kernels, bpe_ops
 
-    k, _ = flat_states(arrays, device, n)
-    fs = k.corpus
-    before = fs.ecnt.clone()
-    nbytes, ops = 8 * fs.n + 12 * fs.n_words, 0
+    _, ts = flat_states(arrays, device, n)
+    unk, minf = GIANT["unk_id"], GIANT["min_pair_freq"]
+    words = int(torch.count_nonzero(torch.diff(ts.corpus.word_id))) + 1
+    nbytes, ops = 8 * len(ts.corpus.tokens) + 12 * words, 0
+    keys = seen = torch.empty(0, dtype=torch.int64, device=device)
+    counts = keys
     for _ in range(n):
-        k = _kernels.flat_train(k, GIANT["unk_id"], GIANT["min_pair_freq"],
-                                target_merges=n, max_steps=1)
-        nbytes += 16 * int((fs.ecnt != before).sum()) + 12
-        ops += int(fs.st[0]) + fs.stream_len
-        before.copy_(fs.ecnt)
-    check(k.n_merges == n, "F1 merges through the counted window")
+        ts = _kernels.flat_train_plain(ts, unk, minf, target_merges=n,
+                                       max_steps=1)
+        k2, c2 = bpe_ops.pair_counts(ts.corpus, unk)
+        _, diff = bpe_ops.sum_by_key(torch.cat([keys, k2]),
+                                     torch.cat([-counts, c2]))
+        seen = torch.unique(torch.cat([seen, k2]))
+        nbytes += 16 * int(torch.count_nonzero(diff)) + 12
+        ops += len(seen) + len(ts.corpus.tokens)
+        keys, counts = k2, c2
+    check(ts.n_merges == n, "the plain version merges through the window")
     return bound(nbytes / n, ops / n)
 
 
-def phase_flat(device, out_dir) -> tuple[int, dict]:
-    """F1 against its plain version, then the long-word slice; returns
-    F1's launches in the slice's train() and its kernels-line timing."""
+def long_corpus(device, out_dir) -> tuple[str, tuple]:
+    """The 16 MB long-word corpus (checked against its digest) and its
+    flat stream (tokens, word_id, wcount) under the giant config."""
     from shredword_tpu_torch.bench import (LONG_CORPUS_BYTES,
                                            LONG_CORPUS_SHA256,
                                            make_long_corpus)
-    from shredword_tpu_torch.ops import _kernels
-    from torch_flat_cases import FLAT_CASES, flat_corpus
-
-    err = 0
-    for case, (ckw, target, n_prev, unk, minf) in sorted(FLAT_CASES.items()):
-        for steps in (7, 64):
-            e, n, _, _ = flat_both(flat_corpus(**ckw), device, target=target,
-                                   n_prev=n_prev, unk=unk, minf=minf,
-                                   steps=steps)
-            print(f"[flat] {case}: {n} merges in calls of {steps}, max "
-                  f"|F1 - plain| = {e}")
-            check(e == 0 and n > 0, f"F1 == plain on {case}")
-            err = max(err, e)
 
     corpus = os.path.join(out_dir, "long.txt")
     make_long_corpus(corpus)
@@ -3226,26 +3303,53 @@ def phase_flat(device, out_dir) -> tuple[int, dict]:
           "the long-word corpus matches its digest")
     del data
     tokens, word_id, counts = token_arrays(corpus, device, GIANT)
-    arrays = (tokens, word_id, counts[word_id])
     lens = np.bincount(word_id)
     print(f"[flat] long-word corpus: {LONG_CORPUS_BYTES} bytes, "
           f"{len(lens)} unique words ({int((lens > 64).sum())} over 64 "
           f"bytes, the longest {int(lens.max())}), stream N {len(tokens)}")
+    return corpus, (tokens, word_id, counts[word_id])
+
+
+def flat_cases(device) -> int:
+    """F1 against its plain version, call by call, on every seeded stream
+    of tests/torch_flat_cases.py; returns the largest difference."""
+    from torch_flat_cases import FLAT_CASES, flat_corpus
+
+    err = 0
+    for case, (ckw, target, n_prev, unk, minf) in sorted(FLAT_CASES.items()):
+        for steps in (7, 64):
+            e, n, *_ = flat_both(flat_corpus(**ckw), device, target=target,
+                                   n_prev=n_prev, unk=unk, minf=minf,
+                                   steps=steps)
+            print(f"[flat] {case}: {n} merges in calls of {steps}, max "
+                  f"|F1 - plain| = {e}")
+            check(e == 0 and n > 0, f"F1 == plain on {case}")
+            err = max(err, e)
+    return err
+
+
+def phase_flat(device, out_dir, corpus, arrays) -> tuple[int, dict]:
+    """F1 against its plain version, then the long-word slice; returns
+    F1's launches in the slice's train() and its kernels-line timing."""
+    from shredword_tpu_torch.ops import _kernels, bpe_ops
+
+    err = flat_cases(device)
     target = GIANT_VOCAB - 256
     kw = dict(unk=GIANT["unk_id"], minf=GIANT["min_pair_freq"])
-    e, n, ms_k, ms_p = flat_both(arrays, device, target=TIMED_MERGES,
-                                 steps=TIMED_MERGES, **kw)
+    e, n, ms_k, ms_p, visited = flat_both(
+        arrays, device, target=TIMED_MERGES, steps=TIMED_MERGES, **kw)
     check(e == 0 and n == TIMED_MERGES, "F1 == plain, first 128 merges")
     err = max(err, e)
     cost = flat_cost(arrays, device, TIMED_MERGES)
     print(f"[flat] first {n} merges at vocab {GIANT_VOCAB}: F1 "
           f"{ms_k / n:.6f} ms/merge (bound {cost['bound_ms']:.8f}, "
           f"{cost['bound_by']}), plain {ms_p / n:.4f} ms/merge, max "
-          f"|F1 - plain| = {e}")
+          f"|F1 - plain| = {e}; the passes visit {visited / n:.2f} "
+          f"chunks of 32 words per merge")
 
     # the slice, through the public API
     reset_counts()
-    timer = Timed(_kernels.flat_train)
+    timer = Timed(_kernels.flat_train, keep=True)
     _kernels.flat_train = timer
     try:
         n, secs, raw, peak, model, vocab_b = train_and_save(
@@ -3263,6 +3367,21 @@ def phase_flat(device, out_dir) -> tuple[int, dict]:
           f"{peak / 1e9:.3f} GB")
     check(n == target, "the slice learns every merge")
     check(launches == calls > 0, "the slice ran F1, one launch per call")
+    fs = timer.outs[-1].corpus
+    del timer.outs[:-1]
+    print(f"[flat] slice: the passes visit {fs.visited / n:.2f} chunks of "
+          f"32 words per merge over the whole run ({-(-fs.n_words // 32)} "
+          f"chunks)")
+    # the final compaction and the copy to the host, as train() ends
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    final = bpe_ops.final_corpus(fs)
+    final.tokens.cpu().numpy()
+    final.word_id.cpu().numpy()
+    print(f"[flat] slice: final compaction and copy to the host "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock; "
+          f"{len(final.tokens)} live tokens)")
+    del fs, final, timer.outs[:]
     _kernels.flat_train = _kernels.flat_train_plain
     try:
         pn, psecs, _, _, pmodel, pvocab = train_and_save(
@@ -3359,7 +3478,9 @@ def main() -> int:
         launches[GIANT_VOCAB], model_giant, vocab_giant = phase_main_path(
             corpus, tmp, GIANT_VOCAB, device, cfg=GIANT,
             kernel="giant_train_step")
-        launches["flat"], timing["flat"] = phase_flat(device, tmp)
+        long_txt, long_arrays = long_corpus(device, tmp)
+        launches["flat"], timing["flat"] = phase_flat(device, tmp, long_txt,
+                                                      long_arrays)
         # the merges that phases 3, 4 and 6 trained, for phase 13
         merges = {768: merges_of(model_768), 4096: merges_of(fused_4096[0]),
                   GIANT_VOCAB: merges_of(model_giant)}
@@ -3380,7 +3501,8 @@ def main() -> int:
                                              fused_4096, setup)
         finally:
             dist.destroy_process_group()
-        phase_clocks(device, clocked, bench_layout, giant_layout)
+        phase_clocks(device, clocked, bench_layout, giant_layout,
+                     long_arrays)
         phase_encode_vs_plain(device, enc_text.encode(), merges)
         encode = {v: phase_encode_main(device, enc_text, m, v)
                   for v, m in merges.items()}

@@ -145,7 +145,7 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_gpt_starts_mask.restype = i
     L.shred_gpt_status_ints.argtypes = [i]
     L.shred_gpt_status_ints.restype = i
-    L.shred_flat_train.argtypes = [p] * 11 + [i] * 9 + [p]
+    L.shred_flat_train.argtypes = [p] * 14 + [i] * 9 + [p]
     L.shred_flat_train.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
@@ -926,8 +926,9 @@ def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
 # ---------------------------------------------------------------------
 
 FLAT_MAX_BLOCKS = 1024     # block results the wrapper makes room for
-FLAT_ST_ENTRIES, FLAT_ST_OVERFLOW, FLAT_ST_MERGED, FLAT_ST_STEPS, \
-    FLAT_ST_DONE = range(5)                   # csrc/flat.cu's st[]
+FLAT_ST_OVERFLOW, FLAT_ST_MERGED, FLAT_ST_STEPS, FLAT_ST_DONE, \
+    FLAT_ST_VISITED, FLAT_ST_CANDIDATES, \
+    FLAT_ST_REFRESHED = range(7)              # csrc/flat.cu's st[]
 
 
 def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
@@ -946,10 +947,14 @@ def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
     are then merged in place; ``bpe_ops.final_corpus`` gives the plain
     arrays) and every call that has a merge to make is one launch of
     ``csrc/flat.cu``: the first counts the stream's pairs, then each
-    merge picks, records and merges every word with the table's exact
-    deltas, all in the launch; the records, the merges made and ``done``
-    come back in one copy after it.  A call after ``done`` or at
-    ``target_merges`` changes nothing and launches nothing."""
+    merge picks, records and merges the words of the chunks that hold
+    both ids with the table's exact deltas, all in the launch; the
+    records, the merges made and ``done`` come back in one copy after it
+    (``FlatState.visited``, ``.candidates`` and ``.refreshed`` count the
+    chunks the passes visited, the words there whose signature holds the
+    pair and the segment maxima the picks recomputed).  A call
+    after ``done`` or at ``target_merges`` changes nothing and launches
+    nothing."""
     corpus = ts.corpus
     dev = corpus.tokens.device
     if dev.type == "cpu":
@@ -970,6 +975,7 @@ def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
     if n + steps > len(ts.merges) or 256 + n + steps > 2**31 - 1:
         raise ValueError(f"merges {n}..{n + steps} exceed the records "
                          f"({len(ts.merges)}) or the int32 ids")
+    fs.reserve(256 + target_merges)      # a row for every new id
     i32 = dict(dtype=torch.int32, device=dev)
     records = torch.empty((steps, 3), **i32)
     bbest = torch.empty(2 * FLAT_MAX_BLOCKS, dtype=torch.int64, device=dev)
@@ -977,11 +983,13 @@ def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib().shred_flat_train(
             fs.tokens.data_ptr(), fs.off.data_ptr(), fs.len.data_ptr(),
-            fs.wcnt.data_ptr(), fs.tkey.data_ptr(), fs.tent.data_ptr(),
-            fs.ekey.data_ptr(), fs.ecnt.data_ptr(), fs.st.data_ptr(),
-            bbest.data_ptr(), records.data_ptr(), fs.n_words, fs.cap,
-            fs.cap // 2, steps, unk_id, min(min_pair_freq, 2**31 - 1), n,
-            int(not fs.counted), FLAT_MAX_BLOCKS, stream)
+            fs.wcnt.data_ptr(), fs.pres.data_ptr(), fs.sig.data_ptr(),
+            fs.tkey.data_ptr(), fs.cnt.data_ptr(), fs.skey.data_ptr(),
+            fs.sce.data_ptr(), fs.dirty.data_ptr(), fs.st.data_ptr(),
+            bbest.data_ptr(), records.data_ptr(), fs.n_words,
+            fs.pres.shape[1], fs.cap, steps,
+            unk_id, min(min_pair_freq, 2**31 - 1), n, int(not fs.counted),
+            FLAT_MAX_BLOCKS, stream)
     _check(rc)
     flat_train.launches += 1
     fs.counted = True
@@ -994,6 +1002,9 @@ def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
     ts.merges[n:n + k] = rec[:k, :2]
     ts.merge_freqs[n:n + k] = rec[:k, 2]
     fs.merged = int(st[FLAT_ST_MERGED])
+    fs.visited = int(st[FLAT_ST_VISITED])
+    fs.refreshed = int(st[FLAT_ST_REFRESHED])
+    fs.candidates = int(st[FLAT_ST_CANDIDATES])
     return ts._replace(n_merges=n + k, done=bool(st[FLAT_ST_DONE]))
 
 

@@ -119,6 +119,51 @@ def apply_merge(state: CorpusState, a: int, b: int,
     return CorpusState(t[keep], state.word_id[keep], state.wcount[keep])
 
 
+CHUNK_WORDS = 32     # words per presence bit of F1's index (csrc/flat.cu)
+SEG_SLOTS = 256    # slots per kept segment maximum (csrc/flat.cu SEG)
+
+
+def _as_uint32_bits(bits: torch.Tensor) -> torch.Tensor:
+    """int64 values below 2**32 as int32 holding the same 32 bits."""
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+
+
+def _or_bits(rows: torch.Tensor, bit: torch.Tensor, n_rows: int,
+             words: int) -> torch.Tensor:
+    """int32 [n_rows, words]: bit `bit` of row `rows` set for each pair,
+    as 32-bit words."""
+    cell = torch.unique(rows * (32 * words) + bit)
+    r, b = cell // (32 * words), cell % (32 * words)
+    out = torch.zeros(n_rows * words, dtype=torch.int64, device=rows.device)
+    out.index_add_(0, r * words + b // 32, torch.ones_like(b) << (b % 32))
+    return _as_uint32_bits(out).view(n_rows, words)
+
+
+def presence_index(tokens: torch.Tensor, word: torch.Tensor, n_words: int,
+                   rows: int) -> torch.Tensor:
+    """F1's presence index of a stream: int32 [rows, ncw], bit c % 32 of
+    word c // 32 of row x set when chunk c (words 32c .. 32c + 31) holds
+    id x; ``word`` gives each position's word, ids below 0 (unk -1) have
+    no row, ncw = ceil(nc / 32) for nc = ceil(n_words / 32) chunks."""
+    nc = -(-n_words // CHUNK_WORDS)
+    ok = tokens >= 0
+    return _or_bits(tokens[ok].long(), word[ok].long() // CHUNK_WORDS, rows,
+                    -(-nc // 32))
+
+
+def sig_bit(ids: torch.Tensor) -> torch.Tensor:
+    """The bit of each id in a word's 128-bit signature (csrc/flat.cu's
+    sig_bit): the top 7 bits of the id times 0x9E3779B1, mod 2**32."""
+    return ((ids.long() & 0xFFFFFFFF) * 0x9E3779B1 & 0xFFFFFFFF) >> 25
+
+
+def word_signatures(tokens: torch.Tensor, word: torch.Tensor,
+                    n_words: int) -> torch.Tensor:
+    """F1's word signatures: int32 [n_words, 4], the 128 bits of word w
+    holding bit sig_bit(x) of every id x in it (unk too)."""
+    return _or_bits(word.long(), sig_bit(tokens), n_words, 4)
+
+
 class FlatState:
     """F1's state (on the card), built once per ``train()`` from a
     :class:`CorpusState` and advanced in place by every call of
@@ -128,10 +173,16 @@ class FlatState:
     :func:`pair_counts`), each with one count.  ``corpus.tokens`` is
     taken, not copied: F1 merges every word in place, left-aligned, and
     keeps its live length; :meth:`compact` gives the plain version's
-    arrays.  The pair counts are a hash table of ``cap`` int64 keys (a
+    arrays.  ``pres`` is the presence index of the stream's ids
+    (:func:`presence_index`), a row per id up to the largest one in the
+    stream (at least 256); :meth:`reserve` adds the rows of the ids a run
+    will make.  ``sig`` holds each word's signature of its ids
+    (:func:`word_signatures`), which F1 recomputes for every word it
+    merges.  The pair counts are a hash table of ``cap`` int64 keys (a
     power of two of at least 6N, so at most half full: the run inserts
-    at most 3N keys) and ``cap // 2`` dense entries with their int32
-    counts; the table is empty until the first call counts the stream."""
+    at most 3N keys) with an int32 count per slot, and the kept maximum
+    of every ``SEG_SLOTS`` slots; the table is empty until the first
+    call counts the stream."""
 
     def __init__(self, corpus: CorpusState):
         t, wid, wc = corpus
@@ -155,15 +206,31 @@ class FlatState:
             torch.int32)
         self.len = torch.diff(self.off)
         self.wcnt = wc[starts].contiguous()
+        top = int(t.max()) + 1 if n else 0
+        word = torch.cumsum(first, 0) - 1
+        self.pres = presence_index(t, word, len(starts), max(256, top))
+        self.sig = word_signatures(t, word, len(starts))
         self.cap = 1 << max(10, (6 * max(n, 1) - 1).bit_length())
         self.tkey = torch.full((self.cap,), -1, dtype=torch.int64,
                                device=dev)
-        self.tent = torch.full((self.cap,), -1, **i32)
-        self.ekey = torch.empty(self.cap // 2, dtype=torch.int64, device=dev)
-        self.ecnt = torch.zeros(self.cap // 2, **i32)
+        self.cnt = torch.zeros(self.cap, **i32)
+        nseg = self.cap // SEG_SLOTS
+        self.skey = torch.full((nseg,), -1, dtype=torch.int64, device=dev)
+        self.sce = torch.zeros(nseg, dtype=torch.int64, device=dev)
+        self.dirty = torch.zeros(nseg, **i32)
         self.st = torch.zeros(8, **i32)
         self.counted = False      # the first call counts the stream
         self.n, self.merged = n, 0
+        # what the passes and picks did (F1's st): chunks visited, words
+        # whose signature holds the pair, segment maxima recomputed
+        self.visited = self.candidates = self.refreshed = 0
+
+    def reserve(self, rows: int) -> None:
+        """Grow the presence index to ``rows`` ids (new rows empty)."""
+        have = self.pres.shape[0]
+        if rows > have:
+            self.pres = torch.cat([self.pres, self.pres.new_zeros(
+                (rows - have, self.pres.shape[1]))])
 
     @property
     def stream_len(self) -> int:

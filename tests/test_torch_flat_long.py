@@ -16,6 +16,7 @@ from shredword_tpu_torch import BPETrainer
 from shredword_tpu_torch.bench import (LONG_CORPUS_BYTES, LONG_CORPUS_SHA256,
                                        make_long_corpus)
 from shredword_tpu_torch.ops import _kernels, bpe_ops
+from torch_flat_cases import FLAT_CASES, flat_corpus
 
 # target vocab, unk_id, coverage (0.995: some rare bytes become unk),
 # min_pair_freq
@@ -179,3 +180,47 @@ def test_flat_state_layout_and_compaction():
     bad[int(fs.off[w]) + 1] += 1        # the second token of word w
     with pytest.raises(ValueError, match="one count per word"):
         bpe_ops.FlatState(corpus._replace(wcount=bad))
+
+
+def _presence_reference(tokens, word_id, rows):
+    """For each id, the chunks of 32 words that hold it, as F1's bits."""
+    first = np.r_[True, word_id[1:] != word_id[:-1]]
+    word = np.cumsum(first) - 1
+    nc = -(-int(first.sum()) // 32)
+    want = np.zeros((rows, -(-nc // 32)), np.uint32)
+    for x, w in zip(tokens.tolist(), word.tolist()):
+        if x >= 0:
+            c = w // 32
+            want[x, c // 32] |= np.uint32(1 << (c % 32))
+    return want
+
+
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_state_presence_index_and_signatures(case):
+    ckw, target, n_prev, unk, minf = FLAT_CASES[case]
+    tokens, word_id, wcount = flat_corpus(**ckw)
+    fs = bpe_ops.FlatState(bpe_ops.make_state(tokens, word_id, wcount,
+                                              device="cpu"))
+    rows = max(256, int(tokens.max()) + 1)
+    assert fs.pres.dtype == torch.int32 and fs.pres.shape[0] == rows
+    np.testing.assert_array_equal(fs.pres.numpy().view(np.uint32),
+                                  _presence_reference(tokens, word_id, rows))
+    if unk == -1 and (tokens == -1).any():
+        assert fs.pres.shape[0] == 256           # unk -1 has no row
+    # the wrapper's rows for every id the run makes, the stream's kept
+    before = fs.pres.clone()
+    fs.reserve(256 + target)
+    assert fs.pres.shape == (max(rows, 256 + target), before.shape[1])
+    assert torch.equal(fs.pres[:rows], before)
+    assert not fs.pres[rows:].any()
+    # each word's signature: bit sig_bit(x) of every id x in it
+    first = np.r_[True, word_id[1:] != word_id[:-1]]
+    word = np.cumsum(first) - 1
+    want = np.zeros((int(first.sum()), 4), np.uint32)
+    for x, w in zip(tokens.tolist(), word.tolist()):
+        bit = ((x & 0xFFFFFFFF) * 0x9E3779B1 & 0xFFFFFFFF) >> 25
+        want[w, bit // 32] |= np.uint32(1 << (bit % 32))
+    np.testing.assert_array_equal(fs.sig.numpy().view(np.uint32), want)
+    # the kept segment maxima cover every slot of the table
+    assert len(fs.skey) * bpe_ops.SEG_SLOTS == fs.cap == len(fs.cnt)
+    assert len(fs.dirty) == len(fs.sce) == len(fs.skey)

@@ -205,6 +205,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "flat_compare.py")
 
 
 @pytest.mark.parametrize("path", sorted(
