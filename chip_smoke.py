@@ -24,8 +24,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      call inside train() (no synchronise added to the run)
   4. the same at vocab 4096, cross-checked against the flat engine
   5. the giant kernel against its plain PyTorch version on the card, on
-     seeded random corpora at vocab 5120 and 8192 (chunk widths 512 and
-     1024, chunked calls, an unk byte, 'aaaa' runs, a min_pair_freq
+     seeded random corpora at vocab 5120 and 8192 (chunk widths 512,
+     1024 and 2048, chunked calls, an unk byte, 'aaaa' runs, a min_pair_freq
      stop, a call past the end): records, tokens, tables, presence and
      row-max bounds must be identical; then both timed on the bench
      corpus's giant layout at vocab 32768 for the first 128 merges, and
@@ -219,8 +219,26 @@ Phases (any failure exits non-zero, and no result line is printed):
      visited per merge, the final compaction and copy to the host timed
      apart, and the bytes equal to the plain flat engine's on the card
      over the whole run
+ 20. (runs after phase 19) BASELINE config 2: BPETrainer(vocab 32768,
+     min_pair_freq 2000, coverage 1.0, the other arguments at their
+     defaults) on the 1 GB Heaps-law corpus of bench.make_big_corpus
+     (reused from the bench's directory when it is there with its known
+     bytes, else generated; size and sha256 checked): load_corpus ->
+     train -> save through the auto path, which must take the giant
+     engine at chunk width 2048 and launch K3 (one launch per call);
+     load_corpus, the int32 guard, _token_arrays, the layout, the upload,
+     init_tables, K3's call loop (and K3's device time from CUDA events
+     around each call), the final corpus and save on the host clock;
+     merges beside the JAX package's 15,772, train() s, MB/s and peak
+     device memory; then engine="flat" on the same corpus (F1 launched,
+     one launch per call): .model/.vocab bytes == the auto path's; then
+     K3 against its plain version for the first 128 merges on the auto
+     path's layout (records, tokens, tables, presence and bounds
+     identical) and F1 against its plain version for the first 128
+     merges of the same stream, each timed with its bound
 
-The long-word corpus is generated here too (make_long_corpus).
+The long-word corpus is generated here too (make_long_corpus), and the
+1 GB corpus (make_big_corpus, on every core).
 The corpus is generated here (shredword_tpu_torch.bench.make_corpus, the
 JAX bench's generator) and checked against its known digest.  The last lines of standard output are
 the card's name and power limit, the kernels' JSON record and
@@ -616,7 +634,7 @@ def mean_refresh(records: list[torch.Tensor]) -> float:
     return float(recs[did, 4].double().mean())
 
 
-def giant_cost(layout, state, start: int, n: int) -> dict:
+def giant_cost(layout, state, start: int, n: int, cfg=GIANT) -> dict:
     """bound() per merge of the n giant merges from merge `start`, from
     what they must move on this run's data: once per call, the used
     chunks' tw in and out and their weights, and the live bounds in and
@@ -625,7 +643,8 @@ def giant_cost(layout, state, start: int, n: int) -> dict:
     that the merge changes (read and written) and the record.  A compare
     per live bound and per cell read, for each row read.  The kernel
     advances `state` (at vocab GIANT_VOCAB) one merge per call, and what
-    changed is found by comparing the state before and after."""
+    changed is found by comparing the state before and after.  The
+    merges are those of ``cfg``'s unk_id and min_pair_freq."""
     from shredword_tpu_torch.ops import _kernels
 
     L, W = layout.tw.shape
@@ -638,7 +657,7 @@ def giant_cost(layout, state, start: int, n: int) -> dict:
     for i in range(n):
         lim = 257 + start + i                  # live ids of the merge
         rec = _kernels.giant_train_step(
-            *state, unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"],
+            *state, unk=cfg["unk_id"], min_freq=cfg["min_pair_freq"],
             n_done=start + i, init_done=0, allowed=1, steps=1,
             nc_used=used)[0].tolist()
         check(rec[3] == 1, "the giant kernel merges through the window")
@@ -676,6 +695,7 @@ def phase_giant_vs_plain(device: torch.device, bench_layout) -> dict:
 
     for v, cw, min_freq, merges, steps in ((5120, 512, 2, 700, 128),
                                            (8192, 1024, 2, 900, 256),
+                                           (8192, 2048, 2, 900, 256),
                                            (5120, 1024, 20000, 700, 64)):
         unk = 122                                       # the byte 'z'
         tokens, word_id, wc_word = random_corpus(v + cw, 30000, unk)
@@ -771,6 +791,32 @@ class Timed:
         """Device ms of the first `calls` calls (of all by default)."""
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in self.events[:calls])
+
+
+class HostClock:
+    """Host seconds of wrapped functions, summed per name; with sync the
+    device is synchronized after each call and its wait is kept apart
+    under "<name> wait"."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.secs: dict = {}
+
+    def add(self, name: str, sec: float) -> None:
+        self.secs[name] = self.secs.get(name, 0.0) + sec
+
+    def wrap(self, name: str, fn, sync: bool = False):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            t1 = time.perf_counter()
+            self.add(name, t1 - t0)
+            if sync:
+                torch.cuda.synchronize(self.device)
+                self.add(name + " wait", time.perf_counter() - t1)
+            return out
+        wrapped.launches = 0    # a wrapper counts on the name it is under
+        return wrapped
 
 
 SPIN_CYCLES = {"sparse": 2_000_000,     # ~1 ms: one launch to enqueue
@@ -2592,22 +2638,7 @@ def g1_train_layers(corpus, device, mesh, vocab: int) -> None:
     from shredword_tpu_torch.parallel import giant as par_giant
     from shredword_tpu_torch.parallel import hist as par_hist
 
-    secs: dict = {}
-
-    def clocked(name, fn, sync):
-        def wrapped(*a, **k):
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            t1 = time.perf_counter()
-            if sync:
-                torch.cuda.synchronize(device)
-                secs[name + " wait"] = (secs.get(name + " wait", 0.0)
-                                        + time.perf_counter() - t1)
-            secs[name] = secs.get(name, 0.0) + t1 - t0
-            return out
-        wrapped.launches = 0    # the wrapper counts on the name it is under
-        return wrapped
-
+    clock = HostClock(device)
     patches = [(par_hist, "sharded_hist_train", False),
                (par_giant, "sharded_giant_train", False),
                (par_hist, "shard_layout", False),
@@ -2621,7 +2652,7 @@ def g1_train_layers(corpus, device, mesh, vocab: int) -> None:
     try:
         t.load_corpus(corpus)
         for (m, name, sync), fn in zip(patches, saved):
-            setattr(m, name, clocked(name, fn, sync))
+            setattr(m, name, clock.wrap(name, fn, sync))
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         merges = t.train()
@@ -2631,6 +2662,7 @@ def g1_train_layers(corpus, device, mesh, vocab: int) -> None:
         for (m, name, _), fn in zip(patches, saved):
             setattr(m, name, fn)
         t.destroy()
+    secs = clock.secs
     layers = {
         "train() outside the engines": total - secs["sharded_hist_train"]
         - secs["sharded_giant_train"],
@@ -3255,7 +3287,7 @@ def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps):
     return err, p.n_merges - n_prev, ms_k, ms_p, k.corpus.visited
 
 
-def flat_cost(arrays, device, n: int) -> dict:
+def flat_cost(arrays, device, n: int, cfg=GIANT) -> dict:
     """bound() per merge of the first n flat merges, from what they must
     move on this data: once, the stream's tokens in and out and each
     word's offset, length and count; per merge every pair whose count
@@ -3264,11 +3296,12 @@ def flat_cost(arrays, device, n: int) -> dict:
     pair counts are the plain version's (bpe_ops.pair_counts), before
     and after each merge, so the bound does not depend on F1's layout;
     the first merge's changes include the initial count, as F1 counts
-    the stream in its first call."""
+    the stream in its first call.  The merges are those of ``cfg``'s
+    unk_id and min_pair_freq."""
     from shredword_tpu_torch.ops import _kernels, bpe_ops
 
     _, ts = flat_states(arrays, device, n)
-    unk, minf = GIANT["unk_id"], GIANT["min_pair_freq"]
+    unk, minf = cfg["unk_id"], cfg["min_pair_freq"]
     words = int(torch.count_nonzero(torch.diff(ts.corpus.word_id))) + 1
     nbytes, ops = 8 * len(ts.corpus.tokens) + 12 * words, 0
     keys = seen = torch.empty(0, dtype=torch.int64, device=device)
@@ -3401,6 +3434,214 @@ def phase_flat(device, out_dir, corpus, arrays) -> tuple[int, dict]:
 
 
 # ---------------------------------------------------------------------
+# phase 20
+# ---------------------------------------------------------------------
+
+BIG_MERGES_JAX = 15772      # the JAX package's BPETrainer run (BASELINE.md)
+
+
+def big_corpus() -> str:
+    """The 1 GB corpus of BASELINE config 2 (bench.ensure_big_corpus:
+    reused from the bench's directory when it is there with its known
+    bytes, written otherwise), checked against its digest."""
+    from shredword_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    path, reused = bench.ensure_big_corpus()
+    made_s = time.perf_counter() - t0
+    size, digest = os.path.getsize(path), bench._sha256(path)
+    print(f"[config2] corpus {path}: {size} bytes, sha256 {digest} "
+          f"({'reused' if reused else 'generated'} in {made_s:.1f} s)")
+    check(size == bench.BIG_CORPUS_BYTES
+          and digest == bench.BIG_CORPUS_SHA256,
+          "the config 2 corpus matches its digest")
+    return path
+
+
+def config2_layers(corpus, out_dir, device) -> dict:
+    """BASELINE config 2 through the public API, load_corpus -> train ->
+    save, with each host layer on the host clock: load_corpus (the
+    native scan and dedup, then the arrays and coverage), the int32
+    guard, _token_arrays, the giant layout (build_giant_layout, whose
+    chunk width must be 2048), the upload, the initial tables
+    (init_tables, the device synchronized after it), K3's call loop
+    (drive_calls: the wrapper's enqueue and the records' readback; CUDA
+    events around each call give K3's device time), the final corpus
+    (the lazy copy back in save) and the rest of save.  The launch
+    counts are set to 0 just before train() and read just after.
+    Returns its merges, K3 launches, layout, .model/.vocab bytes and
+    flat stream."""
+    from shredword_tpu_torch import BPETrainer
+    from shredword_tpu_torch.bench import BIG, giant_layouts
+    from shredword_tpu_torch.ops import _kernels, bpe_giant
+
+    clock = HostClock(device)
+    seen: dict = {}
+    patches = [(bpe_giant, "giant_train", False),
+               (bpe_giant, "build_giant_layout", False),
+               (bpe_giant, "init_tables", True),
+               (bpe_giant, "drive_calls", False)]
+    t = BPETrainer(target_vocab_size=GIANT_VOCAB, backend="cuda",
+                   device=device, **BIG)
+    arrays = t._token_arrays
+
+    def token_arrays():
+        seen["arrays"] = out = arrays()
+        return out
+
+    k3 = Timed(_kernels.giant_train_step, keep=True)
+    with giant_layouts() as built:
+        saved = [getattr(m, name) for m, name, _ in patches]
+        try:
+            t._ingest = clock.wrap("arrays and coverage", t._ingest)
+            t0 = time.perf_counter()
+            t.load_corpus(corpus)
+            clock.add("load_corpus", time.perf_counter() - t0)
+            t._token_arrays = clock.wrap("_token_arrays", token_arrays)
+            for (m, name, sync), fn in zip(patches, saved):
+                setattr(m, name, clock.wrap(name, fn, sync))
+            _kernels.giant_train_step = k3
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            t0 = time.perf_counter()
+            n = t.train()
+            torch.cuda.synchronize(device)
+            train_s = time.perf_counter() - t0
+            launches = _kernels.giant_train_step.launches
+            peak = torch.cuda.max_memory_allocated(device)
+            t._final_fn = clock.wrap("final corpus", t._final_fn)
+            mp, vp = (os.path.join(out_dir, f"big.{x}")
+                      for x in ("model", "vocab"))
+            t0 = time.perf_counter()
+            t.save(mp, vp)
+            clock.add("save", time.perf_counter() - t0)
+            raw = t._arrays.total_raw_bytes
+            n_words = t._arrays.n_words
+        finally:
+            _kernels.giant_train_step = k3.fn
+            for (m, name, _), fn in zip(patches, saved):
+                setattr(m, name, fn)
+            t.destroy()
+    s = clock.secs
+    lay = built[-1]
+    (L, W), NC = lay.tw.shape, lay.presT.shape[1]
+    cw = W // NC
+    tokens = seen["arrays"][0]
+    k3_ms = k3.ms()
+    layers = {
+        "int32 guard, routing": train_s - s["_token_arrays"]
+        - s["giant_train"],
+        "_token_arrays": s["_token_arrays"],
+        "layout (build_giant_layout)": s["build_giant_layout"],
+        "upload": s["giant_train"] - s["build_giant_layout"]
+        - s["init_tables"] - s["init_tables wait"] - s["drive_calls"],
+        "init_tables (host)": s["init_tables"],
+        "init_tables (device wait)": s["init_tables wait"],
+        "K3 call loop (enqueue, records' readback)": s["drive_calls"]}
+    print(f"[config2] BPETrainer(vocab {GIANT_VOCAB}, min_pair_freq "
+          f"{BIG['min_pair_freq']}, coverage {BIG['character_coverage']}, "
+          f"unk {BIG['unk_id']}) on {raw} bytes: {n_words} unique words, "
+          f"stream N {len(tokens)}; layout L {L}, W {W}, NC {NC} ("
+          f"{-(-lay.n_words // cw)} used), chunk width {cw}")
+    print(f"[config2] auto: {n} merges (the JAX package's BPETrainer: "
+          f"{BIG_MERGES_JAX}), train() {train_s:.4f} s, "
+          f"{raw / 1e6 / train_s:.4f} MB/s, peak device memory "
+          f"{peak / 1e9:.3f} GB, {launches} K3 launches in "
+          f"{len(k3.events)} calls, K3 {k3_ms:.2f} ms on the card over the "
+          f"run ({k3_ms / n:.6f} ms per merge, CUDA events), mean n_refresh "
+          f"{mean_refresh(k3.outs):.3f} ({CARD})")
+    del k3.outs[:]
+    print(f"[config2] load_corpus {s['load_corpus']:.4f} s (native scan "
+          f"and dedup {s['load_corpus'] - s['arrays and coverage']:.4f} s, "
+          f"arrays and coverage {s['arrays and coverage']:.4f} s); train() "
+          f"{train_s:.4f} s layer by layer:")
+    for name, sec in layers.items():
+        print(f"[config2]   {name}: {sec:.4f} s ({sec / train_s:.3f})")
+    print(f"[config2] save {s['save']:.4f} s, of which the final corpus "
+          f"(the lazy copy back) {s['final corpus']:.4f} s")
+    check(launches > 0 and launches == len(k3.events),
+          "config 2 ran K3, one launch per call")
+    check(cw == 2048, "config 2's giant layout has chunk width 2048")
+    check(n > 0, "config 2 learns merges")
+    with open(mp, "rb") as f, open(vp, "rb") as g:
+        model, vocab_b = f.read(), g.read()
+    return dict(merges=n, launches=launches, layout=lay, model=model,
+                vocab=vocab_b, arrays=seen["arrays"])
+
+
+def phase_config2(device, out_dir) -> tuple[dict, dict]:
+    """Phase 20: BASELINE config 2 on the card: the auto path layer by
+    layer (K3 at chunk width 2048), engine="flat" on the same corpus (F1;
+    bytes == the auto path's), K3 against its plain version for the
+    first 128 merges on the auto path's layout, and F1 against its plain
+    version for the first 128 merges of its stream, each timed with its
+    bound.  Returns the kernels-line records of K3 and F1 here."""
+    from shredword_tpu_torch.bench import BIG
+    from shredword_tpu_torch.ops import _kernels
+
+    corpus = big_corpus()
+    run = config2_layers(corpus, out_dir, device)
+    lay, model, vocab_b = run.pop("layout"), run["model"], run["vocab"]
+    tokens, word_id, counts = run.pop("arrays")
+
+    # the flat engine on the same corpus
+    reset_counts()
+    f1 = Timed(_kernels.flat_train)
+    _kernels.flat_train = f1
+    try:
+        fn, fsecs, _, fpeak, fmodel, fvocab = train_and_save(
+            corpus, out_dir, GIANT_VOCAB, device, "flat", BIG, tag="_big")
+    finally:
+        _kernels.flat_train = f1.fn
+    f1_launches = _kernels.flat_train.launches
+    print(f"[config2] engine=\"flat\": {fn} merges, train() {fsecs:.4f} s, "
+          f"peak device memory {fpeak / 1e9:.3f} GB, {f1_launches} F1 "
+          f"launches in {len(f1.events)} calls, F1 {f1.ms() / fn:.6f} ms "
+          f"per merge over the run (CUDA events around each call)")
+    check(f1_launches > 0 and f1_launches == len(f1.events),
+          "config 2's flat engine ran F1, one launch per call")
+    check(fn == run["merges"] and fmodel == model and fvocab == vocab_b,
+          "config 2: giant (K3) == flat (F1) .model/.vocab bytes")
+    print("[config2] auto (K3) .model/.vocab == engine=\"flat\" (F1)")
+
+    # K3 against its plain version at width 2048
+    gkw = dict(unk=BIG["unk_id"], min_freq=BIG["min_pair_freq"],
+               merges=TIMED_MERGES, steps=TIMED_MERGES)
+    err, ms_k, ms_p, n, refresh = run_giant_both(lay, GIANT_VOCAB, device,
+                                                 **gkw)
+    check(err == 0 and n == TIMED_MERGES,
+          "K3 == plain at chunk width 2048, first 128 merges of config 2")
+    cost = giant_cost(lay, giant_state(lay, GIANT_VOCAB, BIG["unk_id"],
+                                       device), 0, n, cfg=BIG)
+    print(f"[config2] K3 at layout {tuple(lay.tw.shape)} (cw "
+          f"{lay.tw.shape[1] // lay.presT.shape[1]}): first {n} merges, "
+          f"kernel {ms_k / n:.6f} ms/merge (bound {cost['bound_ms']:.8f}, "
+          f"{cost['bound_by']}), plain {ms_p / n:.4f} ms/merge, mean "
+          f"n_refresh {refresh:.3f}, max |kernel - plain| = {err}")
+    k3 = dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n, **cost,
+              library_ms=None)
+
+    # F1 against its plain version on the config's stream
+    arrays = (tokens, word_id, counts[word_id])
+    e, n, fms_k, fms_p, visited = flat_both(
+        arrays, device, target=TIMED_MERGES, steps=TIMED_MERGES,
+        unk=BIG["unk_id"], minf=BIG["min_pair_freq"])
+    check(e == 0 and n == TIMED_MERGES,
+          "F1 == plain, first 128 merges of config 2")
+    fcost = flat_cost(arrays, device, TIMED_MERGES, cfg=BIG)
+    print(f"[config2] F1 on the stream of {len(tokens)} tokens: first {n} "
+          f"merges, F1 {fms_k / n:.6f} ms/merge (bound "
+          f"{fcost['bound_ms']:.8f}, {fcost['bound_by']}), plain "
+          f"{fms_p / n:.4f} ms/merge, max |F1 - plain| = {e}; the passes "
+          f"visit {visited / n:.2f} chunks of 32 words per merge ({CARD})")
+    flat = dict(max_abs_err=e, ms=fms_k / n, plain_ms=fms_p / n, **fcost,
+                library_ms=None)
+    return (dict(k3, launches=run["launches"]),
+            dict(flat, launches=f1_launches))
+
+
+# ---------------------------------------------------------------------
 # phase 18
 # ---------------------------------------------------------------------
 
@@ -3481,6 +3722,8 @@ def main() -> int:
         long_txt, long_arrays = long_corpus(device, tmp)
         launches["flat"], timing["flat"] = phase_flat(device, tmp, long_txt,
                                                       long_arrays)
+        config2 = phase_config2(device, tmp)
+        torch.cuda.empty_cache()
         # the merges that phases 3, 4 and 6 trained, for phase 13
         merges = {768: merges_of(model_768), 4096: merges_of(fused_4096[0]),
                   GIANT_VOCAB: merges_of(model_giant)}
@@ -3557,6 +3800,11 @@ def main() -> int:
     kernels.append(dict(name=f"flat_train@long v{GIANT_VOCAB}", route="cuda",
                         source=src + "flat.cu", replaces=F1_SOURCE,
                         launches=launches["flat"], **timing["flat"]))
+    kernels += [dict(name=f"{name}@config2 v{GIANT_VOCAB}", route="cuda",
+                     source=src + f, replaces=replaces, **rec)
+                for (name, f, replaces), rec in zip(
+                    (("giant_train", "giant.cu", TPU_KERNEL[GIANT_VOCAB]),
+                     ("flat_train", "flat.cu", F1_SOURCE)), config2)]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ with no card it stops with ``ConfigError``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import hashlib
 import json
@@ -39,6 +40,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -61,6 +63,16 @@ LONG_CORPUS_BYTES = 16_015_003
 LONG_CORPUS_SHA256 = ("acc12ae8d14a198d935cd40514555bcf"
                       "7d2ee79db29453be08cd8bf4610825b7")
 GIANT_VOCAB = 32768
+# BASELINE config 2: BPETrainer(GIANT_VOCAB, **BIG) with the other
+# arguments at their defaults (unk_id 0), on make_big_corpus at BIG_RAW_MB
+BIG = dict(unk_id=0, character_coverage=1.0, min_pair_freq=2000)
+BIG_RAW_MB = 1000
+BIG_SEED = 99
+BIG_RUNS = 3        # timed config 2 runs; the best counts
+# the bytes make_big_corpus(path) writes at BIG_RAW_MB and BIG_SEED
+BIG_CORPUS_BYTES = 1_008_579_866
+BIG_CORPUS_SHA256 = ("7c622e6e39f9bb77742001746e97857b"
+                     "9a6c25ab22fe2788f0eab35a90c6ffed")
 ENGINES = ("hist", "giant", "flat")     # the cross-check's
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -156,9 +168,97 @@ def make_long_corpus(path: str, raw_mb: float = RAW_MB,
             written += len(s.encode("utf-8"))
 
 
+def make_big_corpus(path: str, raw_mb: int = BIG_RAW_MB,
+                    seed: int = BIG_SEED) -> None:
+    """Deterministic Heaps-law corpus of raw_mb MB, the corpus of
+    BASELINE config 2 at 1,000 MB: a pool of 6 * (raw_mb * 1e6)^0.65
+    a-z words (Heaps' law; lognormal lengths 2..14, the shortest first,
+    words of 4 letters and more ending in a letter pair unique to their
+    rank), drawn zipf(1.0) over the pool in blocks of 4,000,000 words,
+    one space between them and a newline after every 16th.  The
+    generator of ``tests/golden/bigcorpus_gen.py`` byte for byte; the
+    blocks' draws are taken in order and their bytes built on a thread
+    per core.  It always writes the file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    target = raw_mb * 10 ** 6
+    rng = np.random.RandomState(seed)
+    n_vocab = max(1000, int(6.0 * target ** 0.65))
+    lens = np.rint(rng.lognormal(1.75, 0.40, n_vocab)).astype(np.int64)
+    np.clip(lens, 2, 14, out=lens)
+    lens.sort()                     # rank 0 = shortest = most frequent
+    pool_off = np.zeros(n_vocab + 1, np.int64)
+    np.cumsum(lens, out=pool_off[1:])
+    pool = rng.randint(97, 123, pool_off[-1]).astype(np.uint8)  # a-z
+    li = np.nonzero(lens >= 4)[0]
+    pool[pool_off[li + 1] - 2] = 97 + (li % 26).astype(np.uint8)
+    pool[pool_off[li + 1] - 1] = 97 + ((li // 26) % 26).astype(np.uint8)
+    probs = 1.0 / np.arange(1, n_vocab + 1) ** 1.0
+    probs /= probs.sum()
+    cdf = np.cumsum(probs)
+    n = 4_000_000                   # words per block
+    newline_every = 16              # words per line
+
+    def block(draws: np.ndarray) -> bytes:
+        idx = np.searchsorted(cdf, draws)
+        np.clip(idx, 0, n_vocab - 1, out=idx)
+        wl = lens[idx]
+        out_off = np.zeros(n + 1, np.int64)
+        np.cumsum(wl + 1, out=out_off[1:])      # +1 separator per word
+        out = np.full(out_off[-1], 32, np.uint8)
+        out[out_off[1:][newline_every - 1::newline_every] - 1] = 10
+        # letter j of word i: pool[pool_off[idx[i]] + j] to out_off[i] + j
+        at = np.arange(int(wl.sum()), dtype=np.int64) \
+            - np.repeat(out_off[:-1] - np.arange(n), wl)
+        out[np.repeat(out_off[:-1], wl) + at] = \
+            pool[np.repeat(pool_off[idx], wl) + at]
+        return out.tobytes()
+
+    # expected bytes of a block: ahead of the writes, only the blocks
+    # the target still needs are drawn and built
+    per_block = n * (float(probs @ lens) + 1)
+    workers = os.cpu_count() or 1
+    written, pending = 0, collections.deque()
+    with ThreadPoolExecutor(workers) as ex, open(path, "wb") as f:
+        while written < target:
+            while not pending or (len(pending) < workers and written
+                                  + len(pending) * per_block < target):
+                pending.append(ex.submit(block, rng.random_sample(n)))
+            out = pending.popleft().result()
+            f.write(out)
+            written += len(out)
+        for p in pending:           # drawn ahead, not needed
+            if not p.cancel():
+                p.result()
+
+
+def big_corpus_path() -> str:
+    return os.path.join(bench_dir(), f"big_{BIG_RAW_MB}mb.txt")
+
+
+def ensure_big_corpus(path: str | None = None) -> tuple[str, bool]:
+    """The 1 GB corpus of BASELINE config 2 at ``path`` (default
+    :func:`big_corpus_path`), reused when the file there has its known
+    size and digest and written otherwise, as :func:`ensure_corpus`
+    does (an existing other file outside :func:`bench_dir` is refused).
+    Returns (path, whether the file was reused)."""
+    path = path or big_corpus_path()
+    if (os.path.isfile(path) and os.path.getsize(path) == BIG_CORPUS_BYTES
+            and _sha256(path) == BIG_CORPUS_SHA256):
+        return path, True
+    if os.path.lexists(path) and not _inside(path, bench_dir()):
+        raise BenchError(f"{path} exists and is not the {BIG_RAW_MB} MB "
+                         "corpus; not overwriting it (pass a path that "
+                         "does not exist yet)")
+    make_big_corpus(path, BIG_RAW_MB, BIG_SEED)
+    return path, False
+
+
 def _sha256(path: str) -> str:
+    h = hashlib.sha256()
     with open(path, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
+        for piece in iter(lambda: f.read(1 << 24), b""):
+            h.update(piece)
+    return h.hexdigest()
 
 
 def _inside(path: str, root: str) -> bool:
@@ -573,6 +673,70 @@ def measure_giant_vocab(corpus: str, device) -> dict:
     return {"merges": n, "seconds": dt,
             "mbs": os.path.getsize(corpus) / 1e6 / dt,
             "ms_per_merge": dt / max(n, 1) * 1e3, "launches": got}
+
+
+@contextlib.contextmanager
+def giant_layouts():
+    """Keeps every giant layout that ``giant_train`` builds inside the
+    block in the list it yields."""
+    from .ops import bpe_giant
+
+    built: list = []
+    build = bpe_giant.build_giant_layout
+
+    def recorded(*args, **kw):
+        lay = build(*args, **kw)
+        if lay is not None:
+            built.append(lay)
+        return lay
+
+    bpe_giant.build_giant_layout = recorded
+    try:
+        yield built
+    finally:
+        bpe_giant.build_giant_layout = build
+
+
+def measure_big_vocab(corpus: str, device) -> dict:
+    """BASELINE config 2: BPETrainer(GIANT_VOCAB, min_pair_freq 2000,
+    coverage 1.0, the other arguments at their defaults) on the corpus
+    of :func:`make_big_corpus`, ``BIG_RUNS`` times (each load_corpus ->
+    train, timed as :func:`train_once` times it; the kernels are built
+    first).  Returns the merges, every run's train() seconds and the
+    best's MB/s, the engine auto routing took (the giant engine when it
+    built a layout, whose chunk width and shape are returned, else the
+    flat one), the kernels' launches (K3 or F1 must launch on a card)
+    and the peak device memory of a run."""
+    from .ops import _kernels
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        _kernels.lib()
+    fns = _counters()
+    before = {k: fns[k].launches for k in ("K3", "F1")}
+    times, peak = [], 0
+    with giant_layouts() as built:
+        for _ in range(BIG_RUNS):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            dt, n = train_once(corpus, dev, vocab=GIANT_VOCAB, **BIG)
+            times.append(dt)
+            if dev.type == "cuda":
+                peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        layout = None
+        if built:
+            (L, W), NC = built[-1].tw.shape, built[-1].presT.shape[1]
+            layout = dict(L=L, W=W, NC=NC, cw=W // NC,
+                          n_words=built[-1].n_words)
+    got = {k: fns[k].launches - n0 for k, n0 in before.items()}
+    engine, kernel = ("giant", "K3") if layout else ("flat", "F1")
+    if dev.type == "cuda" and got[kernel] == 0:
+        raise BenchError(f"{kernel} never launched on {dev}")
+    return {"merges": n, "seconds": min(times), "times": times,
+            "mbs": os.path.getsize(corpus) / 1e6 / min(times),
+            "engine": engine, "layout": layout,
+            "chunk_width": layout["cw"] if layout else None,
+            "peak_bytes": peak, "launches": got}
 
 
 def measure_daemon(corpus: str, device: torch.device, work: str) -> dict:

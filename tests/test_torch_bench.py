@@ -97,6 +97,80 @@ def test_make_corpus_matches_the_jax_bench(corpus_1mb, tmp_path):
     assert got == ref and len(got) > 10**6
 
 
+def _golden_big_corpus():
+    """tests/golden/bigcorpus_gen.py, the generator of the JAX package's
+    config 2 corpus."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bigcorpus_gen", os.path.join(ROOT, "tests", "golden",
+                                      "bigcorpus_gen.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# one block of 4,000,000 words (15 MB), then two blocks (30 MB): the
+# blocks built on threads are written in the order of their draws
+@pytest.mark.parametrize("raw_mb", [1, 16])
+def test_make_big_corpus_matches_the_golden_generator(raw_mb, tmp_path):
+    want, got = tmp_path / "golden.txt", tmp_path / "port.txt"
+    _golden_big_corpus().make_big_corpus(str(want), raw_mb)
+    bench.make_big_corpus(str(got), raw_mb)
+    assert got.stat().st_size == want.stat().st_size > raw_mb * 10**6
+    assert bench._sha256(str(got)) == bench._sha256(str(want))
+
+
+def test_ensure_big_corpus_reuses_only_the_known_bytes(tmp_path,
+                                                       monkeypatch):
+    """The config 2 corpus is written into the bench's directory, reused
+    there only with its known size and digest (a one-block corpus stands
+    in for the 1 GB one) and written anew otherwise; another file
+    outside that directory is refused and left as it was."""
+    monkeypatch.setattr(bench, "bench_dir", lambda: str(tmp_path / "own"))
+    monkeypatch.setattr(bench, "BIG_RAW_MB", 1)
+    path, reused = bench.ensure_big_corpus()
+    assert path == bench.big_corpus_path() and not reused
+    with open(path, "rb") as f:
+        data = f.read()
+    monkeypatch.setattr(bench, "BIG_CORPUS_BYTES", len(data))
+    monkeypatch.setattr(bench, "BIG_CORPUS_SHA256", _sha(data))
+    assert bench.ensure_big_corpus() == (path, True)
+    with open(path, "wb") as f:
+        f.write(data[:-1] + b"q")
+    assert bench.ensure_big_corpus() == (path, False)
+    with open(path, "rb") as f:
+        assert f.read() == data
+    mine = tmp_path / "mydata.txt"
+    mine.write_bytes(b"my own data\n")
+    with pytest.raises(bench.BenchError, match="not overwriting"):
+        bench.ensure_big_corpus(str(mine))
+    assert mine.read_bytes() == b"my own data\n"
+
+
+def test_measure_big_vocab_reports_the_giant_route(tmp_path, monkeypatch):
+    """measure_big_vocab on the CPU (the plain versions count no launch)
+    at vocab 4608, on the first 400 KB of a one-block Heaps-law corpus:
+    auto takes the giant engine at chunk width 1024 (few words), with the
+    flat engine's merges."""
+    path = str(tmp_path / "big.txt")
+    bench.make_big_corpus(path, 1)
+    with open(path, "rb") as f:
+        data = f.read(400_000)
+    with open(path, "wb") as f:
+        f.write(data)
+    monkeypatch.setattr(bench, "GIANT_VOCAB", 4608)
+    monkeypatch.setattr(bench, "BIG_RUNS", 2)
+    got = bench.measure_big_vocab(path, "cpu")
+    assert got["engine"] == "giant" and got["chunk_width"] == 1024
+    assert got["layout"]["cw"] == 1024 and got["layout"]["L"] == 16
+    assert len(got["times"]) == 2 and got["seconds"] == min(got["times"])
+    assert got["launches"] == {"K3": 0, "F1": 0} and got["peak_bytes"] == 0
+    _, n = bench.train_once(path, "cpu", vocab=4608, engine="flat",
+                            **bench.BIG)
+    assert got["merges"] == n > 0
+
+
 def test_constants_match_the_jax_bench():
     jb = _jax_bench()
     assert (bench.VOCAB, bench.MIN_FREQ, bench.COVERAGE, bench.RAW_MB) == \

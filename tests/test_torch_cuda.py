@@ -271,6 +271,9 @@ GIANT_CALL_CASES = {
                             300),
     "v2048_cw1024": (dict(seed=54, n_words=3000, alpha=12), 2048, 1024,
                      256, 1700, 2),
+    # the width giant_train takes above 1,500,000 words: 4 used chunks
+    "v4096_cw2048": (dict(seed=55, n_words=7000, alpha=16), 4096, 2048,
+                     256, 3000, 2),
 }
 
 

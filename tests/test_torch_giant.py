@@ -65,6 +65,8 @@ CASES = {
                                          chunk_width=512)),
     "cw1024": (lambda: _letters(11), dict(target_merges=24, steps_per_call=8,
                                           chunk_width=1024)),
+    "cw2048": (lambda: _letters(11), dict(target_merges=24, steps_per_call=8,
+                                          chunk_width=2048)),
     "n_prev": (lambda: _replayed(12, 9),
                dict(target_merges=30, n_prev_merges=9, steps_per_call=8)),
 }
@@ -178,7 +180,7 @@ def test_giant_step_for_step(case):
     assert n_done > 0
 
 
-@pytest.mark.parametrize("cw,v", [(512, 1024), (1024, 2048)])
+@pytest.mark.parametrize("cw,v", [(512, 1024), (1024, 2048), (2048, 4096)])
 def test_layout_matches_jax(cw, v):
     tokens, word_id, wc = _letters(6, n_words=1500, max_len=20)
     want = jax_giant.build_giant_layout(tokens, word_id, wc, v, cw=cw)
@@ -187,6 +189,30 @@ def test_layout_matches_jax(cw, v):
         np.testing.assert_array_equal(getattr(got, name),
                                       getattr(want, name), err_msg=name)
     assert got.presT.shape[1] % 128 == 0
+
+
+@pytest.mark.parametrize("n_words,cw", [(1_500_000, 1024),
+                                         (1_500_001, 2048)])
+def test_chunk_width_widens_above_1_5m_words(n_words, cw, monkeypatch):
+    """Both packages' giant_train lay the corpus out in chunks of 2048
+    words above 1,500,000 unique words and of 1024 at or below it (the
+    layout builders are replaced, so no large layout is built)."""
+    widths = []
+
+    def build(tokens, word_id, wcount, v, max_word_len=64, cw=None):
+        widths.append(cw)
+        return None
+
+    monkeypatch.setattr(bpe_giant, "build_giant_layout", build)
+    monkeypatch.setattr(jax_giant, "build_giant_layout", build)
+    tokens = np.array([97, 98], np.int32)
+    word_id = np.array([0, n_words - 1], np.int32)
+    wc = np.ones(n_words, np.int32)
+    assert bpe_giant.giant_train(tokens, word_id, wc, target_merges=10,
+                                 device="cpu") is None
+    assert jax_giant.giant_train(tokens, word_id, wc, target_merges=10,
+                                 interpret=True, _cache={}) is None
+    assert widths == [cw, cw]
 
 
 def _long_word():

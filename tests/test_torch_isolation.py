@@ -163,7 +163,7 @@ def test_runs_with_jax_and_the_jax_package_blocked(tmp_path):
 def test_bench_runs_with_jax_and_the_jax_package_blocked(tmp_path):
     """The port's bench imports nothing blocked, and its main runs on
     the CPU (baseline, headline, cross-check) and prints bench.py's
-    four keys."""
+    four keys; its config 2 generator (make_big_corpus) runs too."""
     code = BLOCK + textwrap.dedent(f"""
         import contextlib
         import io
@@ -185,6 +185,8 @@ def test_bench_runs_with_jax_and_the_jax_package_blocked(tmp_path):
         line = json.loads(out.getvalue().splitlines()[-1])
         assert set(line) == {{"metric", "value", "unit", "vs_baseline"}}
         assert line["metric"] == "train_mb_s" and line["value"] > 0
+        # the config 2 generator, at its smallest (one block)
+        bench.make_big_corpus({str(tmp_path / "big.txt")!r}, 1)
 
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
