@@ -150,10 +150,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      under torch.profiler; then the main path
      BPETrainer(vocab, min_pair_freq 2, coverage 1.0, backend "cuda",
      mesh=<NCCL world 1>) load_corpus -> train -> save at 32768 (bytes ==
-     phase 6's single-device giant output) and 65536 (bytes == the
-     single-device flat engine's on the card, its first 32512 merges ==
-     the 32768 run's): train() s, ms per merge, peak memory, merges done,
-     one G1 launch per call; both runs again under torch.profiler (G1
+     phase 6's single-device giant output; phase 21 runs 65536 on the
+     1 GB corpus): train() s, ms per merge, peak memory, merges done,
+     one G1 launch per call; the run again under torch.profiler (G1
      launches == the wrapper's count, busy share) and split into layers
      on the host clock; the sharded flat engine forced at the headline
      (bytes == the JAX golden digest, ms per merge); BPETrainer(shards=2)
@@ -236,6 +235,29 @@ Phases (any failure exits non-zero, and no result line is printed):
      path's layout (records, tokens, tables, presence and bounds
      identical) and F1 against its plain version for the first 128
      merges of the same stream, each timed with its bound
+ 21. (runs after phase 20) BASELINE config 5 on the same 1 GB corpus,
+     BPETrainer(vocab, min_pair_freq 2, coverage 1.0, the other arguments
+     at their defaults): run A at vocab 65536 through the auto path, which
+     must take the flat engine and launch F1 once a call, its layers on
+     the host clock (load_corpus, _token_arrays, the upload, FlatState's
+     presence index, signatures and table, the presence index's growth,
+     F1's call loop with CUDA events around each call, the final
+     compaction, the copy to the host, save), merges, train() s, MB/s,
+     peak device memory and the chunks visited per merge over the first
+     1,024 merges and over the run; run B at 65536 over a one-rank NCCL
+     group (the row-sharded giant engine: one G1 launch a call), layer
+     by layer as phase 15 splits it, its .model/.vocab == run A's; run C
+     at 131072 (F1 once a call): its first 65,280 merges == run A's, its
+     merges' counts never rise, and the ids its merges consume past
+     65535 are counted (none on this corpus); then F1 against its
+     plain version on run A's last 128 merges (the stream replayed to
+     merge 65152) and on the 128 after them (from run A's final stream
+     toward 131072: ids 65536-65663), G1 against its plain version on
+     run B's layout for the first 128 merges (each timed with its bound;
+     at most two 17.2 GB tables live at once), and phase 13's encode
+     main path on the corpus's first 4,000,000 characters with both
+     models (ids == the CPU backend's, decode round-trips); the phase's
+     seconds.  "[time]" lines give each phase's seconds
 
 The long-word corpus is generated here too (make_long_corpus), and the
 1 GB corpus (make_big_corpus, on every core).
@@ -324,12 +346,19 @@ def run(cmd: list[str]) -> str:
                           timeout=120).stdout.strip()
 
 
+DIFF_BLOCK = 1 << 26      # elements of a block of max_abs_diff
+
+
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest |a - b| (0 when equal), without int64 copies of a 4 GB
-    table."""
+    """Largest |a - b| (0 when equal), by blocks of DIFF_BLOCK elements,
+    so that two 17.2 GB tables that differ take 256 MB int32 blocks, not
+    whole-table copies."""
     if torch.equal(a, b):
         return 0
-    return int((a.int() - b.int()).abs().max())
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    return max(int((fa[i:i + DIFF_BLOCK].int()
+                    - fb[i:i + DIFF_BLOCK].int()).abs().max())
+               for i in range(0, len(fa), DIFF_BLOCK))
 
 
 def elapsed_ms(fn, device: torch.device) -> float:
@@ -342,6 +371,19 @@ def elapsed_ms(fn, device: torch.device) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end)
+
+
+class Laps:
+    """Prints the seconds since the last lap and since the start."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - self.t:.1f} s (script "
+              f"{now - self.t0:.1f} s)", flush=True)
+        self.t = now
 
 
 # ---------------------------------------------------------------------
@@ -801,6 +843,7 @@ class HostClock:
     def __init__(self, device: torch.device):
         self.device = device
         self.secs: dict = {}
+        self.calls: dict = {}
 
     def add(self, name: str, sec: float) -> None:
         self.secs[name] = self.secs.get(name, 0.0) + sec
@@ -811,6 +854,7 @@ class HostClock:
             out = fn(*a, **k)
             t1 = time.perf_counter()
             self.add(name, t1 - t0)
+            self.calls[name] = self.calls.get(name, 0) + 1
             if sync:
                 torch.cuda.synchronize(self.device)
                 self.add(name + " wait", time.perf_counter() - t1)
@@ -976,18 +1020,10 @@ def phase_profile(corpus, device) -> None:
     sharded BPETrainer over the world-size-1 NCCL group at vocab 768,
     each under torch.profiler: the kernel launches per wrapper call (the
     persistent kernels: 1; K4's chain: its merges + 2) and the device
-    busy share of the run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from shredword_tpu_torch import BPETrainer
-    from shredword_tpu_torch.ops import _kernels, bpe_hist
+    busy share of the run.  The wrapper's count must be right in every
+    trace; the profiler's is taken again as `kernel_launches` does."""
     from shredword_tpu_torch.parallel import multihost
 
-    arrays = token_arrays(corpus, device, HEADLINE)
-    sparse_kw = dict(target_merges=768 - 256, unk_id=HEADLINE["unk_id"],
-                     min_pair_freq=HEADLINE["min_pair_freq"], device=device,
-                     lazy_final=True, sparse=True)
     # tag, configuration (None: hist_train(sparse=True)), trainer
     # keywords, wrapper, kernel name prefix
     runs = [("vocab 768", (768, HEADLINE), {}, "hist_fused_train",
@@ -1001,50 +1037,93 @@ def phase_profile(corpus, device) -> None:
             ("sharded NCCL world 1 vocab 768", (768, HEADLINE),
              dict(mesh=multihost.global_mesh()), "hist_sharded_train",
              "chain_")]
-    for tag, cfg, tkw, wrapper, kernel in runs:
-        fn = getattr(_kernels, wrapper)
-        calls = Timed(fn)
-        t = None
-        if cfg is not None:
-            vocab, conf = cfg
-            t = BPETrainer(target_vocab_size=vocab, backend="cuda",
-                           device=device, **conf, **tkw)
-        try:
-            if t is not None:
-                t.load_corpus(corpus)
-            torch.cuda.synchronize(device)
-            n0 = fn.launches
-            setattr(_kernels, wrapper, calls)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                if t is None:
-                    merges = len(bpe_hist.hist_train(*arrays,
-                                                     **sparse_kw)[0])
-                else:
-                    merges = t.train()
-                torch.cuda.synchronize(device)
-                wall_us = (time.perf_counter() - t0) * 1e6
-        finally:
-            setattr(_kernels, wrapper, fn)
-            if t is not None:
-                t.destroy()
-        launches, n_calls = fn.launches - n0, len(calls.events)
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        ours = [e for e in dev if kernel in e.name]
-        print(f"[profile] {tag}: {merges} merges, {len(ours)} {kernel}* "
+    for run in runs:
+        tag, _, _, wrapper, kernel = run
+        seen, want, (merges, n_calls, dev, ours, wall_us) = traced_count(
+            lambda: profile_train(corpus, device, *run), tag)
+        print(f"[profile] {tag}: {merges} merges, {seen} {kernel}* "
               f"launches in {n_calls} {wrapper} calls "
-              f"({len(ours) / max(n_calls, 1):.2f} per call), "
+              f"({seen / max(n_calls, 1):.2f} per call), "
               f"{len(dev)} device events, device busy "
               f"{busy_us(dev) / wall_us:.3f} of the run "
               f"({wall_us / 1e3:.2f} ms under the profiler), "
               f"{kernel}* {busy_us(ours) / 1e3:.2f} ms")
-        check(len(dev) > 0, f"the profiler saw device events, {tag}")
-        chain = wrapper == "hist_sharded_train"
-        want = merges + 2 * n_calls if chain else n_calls
-        check(len(ours) == launches == want > 0,
-              f"{tag}: " + ("merges + 2 launches of the chain per call"
-                            if chain else "one kernel launch per call"))
+        check(seen == want, f"{tag}: the profiler saw {seen} {kernel}* "
+              f"launches, the wrapper counted {want}")
+
+
+def profile_train(corpus, device, tag, cfg, tkw, wrapper, kernel):
+    """One traced run of `phase_profile`: (the profiler's count of
+    `kernel`* launches, the wrapper's count, (merges, wrapper calls,
+    device events, those of `kernel`, wall µs)).  Fails unless the
+    wrapper counted one launch a call (K4's chain: merges + 2 a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shredword_tpu_torch import BPETrainer
+    from shredword_tpu_torch.ops import _kernels, bpe_hist
+
+    fn = getattr(_kernels, wrapper)
+    calls = Timed(fn)
+    t = arrays = None
+    if cfg is None:
+        arrays = token_arrays(corpus, device, HEADLINE)
+    else:
+        vocab, conf = cfg
+        t = BPETrainer(target_vocab_size=vocab, backend="cuda",
+                       device=device, **conf, **tkw)
+    try:
+        if t is not None:
+            t.load_corpus(corpus)
+        torch.cuda.synchronize(device)
+        n0 = fn.launches
+        setattr(_kernels, wrapper, calls)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAUSE_S)          # see kernel_launches
+            t0 = time.perf_counter()
+            if t is None:
+                merges = len(bpe_hist.hist_train(
+                    *arrays, target_merges=768 - 256,
+                    unk_id=HEADLINE["unk_id"],
+                    min_pair_freq=HEADLINE["min_pair_freq"], device=device,
+                    lazy_final=True, sparse=True)[0])
+            else:
+                merges = t.train()
+            torch.cuda.synchronize(device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILE_PAUSE_S)
+    finally:
+        setattr(_kernels, wrapper, fn)
+        if t is not None:
+            t.destroy()
+    launches, n_calls = fn.launches - n0, len(calls.events)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in dev if kernel in e.name]
+    check(len(dev) > 0, f"the profiler saw device events, {tag}")
+    chain = wrapper == "hist_sharded_train"
+    want = merges + 2 * n_calls if chain else n_calls
+    check(launches == want > 0, f"{tag}: " + (
+        "merges + 2 launches of the chain per call" if chain
+        else "one kernel launch per call") + f" ({launches} counted in "
+          f"{n_calls} calls)")
+    return len(ours), launches, (merges, n_calls, dev, ours, wall_us)
+
+
+def traced_count(take, what: str):
+    """take() makes one trace and returns (the profiler's count of
+    launches, the count it must equal, the rest).  The profiler can drop
+    a trace's device events (see `kernel_launches`), so a trace that
+    counts otherwise is printed and taken again, up to PROFILE_TRACES
+    traces; the last is returned, so a kernel that launches otherwise
+    differs in every trace."""
+    for trace in range(PROFILE_TRACES):
+        seen, want, rest = take()
+        if seen == want:
+            break
+        print(f"[profiler] {what}: trace {trace + 1} of {PROFILE_TRACES} "
+              f"counted {seen} launches, not {want}")
+    return seen, want, rest
 
 
 # ---------------------------------------------------------------------
@@ -1548,21 +1627,29 @@ def encode_kernel_cost(df, lens: np.ndarray, table, v: int, device):
 
 def encode_profile(tok, text: str, device) -> tuple[float, float]:
     """(encode_core kernel launches per encode_array call, device busy
-    share of the call) under torch.profiler."""
+    share of the call) under torch.profiler; a trace that counts other
+    than two launches is taken again (`traced_count`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tok.encode_array(text)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ours = [e for e in dev if "encode_kernel" in e.name
-            or "pack_kernel" in e.name]
-    check(len(dev) > 0, "the profiler saw device events, encode")
-    return len(ours), busy_us(dev) / wall_us
+    def take():
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAUSE_S)          # see kernel_launches
+            t0 = time.perf_counter()
+            tok.encode_array(text)
+            torch.cuda.synchronize(device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILE_PAUSE_S)
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ours = [e for e in dev if "encode_kernel" in e.name
+                or "pack_kernel" in e.name]
+        check(len(dev) > 0, "the profiler saw device events, encode")
+        return len(ours), 2, busy_us(dev) / wall_us
+
+    seen, _, busy = traced_count(take, "encode_array")
+    return seen, busy
 
 
 def best_ms(fn, trials: int = 3):
@@ -2243,7 +2330,6 @@ def phase_uni_sharded(device, corpus, card) -> None:
 # phase 15
 # ---------------------------------------------------------------------
 
-SHARDED_VOCAB = 65536       # the row-sharded giant engine's largest vocab
 RANKS_VOCAB = 4608          # 2 gloo ranks: just past the hist engine
 G1_SPIN_CYCLES = 240_000_000   # ~120 ms: the chain's 257 launches and 256
                                # collectives
@@ -2427,7 +2513,8 @@ def phase_g1_vs_plain(device, out_dir) -> int:
     return worst
 
 
-def g1_cost(layout, v, device, merges: int) -> tuple[dict, float, dict]:
+def g1_cost(layout, v, device, merges: int,
+            cfg=GIANT) -> tuple[dict, float, dict]:
     """What G1's first `merges` merges on `layout` at vocab v move on this
     run's data, counted in a rerun of one merge per call (the alone
     form), what changed found by comparing the state before and after:
@@ -2442,10 +2529,11 @@ def g1_cost(layout, v, device, merges: int) -> tuple[dict, float, dict]:
     the record.  The bytes read take, for the columns, every column of
     the flagged chunks in (tokens and weight) and the merged ones out.
     A compare per matched token, and per live bound and cell read for
-    each row read."""
+    each row read.  The merges are those of ``cfg``'s unk_id and
+    min_pair_freq."""
     from shredword_tpu_torch.ops import _kernels
 
-    st = g1_state(layout, v, -1, device)
+    st = g1_state(layout, v, cfg["unk_id"], device)
     tw, hist, presT = st[0], st[2], st[4]
     L = tw.shape[0]
     used = g1_nc_used(layout)
@@ -2459,7 +2547,7 @@ def g1_cost(layout, v, device, merges: int) -> tuple[dict, float, dict]:
     for i in range(merges):
         tw0 = tw.clone()
         rec = _kernels.giant_sharded_train(
-            *st, base=0, unk=GIANT["unk_id"], min_freq=GIANT["min_pair_freq"],
+            *st, base=0, unk=cfg["unk_id"], min_freq=cfg["min_pair_freq"],
             n_done=i, init_done=0, allowed=1, nc_used=used,
             steps=1)[0].tolist()
         check(rec[3] == 1, "G1 merges through the window")
@@ -2594,26 +2682,33 @@ def profile_g1_train(corpus, device, mesh, vocab: int) -> None:
     from shredword_tpu_torch.ops import _kernels
 
     kernel = _kernels.giant_sharded_train
-    t = BPETrainer(target_vocab_size=vocab, backend="cuda", device=device,
-                   mesh=mesh, **GIANT)
-    try:
-        t.load_corpus(corpus)
-        torch.cuda.synchronize(device)
-        n0 = kernel.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAUSE_S)
-            t0 = time.perf_counter()
-            merges = t.train()
+
+    def take():
+        t = BPETrainer(target_vocab_size=vocab, backend="cuda",
+                       device=device, mesh=mesh, **GIANT)
+        try:
+            t.load_corpus(corpus)
             torch.cuda.synchronize(device)
-            wall_us = (time.perf_counter() - t0) * 1e6
-            time.sleep(PROFILE_PAUSE_S)
-    finally:
-        t.destroy()
-    launches = kernel.launches - n0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ours = [e for e in dev if "sharded_train_kernel" in e.name
-            or "apply_pick_kernel" in e.name or "merge_kernel<" in e.name]
+            n0 = kernel.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_PAUSE_S)
+                t0 = time.perf_counter()
+                merges = t.train()
+                torch.cuda.synchronize(device)
+                wall_us = (time.perf_counter() - t0) * 1e6
+                time.sleep(PROFILE_PAUSE_S)
+        finally:
+            t.destroy()
+        launches = kernel.launches - n0
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ours = [e for e in dev if "sharded_train_kernel" in e.name
+                or "apply_pick_kernel" in e.name
+                or "merge_kernel<" in e.name]
+        return len(ours), launches, (merges, dev, ours, wall_us)
+
+    _, launches, (merges, dev, ours, wall_us) = traced_count(
+        take, f"sharded train() vocab {vocab}")
     print(f"[sharded giant] profiled train() vocab {vocab}, NCCL world 1: "
           f"{merges} merges, {len(ours)} G1 launches ({launches} counted), "
           f"{len(dev)} device events, device busy "
@@ -2624,21 +2719,34 @@ def profile_g1_train(corpus, device, mesh, vocab: int) -> None:
           f"{vocab}, one a call")
 
 
-def g1_train_layers(corpus, device, mesh, vocab: int) -> None:
-    """One sharded train() at `vocab` split into its layers on the host
-    clock: the hist engine's decline; in the giant engine the int32
-    layout (shard_layout), the rank's chunked layout (rank_layout), the
-    initial rows (init_row_shard, the device synchronized after it), the
-    call loop (drive_calls) and the rest (the upload); in the loop G1's
-    enqueue (the wrapper's host time), the wait for each call's records
-    (a synchronize after the call, where their readback would wait) and
-    drive_calls' own work; and train() outside the engines."""
+def g1_train_layers(corpus, device, mesh, vocab: int, cfg=GIANT,
+                    out_dir=None) -> dict:
+    """One sharded train() at `vocab` (``cfg``'s other arguments) split
+    into its layers on the host clock: the hist engine's decline; in the
+    giant engine the int32 layout (shard_layout), the rank's chunked
+    layout (rank_layout), the initial rows (init_row_shard, the device
+    synchronized after it), the call loop (drive_calls) and the rest (the
+    upload); in the loop G1's enqueue (the wrapper's host time), the wait
+    for each call's records (a synchronize after the call, where their
+    readback would wait) and drive_calls' own work; and train() outside
+    the engines.  The launch counts are set to 0 just before train().
+    With ``out_dir`` the model is saved there.  Returns the merges, G1's
+    launches and calls, train() s, the peak device memory, the rank's
+    chunked layout and the .model/.vocab bytes (None without
+    ``out_dir``)."""
     from shredword_tpu_torch import BPETrainer
     from shredword_tpu_torch.ops import _kernels, bpe_hist
     from shredword_tpu_torch.parallel import giant as par_giant
     from shredword_tpu_torch.parallel import hist as par_hist
 
     clock = HostClock(device)
+    layouts = []
+    lay_fn = par_giant.rank_layout
+
+    def rank_layout(*a, **k):
+        layouts.append(lay_fn(*a, **k))
+        return layouts[-1]
+
     patches = [(par_hist, "sharded_hist_train", False),
                (par_giant, "sharded_giant_train", False),
                (par_hist, "shard_layout", False),
@@ -2648,16 +2756,29 @@ def g1_train_layers(corpus, device, mesh, vocab: int) -> None:
                (_kernels, "giant_sharded_train", True)]
     saved = [getattr(m, name) for m, name, _ in patches]
     t = BPETrainer(target_vocab_size=vocab, backend="cuda", device=device,
-                   mesh=mesh, **GIANT)
+                   mesh=mesh, **cfg)
+    model = vocab_b = None
     try:
         t.load_corpus(corpus)
         for (m, name, sync), fn in zip(patches, saved):
-            setattr(m, name, clock.wrap(name, fn, sync))
+            setattr(m, name, clock.wrap(name, rank_layout if
+                                        name == "rank_layout" else fn, sync))
         torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
         t0 = time.perf_counter()
         merges = t.train()
         torch.cuda.synchronize(device)
         total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        # a wrapper counts on the name it is under: here the clock's
+        launches = _kernels.giant_sharded_train.launches
+        if out_dir is not None:
+            mp, vp = (os.path.join(out_dir, f"sharded_{vocab}.{x}")
+                      for x in ("model", "vocab"))
+            t.save(mp, vp)
+            with open(mp, "rb") as f, open(vp, "rb") as g:
+                model, vocab_b = f.read(), g.read()
     finally:
         for (m, name, _), fn in zip(patches, saved):
             setattr(m, name, fn)
@@ -2685,19 +2806,20 @@ def g1_train_layers(corpus, device, mesh, vocab: int) -> None:
         print(f"[sharded giant]   {name}: {sec:.4f} s ({sec / total:.3f}, "
               f"{sec / merges * 1e3:.6f} ms per merge)")
     check(merges == vocab - 256, f"the layered train() merges at {vocab}")
+    return dict(merges=merges, launches=launches,
+                calls=clock.calls["giant_sharded_train"], train_s=total,
+                peak=peak, layout=layouts[-1], model=model, vocab=vocab_b)
 
 
 def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
     """The sharded main path over a world-size-1 NCCL group:
     BPETrainer(mesh=...) load_corpus -> train -> save at vocab 32768
-    (== phase 6's single-device giant bytes) and 65536 (== the
-    single-device flat engine's, its first merges == the 32768 run's),
-    then both runs profiled and split into layers, then the sharded flat
-    engine forced (the
-    table engines patched to decline, as tests/test_parallel.py:132) at
-    the headline (== the JAX golden digest).  Returns G1's launches in
-    the 32768 run (every count set to 0 just before it, read just
-    after)."""
+    (== phase 6's single-device giant bytes; vocab 65536 runs in phase 21,
+    on the 1 GB corpus), then the run profiled and split into layers, then
+    the sharded flat engine forced (the table engines patched to decline,
+    as tests/test_parallel.py:132) at the headline (== the JAX golden
+    digest).  Returns G1's launches in the 32768 run (every count set to
+    0 just before it, read just after)."""
     import torch.distributed as dist
 
     from shredword_tpu_torch.ops import _kernels
@@ -2712,51 +2834,32 @@ def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
     try:
         setup = first_collective(device)
         mesh = multihost.global_mesh()
-        out = {}
-        for vocab in (GIANT_VOCAB, SHARDED_VOCAB):
-            reset_counts()
-            timer = Timed(_kernels.giant_sharded_train)
-            _kernels.giant_sharded_train = timer
-            try:
-                n, secs, raw, peak, model, vocab_b = train_and_save(
-                    corpus, out_dir, vocab, device, cfg=GIANT,
-                    tag="_sharded", mesh=mesh)
-            finally:
-                _kernels.giant_sharded_train = timer.fn
-            out[vocab] = (_kernels.giant_sharded_train.launches, model,
-                          vocab_b)
-            print(f"[sharded giant] NCCL world 1, vocab {vocab}: first "
-                  f"all_reduce {setup:.4f} s apart, {n} merges, train "
-                  f"{secs:.4f} s ({secs / n * 1e3:.6f} ms per merge), "
-                  f"{raw / 1e6 / secs:.3f} MB/s, peak device memory "
-                  f"{peak / 1e9:.3f} GB, {out[vocab][0]} G1 launches in "
-                  f"{len(timer.events)} calls, the calls' span "
-                  f"{timer.ms() / n:.6f} ms per merge (CUDA events)")
-            check(0 < out[vocab][0] == len(timer.events),
-                  f"vocab {vocab} launched G1 once a call")
-        launches, model, vocab_b = out[GIANT_VOCAB]
+        reset_counts()
+        timer = Timed(_kernels.giant_sharded_train)
+        _kernels.giant_sharded_train = timer
+        try:
+            n, secs, raw, peak, model, vocab_b = train_and_save(
+                corpus, out_dir, GIANT_VOCAB, device, cfg=GIANT,
+                tag="_sharded", mesh=mesh)
+        finally:
+            _kernels.giant_sharded_train = timer.fn
+        launches = _kernels.giant_sharded_train.launches
+        print(f"[sharded giant] NCCL world 1, vocab {GIANT_VOCAB}: first "
+              f"all_reduce {setup:.4f} s apart, {n} merges, train "
+              f"{secs:.4f} s ({secs / n * 1e3:.6f} ms per merge), "
+              f"{raw / 1e6 / secs:.3f} MB/s, peak device memory "
+              f"{peak / 1e9:.3f} GB, {launches} G1 launches in "
+              f"{len(timer.events)} calls, the calls' span "
+              f"{timer.ms() / n:.6f} ms per merge (CUDA events)")
+        check(0 < launches == len(timer.events),
+              f"vocab {GIANT_VOCAB} launched G1 once a call")
         check((model, vocab_b) == giant_bytes,
               f"sharded giant == single-device giant bytes at "
               f"{GIANT_VOCAB}")
         print(f"[sharded giant] vocab {GIANT_VOCAB}: .model/.vocab equal "
               f"the single-device giant engine's")
-        _, model64, vocab64 = out[SHARDED_VOCAB]
-        fn, fsecs, _, _, fmodel, fvocab = train_and_save(
-            corpus, out_dir, SHARDED_VOCAB, device, "flat", GIANT)
-        m32, m64 = merges_of(model), merges_of(model64)
-        print(f"[sharded giant] vocab {SHARDED_VOCAB}: flat engine {fn} "
-              f"merges in {fsecs:.4f} s")
-        check((model64, vocab64) == (fmodel, fvocab),
-              f"sharded giant == flat bytes at {SHARDED_VOCAB}")
-        check(np.array_equal(m64[:len(m32)], m32)
-              and len(m32) == GIANT_VOCAB - 256,
-              "the 65536 run's first merges == the 32768 run's")
-        print(f"[sharded giant] vocab {SHARDED_VOCAB}: .model/.vocab equal "
-              f"the flat engine's; its first {len(m32)} merges equal the "
-              f"{GIANT_VOCAB} run's")
-        for vocab in (GIANT_VOCAB, SHARDED_VOCAB):
-            profile_g1_train(corpus, device, mesh, vocab)
-            g1_train_layers(corpus, device, mesh, vocab)
+        profile_g1_train(corpus, device, mesh, GIANT_VOCAB)
+        g1_train_layers(corpus, device, mesh, GIANT_VOCAB)
         engines = (par_hist.sharded_hist_train,
                    par_giant.sharded_giant_train)
         par_hist.sharded_hist_train = par_giant.sharded_giant_train = \
@@ -3260,18 +3363,22 @@ def flat_states(arrays, device, target, n_prev=0):
     return k._replace(corpus=bpe_ops.FlatState(k.corpus)), p
 
 
-def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps):
-    """F1 and its plain version call by call from the same arrays, then
-    one call past the end (no launch, nothing changes); returns (max
-    |diff| after every call, merges done, F1 ms, plain ms, the chunks F1's
-    passes visited)."""
+def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps,
+              merges=None):
+    """F1 and its plain version call by call from the same arrays, from
+    merge n_prev towards merge `target`; with `merges`, only that many
+    (a window of the run), else to the end and then one call past it (no
+    launch, nothing changes); returns (max |diff| after every call,
+    merges done, F1 ms, plain ms, the chunks F1's passes visited)."""
     from shredword_tpu_torch.ops import _kernels
 
     k, p = flat_states(arrays, device, target, n_prev)
+    stop = target if merges is None else min(target, n_prev + merges)
     err, ms_k, ms_p, calls = 0, 0.0, 0.0, 0
-    kw = dict(target_merges=target, max_steps=steps)
     n0 = _kernels.flat_train.launches
-    while not p.done and p.n_merges < target:
+    while not p.done and p.n_merges < stop:
+        kw = dict(target_merges=target,
+                  max_steps=min(steps, stop - p.n_merges))
         out = {}
         ms_k += elapsed_ms(lambda: out.__setitem__(
             "k", _kernels.flat_train(k, unk, minf, **kw)), device)
@@ -3280,15 +3387,18 @@ def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps):
         k, p = out["k"], out["p"]
         calls += 1
         err = max(err, flat_diff(k, p))
-    k = _kernels.flat_train(k, unk, minf, **kw)
-    err = max(err, flat_diff(k, p))
+    if merges is None:
+        k = _kernels.flat_train(k, unk, minf, target_merges=target,
+                                max_steps=steps)
+        err = max(err, flat_diff(k, p))
     check(_kernels.flat_train.launches - n0 == calls,
           "one F1 launch per call with merges to make, none past the end")
     return err, p.n_merges - n_prev, ms_k, ms_p, k.corpus.visited
 
 
-def flat_cost(arrays, device, n: int, cfg=GIANT) -> dict:
-    """bound() per merge of the first n flat merges, from what they must
+def flat_cost(arrays, device, n: int, cfg=GIANT, start: int = 0) -> dict:
+    """bound() per merge of the n flat merges after merge `start` (the
+    arrays hold the stream after `start` merges), from what they must
     move on this data: once, the stream's tokens in and out and each
     word's offset, length and count; per merge every pair whose count
     changed (its key and count read, its count written) and the record.
@@ -3300,15 +3410,15 @@ def flat_cost(arrays, device, n: int, cfg=GIANT) -> dict:
     unk_id and min_pair_freq."""
     from shredword_tpu_torch.ops import _kernels, bpe_ops
 
-    _, ts = flat_states(arrays, device, n)
+    _, ts = flat_states(arrays, device, start + n, start)
     unk, minf = cfg["unk_id"], cfg["min_pair_freq"]
     words = int(torch.count_nonzero(torch.diff(ts.corpus.word_id))) + 1
     nbytes, ops = 8 * len(ts.corpus.tokens) + 12 * words, 0
     keys = seen = torch.empty(0, dtype=torch.int64, device=device)
     counts = keys
     for _ in range(n):
-        ts = _kernels.flat_train_plain(ts, unk, minf, target_merges=n,
-                                       max_steps=1)
+        ts = _kernels.flat_train_plain(ts, unk, minf,
+                                       target_merges=start + n, max_steps=1)
         k2, c2 = bpe_ops.pair_counts(ts.corpus, unk)
         _, diff = bpe_ops.sum_by_key(torch.cat([keys, k2]),
                                      torch.cat([-counts, c2]))
@@ -3316,7 +3426,8 @@ def flat_cost(arrays, device, n: int, cfg=GIANT) -> dict:
         nbytes += 16 * int(torch.count_nonzero(diff)) + 12
         ops += len(seen) + len(ts.corpus.tokens)
         keys, counts = k2, c2
-    check(ts.n_merges == n, "the plain version merges through the window")
+    check(ts.n_merges == start + n,
+          "the plain version merges through the window")
     return bound(nbytes / n, ops / n)
 
 
@@ -3622,8 +3733,9 @@ def phase_config2(device, out_dir) -> tuple[dict, dict]:
     k3 = dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n, **cost,
               library_ms=None)
 
-    # F1 against its plain version on the config's stream
-    arrays = (tokens, word_id, counts[word_id])
+    # F1 against its plain version on the config's stream (_token_arrays
+    # gives each position its word's count)
+    arrays = (tokens, word_id, counts)
     e, n, fms_k, fms_p, visited = flat_both(
         arrays, device, target=TIMED_MERGES, steps=TIMED_MERGES,
         unk=BIG["unk_id"], minf=BIG["min_pair_freq"])
@@ -3639,6 +3751,313 @@ def phase_config2(device, out_dir) -> tuple[dict, dict]:
                 library_ms=None)
     return (dict(k3, launches=run["launches"]),
             dict(flat, launches=f1_launches))
+
+
+# ---------------------------------------------------------------------
+# phase 21
+# ---------------------------------------------------------------------
+
+C5_LATE = 65152     # run A's last window: merges 65152-65279 (ids to 65535)
+
+
+class FlatCalls(Timed):
+    """Timed for F1 that also keeps, after each call, the merges made so
+    far and the chunks its passes visited so far."""
+
+    def __init__(self, fn):
+        super().__init__(fn)
+        self.visits = []
+
+    def __call__(self, *args, **kw):
+        out = super().__call__(*args, **kw)
+        self.visits.append((out.n_merges, out.corpus.visited))
+        return out
+
+
+def config5_flat(corpus, out_dir, device, vocab: int) -> dict:
+    """Run A (vocab 65536) or C (131072) of BASELINE config 5:
+    BPETrainer(vocab, **BIG5, the other arguments at their defaults)
+    load_corpus -> train -> save through the auto path, which must take
+    the flat engine (the table engines decline above 32768) and launch
+    F1 once a call.  Each layer on the host clock: load_corpus,
+    _token_arrays, the upload (make_state), FlatState's construction
+    (its presence index and word signatures apart, the device
+    synchronized after each), the presence index's growth to the run's
+    ids (reserve), F1's call loop (the calls' host time; CUDA events
+    around each call give F1's device time), the final compaction
+    (final_corpus, synchronized), the rest of train() (the copy of the
+    final stream to the host) and save.  The launch counts are set to 0
+    just before train() and read just after.  Returns the merges, F1's
+    launches and calls, train() s, the peak device memory, the chunks
+    visited per merge over the first 1,024 merges and over the run, the
+    initial and the final stream (tokens, word_id), the words' counts
+    and the .model/.vocab bytes."""
+    from shredword_tpu_torch import BPETrainer
+    from shredword_tpu_torch.bench import BIG5
+    from shredword_tpu_torch.ops import _kernels, bpe_ops
+
+    clock = HostClock(device)
+    seen: dict = {}
+    patches = [(bpe_ops, "make_state", True),
+               (bpe_ops, "presence_index", True),
+               (bpe_ops, "word_signatures", True),
+               (bpe_ops.FlatState, "__init__", True),
+               (bpe_ops.FlatState, "reserve", True),
+               (bpe_ops, "final_corpus", True)]
+    t = BPETrainer(target_vocab_size=vocab, backend="cuda", device=device,
+                   **BIG5)
+    arrays = t._token_arrays
+
+    def token_arrays():
+        seen["arrays"] = out = arrays()
+        return out
+
+    f1 = FlatCalls(_kernels.flat_train)
+    saved = [getattr(m, name) for m, name, _ in patches]
+    mp, vp = (os.path.join(out_dir, f"config5_{vocab}.{x}")
+              for x in ("model", "vocab"))
+    try:
+        t0 = time.perf_counter()
+        t.load_corpus(corpus)
+        clock.add("load_corpus", time.perf_counter() - t0)
+        t._token_arrays = clock.wrap("_token_arrays", token_arrays)
+        for (m, name, sync), fn in zip(patches, saved):
+            setattr(m, name, clock.wrap(name, fn, sync))
+        _kernels.flat_train = f1
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        n = t.train()
+        torch.cuda.synchronize(device)
+        train_s = time.perf_counter() - t0
+        launches = _kernels.flat_train.launches
+        peak = torch.cuda.max_memory_allocated(device)
+        _kernels.flat_train = f1.fn
+        for (m, name, _), fn in zip(patches, saved):
+            setattr(m, name, fn)
+        t0 = time.perf_counter()
+        t.save(mp, vp)
+        clock.add("save", time.perf_counter() - t0)
+        final = (t._final_tokens, t._final_word_id)
+        counts = t._word_counts()
+        freqs = np.asarray(t.merge_freqs)
+        raw = t._arrays.total_raw_bytes
+        n_chunks = -(-t._arrays.n_words // 32)
+    finally:
+        _kernels.flat_train = f1.fn
+        for (m, name, _), fn in zip(patches, saved):
+            setattr(m, name, fn)
+        t.destroy()
+    s = clock.secs
+    loop_s = sum(f1.enqueue_ms) / 1e3
+    f1_ms = f1.ms()
+    build = s["__init__"] + s["__init__ wait"]
+    layers = {
+        "_token_arrays": s["_token_arrays"],
+        "upload (make_state)": s["make_state"] + s["make_state wait"],
+        "FlatState: presence index": s["presence_index"]
+        + s["presence_index wait"],
+        "FlatState: word signatures": s["word_signatures"]
+        + s["word_signatures wait"],
+        "FlatState: hash table and the rest": build - s["presence_index"]
+        - s["presence_index wait"] - s["word_signatures"]
+        - s["word_signatures wait"],
+        "presence index grown to the run's ids (reserve)": s["reserve"]
+        + s["reserve wait"],
+        "F1 call loop (launch, records' readback)": loop_s - build
+        - s["reserve"] - s["reserve wait"],
+        "final compaction (final_corpus)": s["final_corpus"]
+        + s["final_corpus wait"]}
+    layers["rest of train() (the copy to the host)"] = train_s - sum(
+        layers.values())
+    first = next(vis for m, vis in f1.visits if m >= 1024)
+    first_n = next(m for m, _ in f1.visits if m >= 1024)
+    tag = f"[config5] v{vocab}"
+    print(f"{tag}: BPETrainer({vocab}, min_pair_freq "
+          f"{BIG5['min_pair_freq']}, coverage "
+          f"{BIG5['character_coverage']}, unk {BIG5['unk_id']}) on {raw} "
+          f"bytes, stream N {len(seen['arrays'][0])}: auto -> flat, {n} "
+          f"merges, train() {train_s:.4f} s, {raw / 1e6 / train_s:.4f} "
+          f"MB/s, peak device memory {peak / 1e9:.3f} GB, {launches} F1 "
+          f"launches in {len(f1.events)} calls, F1 {f1_ms:.2f} ms on the "
+          f"card ({f1_ms / n:.6f} ms per merge, CUDA events around each "
+          f"call); chunks visited per merge: first {first_n} merges "
+          f"{first / first_n:.2f}, whole run {f1.visits[-1][1] / n:.2f} "
+          f"(of {n_chunks}) ({CARD})")
+    print(f"{tag}: load_corpus {s['load_corpus']:.4f} s; train() "
+          f"{train_s:.4f} s layer by layer:")
+    for name, sec in layers.items():
+        print(f"{tag}:   {name}: {sec:.4f} s ({sec / train_s:.3f})")
+    print(f"{tag}: save {s['save']:.4f} s")
+    check(launches > 0 and launches == len(f1.events),
+          f"config 5 at {vocab} ran F1, one launch per call")
+    check(n == vocab - 256, f"config 5 at {vocab} learns every merge")
+    with open(mp, "rb") as f, open(vp, "rb") as g:
+        model, vocab_b = f.read(), g.read()
+    return dict(merges=n, launches=launches, train_s=train_s, peak=peak,
+                arrays=seen["arrays"][:2], final=final, counts=counts,
+                freqs=freqs, model=model, vocab=vocab_b)
+
+
+def replayed_stream(tokens, word_id, counts, merges: np.ndarray):
+    """The flat stream (tokens, word_id, per-position counts) of the
+    words (`counts` a word) after `merges` (the native encoder's replay,
+    as a resume replays them)."""
+    from shredword_tpu_torch.runtime import native
+
+    lengths = np.bincount(word_id, minlength=len(counts))
+    offsets = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    enc = native.NativeEncoder(merges)
+    try:
+        tokens, out_off = enc.apply_merges(tokens, offsets)
+    finally:
+        enc.free()
+    word_id = np.repeat(np.arange(len(counts), dtype=np.int32),
+                        np.diff(out_off))
+    return tokens, word_id, counts[word_id]
+
+
+def config5_f1_window(arrays, device, *, n_prev: int, target: int,
+                      what: str) -> dict:
+    """F1 against its plain version for TIMED_MERGES merges from merge
+    n_prev of config 5's stream `arrays` (toward `target`), timed, with
+    the bound of that window's merges; returns the kernels-line
+    record."""
+    from shredword_tpu_torch.bench import BIG5
+
+    kw = dict(unk=BIG5["unk_id"], minf=BIG5["min_pair_freq"])
+    e, n, ms_k, ms_p, visited = flat_both(
+        arrays, device, target=target, n_prev=n_prev, steps=TIMED_MERGES,
+        merges=TIMED_MERGES, **kw)
+    check(e == 0 and n == TIMED_MERGES,
+          f"F1 == plain over config 5's merges {n_prev}-"
+          f"{n_prev + TIMED_MERGES - 1}")
+    cost = flat_cost(arrays, device, TIMED_MERGES, cfg=BIG5, start=n_prev)
+    print(f"[config5] F1 {what}: merges {n_prev}-{n_prev + n - 1} (ids "
+          f"{256 + n_prev}-{256 + n_prev + n - 1}, target {target}) on the "
+          f"stream of {len(arrays[0])} tokens: F1 {ms_k / n:.6f} ms/merge "
+          f"(bound {cost['bound_ms']:.8f}, {cost['bound_by']}, "
+          f"{ms_k / n / cost['bound_ms']:.1f}x), plain {ms_p / n:.4f} "
+          f"ms/merge, max |F1 - plain| = {e}; the passes visit "
+          f"{visited / n:.2f} chunks of 32 words per merge ({CARD})")
+    return dict(max_abs_err=e, ms=ms_k / n, plain_ms=ms_p / n, **cost,
+                library_ms=None)
+
+
+def phase_config5(device, out_dir) -> list[dict]:
+    """Phase 21: BASELINE config 5 on the card, vocab 65536 and 131072 on
+    the 1 GB corpus: run A (65536, auto -> F1), run B (65536 over a
+    one-rank NCCL group -> G1; bytes == run A's), run C (131072, auto ->
+    F1; its first 65,280 merges == run A's, ids past 65535 merged), then
+    F1 against its plain version on run A's last 128 merges and on the
+    128 after them (from run A's final stream toward 131072), G1 against
+    its plain version on run B's layout for the first 128 merges, and
+    4 MB of the corpus encoded with both models.  Returns the
+    kernels-line records of F1 (65536, 131072), G1 and E1 (65536,
+    131072)."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.bench import BIG5, BIG5_VOCABS
+    from shredword_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    corpus = big_corpus()
+    va, vc = BIG5_VOCABS
+    torch.cuda.empty_cache()
+    run_a = config5_flat(corpus, out_dir, device, va)
+    torch.cuda.empty_cache()
+
+    # run B: the row-sharded giant engine over a one-rank NCCL group
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                         rank=0)
+    try:
+        setup = first_collective(device)
+        run_b = g1_train_layers(corpus, device, multihost.global_mesh(), va,
+                                cfg=BIG5, out_dir=out_dir)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    lay = run_b["layout"]
+    print(f"[config5] v{va} over a one-rank NCCL group (first all_reduce "
+          f"{setup:.4f} s apart): {run_b['merges']} merges, train() "
+          f"{run_b['train_s']:.4f} s, peak device memory "
+          f"{run_b['peak'] / 1e9:.3f} GB, {run_b['launches']} G1 launches "
+          f"in {run_b['calls']} calls; layout {tuple(lay.tw.shape)}, "
+          f"{lay.presT.shape[1]} chunks of "
+          f"{lay.tw.shape[1] // lay.presT.shape[1]} ({g1_nc_used(lay)} "
+          f"used) ({CARD})")
+    check(0 < run_b["launches"] == run_b["calls"],
+          "config 5 over the group ran G1, one launch a call")
+    check((run_b["model"], run_b["vocab"]) == (run_a["model"],
+                                               run_a["vocab"]),
+          f"config 5 at {va}: G1 (sharded giant) == F1 (auto) bytes")
+    print(f"[config5] v{va}: G1's .model/.vocab == F1's")
+
+    run_c = config5_flat(corpus, out_dir, device, vc)
+    torch.cuda.empty_cache()
+    ma, mc = merges_of(run_a["model"]), merges_of(run_c["model"])
+    c_launches, freqs = run_c["launches"], run_c["freqs"]
+    del run_c
+    check(np.array_equal(mc[:len(ma)], ma),
+          f"config 5: the first {len(ma)} merges at {vc} == those at {va}")
+    check(bool((np.diff(freqs) <= 0).all()) and freqs[-1] >= 2,
+          f"config 5 at {vc}: the merges' counts never rise, none below 2")
+    # the ids a merge consumes: on this corpus the late merges join ids
+    # made early (the last merges complete whole words, which no later
+    # merge extends), so ids past 65535 are made, not consumed
+    high = int((mc[len(ma):] > 65535).any(1).sum())
+    at = [0, 1024, 15771, len(ma) - 1, len(ma), len(mc) - 1]
+    print(f"[config5] v{vc}: its first {len(ma)} merges == v{va}'s; it "
+          f"makes ids to {vc - 1}; {high} of its merges consume an id "
+          f"past 65535, the largest id any merge consumes is "
+          f"{int(mc.max())} (made by merge {int(mc.max()) - 256}); merge "
+          f"counts at merges {at}: {freqs[at].tolist()}")
+
+    # F1 against its plain version: run A's last window, then the next
+    counts = run_a["counts"]
+    f1_a = config5_f1_window(
+        replayed_stream(*run_a["arrays"], counts, ma[:C5_LATE]), device,
+        n_prev=C5_LATE, target=va - 256, what=f"v{va}, run A's last window")
+    tokens, word_id = run_a["final"]
+    f1_c = config5_f1_window((tokens, word_id, counts[word_id]), device,
+                             n_prev=len(ma), target=vc - 256,
+                             what=f"v{vc}, from run A's final stream")
+    a_launches = run_a["launches"]
+    del run_a
+    torch.cuda.empty_cache()
+
+    # G1 against its plain version on run B's layout (two tables live)
+    kw = dict(unk=BIG5["unk_id"], min_freq=BIG5["min_pair_freq"])
+    err, ms_k, ms_p, n = run_g1_both(lay, va, device, form="alone",
+                                     merges=TIMED_MERGES, steps=TIMED_MERGES,
+                                     **kw)
+    check(err == 0 and n == TIMED_MERGES,
+          f"G1 == plain, first 128 merges of config 5 at {va}")
+    torch.cuda.empty_cache()
+    cost, chunks, read = g1_cost(lay, va, device, n, cfg=BIG5)
+    torch.cuda.empty_cache()
+    print(f"[config5] G1 alone at v{va} on layout {tuple(lay.tw.shape)}: "
+          f"first {n} merges, kernel {ms_k / n:.6f} ms/merge (bound "
+          f"{cost['bound_ms']:.8f}, {cost['bound_by']}, "
+          f"{ms_k / n / cost['bound_ms']:.1f}x; of the bytes read "
+          f"{read['bound_ms']:.8f}), plain {ms_p / n:.4f} ms/merge, mean "
+          f"chunks read {chunks:.3f} per merge, max |kernel - plain| = "
+          f"{err} ({CARD})")
+    g1 = dict(max_abs_err=err, ms=ms_k / n, plain_ms=ms_p / n, **cost,
+              library_ms=None)
+
+    # encode 4 MB of the corpus with both models
+    with open(corpus) as f:
+        text = f.read(ENCODE_CHARS)
+    enc = {v: phase_encode_main(device, text, m, v)
+           for v, m in ((va, ma), (vc, mc))}
+    print(f"[config5] phase 21 in {time.perf_counter() - t_phase:.1f} s "
+          f"({CARD})")
+    return [dict(f1_a, launches=a_launches),
+            dict(g1, launches=run_b["launches"]),
+            dict(f1_c, launches=c_launches)] + [enc[va], enc[vc]]
 
 
 # ---------------------------------------------------------------------
@@ -3691,7 +4110,9 @@ def main() -> int:
     from shredword_tpu_torch.parallel import multihost
 
     device = torch.device("cuda", 0)
+    lap = Laps()
     card, clocked = phase_env()
+    lap("phase 1")
     with open(os.path.join(ROOT, "tests", "golden", "bench_v768.json")) as f:
         golden = json.load(f)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3708,22 +4129,30 @@ def main() -> int:
         bench_layout = bpe_hist.build_layout(
             *token_arrays(corpus, device, HEADLINE), 64)
         timing = phase_kernel_vs_plain(device, bench_layout)
+        lap("phase 2")
         launches = {}
         launches[768], model_768, _ = phase_main_path(corpus, tmp, 768,
                                                       device, golden=golden)
         launches[4096], *fused_4096 = phase_main_path(corpus, tmp, 4096,
                                                       device)
+        lap("phases 3-4")
         giant_layout = bpe_giant.build_giant_layout(
             *token_arrays(corpus, device, GIANT), GIANT_VOCAB)
         timing[GIANT_VOCAB] = phase_giant_vs_plain(device, giant_layout)
         launches[GIANT_VOCAB], model_giant, vocab_giant = phase_main_path(
             corpus, tmp, GIANT_VOCAB, device, cfg=GIANT,
             kernel="giant_train_step")
+        lap("phases 5-6")
         long_txt, long_arrays = long_corpus(device, tmp)
         launches["flat"], timing["flat"] = phase_flat(device, tmp, long_txt,
                                                       long_arrays)
+        lap("phase 19")
         config2 = phase_config2(device, tmp)
         torch.cuda.empty_cache()
+        lap("phase 20")
+        config5 = phase_config5(device, tmp)
+        torch.cuda.empty_cache()
+        lap("phase 21")
         # the merges that phases 3, 4 and 6 trained, for phase 13
         merges = {768: merges_of(model_768), 4096: merges_of(fused_4096[0]),
                   GIANT_VOCAB: merges_of(model_giant)}
@@ -3744,12 +4173,16 @@ def main() -> int:
                                              fused_4096, setup)
         finally:
             dist.destroy_process_group()
+        lap("phases 7-11")
         phase_clocks(device, clocked, bench_layout, giant_layout,
                      long_arrays)
+        lap("phase 12")
         phase_encode_vs_plain(device, enc_text.encode(), merges)
         encode = {v: phase_encode_main(device, enc_text, m, v)
                   for v, m in merges.items()}
+        lap("phase 13")
         pretok, launches["gpt_starts"] = phase_pretok(device, enc_text)
+        lap("phase 16")
         phase_uni_vs_plain(device)
         phase_uni_overflow(device, tmp)
         unigram = phase_uni_slabs(device, corpus)
@@ -3757,7 +4190,9 @@ def main() -> int:
                                       enc_text[:UNI_ENCODE_CHARS], tmp)
         uni_card = phase_uni_1024(device, corpus)
         phase_uni_sharded(device, corpus, uni_card)
+        lap("phase 14")
         phase_cli(corpus, tmp, golden, enc_text, uni_card.pieces, device)
+        lap("phase 17")
         # phase 15: the row-sharded giant engine (G1) and sharded flat
         multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
                              rank=0)
@@ -3773,7 +4208,9 @@ def main() -> int:
         launches["g1"] = phase_sharded_giant_main(corpus, tmp, device,
                                                   (model_giant, vocab_giant))
         phase_sharded_giant_gloo(corpus, tmp, device)
+        lap("phase 15")
         phase_bench(corpus)
+        lap("phase 18")
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),
@@ -3805,6 +4242,16 @@ def main() -> int:
                 for (name, f, replaces), rec in zip(
                     (("giant_train", "giant.cu", TPU_KERNEL[GIANT_VOCAB]),
                      ("flat_train", "flat.cu", F1_SOURCE)), config2)]
+    kernels += [dict(name=f"{name}@config5 v{v}", route="cuda",
+                     source=src + f, replaces=replaces, **rec)
+                for (name, f, replaces, v), rec in zip(
+                    (("flat_train", "flat.cu", F1_SOURCE, 65536),
+                     ("giant_sharded_train", "giant_sharded.cu",
+                      TPU_KERNEL["g1"], 65536),
+                     ("flat_train", "flat.cu", F1_SOURCE, 131072),
+                     ("encode", "encode.cu", TPU_KERNEL["encode"], 65536),
+                     ("encode", "encode.cu", TPU_KERNEL["encode"], 131072)),
+                    config5)]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

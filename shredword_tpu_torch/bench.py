@@ -69,6 +69,11 @@ BIG = dict(unk_id=0, character_coverage=1.0, min_pair_freq=2000)
 BIG_RAW_MB = 1000
 BIG_SEED = 99
 BIG_RUNS = 3        # timed config 2 runs; the best counts
+# BASELINE config 5 (BASELINE.md:28, "vocab_size=64k") on the same corpus:
+# BPETrainer(V, **BIG5) for V in BIG5_VOCABS; min_pair_freq 2 stops the
+# run at the vocab target
+BIG5 = dict(unk_id=0, character_coverage=1.0, min_pair_freq=2)
+BIG5_VOCABS = (65536, 131072)
 # the bytes make_big_corpus(path) writes at BIG_RAW_MB and BIG_SEED
 BIG_CORPUS_BYTES = 1_008_579_866
 BIG_CORPUS_SHA256 = ("7c622e6e39f9bb77742001746e97857b"
@@ -299,6 +304,7 @@ def _counters() -> dict:
     from .ops import _kernels, encode_ops, unigram_ops
 
     return {"K1": _kernels.hist_fused_train, "K3": _kernels.giant_train_step,
+            "G1": _kernels.giant_sharded_train,
             "F1": _kernels.flat_train, "E1": encode_ops.encode_core,
             "U1": unigram_ops.fb_core, "U2": unigram_ops.viterbi_core}
 
@@ -697,29 +703,56 @@ def giant_layouts():
         bpe_giant.build_giant_layout = build
 
 
-def measure_big_vocab(corpus: str, device) -> dict:
-    """BASELINE config 2: BPETrainer(GIANT_VOCAB, min_pair_freq 2000,
-    coverage 1.0, the other arguments at their defaults) on the corpus
-    of :func:`make_big_corpus`, ``BIG_RUNS`` times (each load_corpus ->
-    train, timed as :func:`train_once` times it; the kernels are built
-    first).  Returns the merges, every run's train() seconds and the
-    best's MB/s, the engine auto routing took (the giant engine when it
-    built a layout, whose chunk width and shape are returned, else the
-    flat one), the kernels' launches (K3 or F1 must launch on a card)
-    and the peak device memory of a run."""
+@contextlib.contextmanager
+def sharded_giant_runs():
+    """Counts, in the list it yields, the runs of the row-sharded giant
+    engine inside the block that took the corpus (returned merges)."""
+    from .parallel import giant as par_giant
+
+    took: list = []
+    run = par_giant.sharded_giant_train
+
+    def recorded(*args, **kw):
+        out = run(*args, **kw)
+        if out is not None:
+            took.append(len(out[0]))
+        return out
+
+    par_giant.sharded_giant_train = recorded
+    try:
+        yield took
+    finally:
+        par_giant.sharded_giant_train = run
+
+
+def measure_big_vocab(corpus: str, device, vocab: int = GIANT_VOCAB,
+                      cfg: dict = BIG, mesh=None) -> dict:
+    """BPETrainer(vocab, **cfg, mesh=mesh) with the other arguments at
+    their defaults (by default BASELINE config 2; config 5 is ``BIG5`` at
+    ``BIG5_VOCABS``) on the corpus of :func:`make_big_corpus`,
+    ``BIG_RUNS`` times (each load_corpus -> train, timed as
+    :func:`train_once` times it; the kernels are built first).  Returns
+    the merges, every run's train() seconds and the best's MB/s, the
+    engine the trainer's routing took (``engine``: "giant" when the giant
+    engine built a layout, whose chunk width and shape are returned,
+    "sharded giant" when the row-sharded giant engine trained over
+    ``mesh``, else "flat"), the launches of K3, G1 and F1 (the engine's
+    kernel must launch on a card) and the peak device memory of a
+    run."""
     from .ops import _kernels
 
     dev = resolve_device(device)
     if dev.type == "cuda":
         _kernels.lib()
     fns = _counters()
-    before = {k: fns[k].launches for k in ("K3", "F1")}
+    before = {k: fns[k].launches for k in ("K3", "G1", "F1")}
     times, peak = [], 0
-    with giant_layouts() as built:
+    kw = dict(cfg) if mesh is None else dict(cfg, mesh=mesh)
+    with giant_layouts() as built, sharded_giant_runs() as sharded:
         for _ in range(BIG_RUNS):
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            dt, n = train_once(corpus, dev, vocab=GIANT_VOCAB, **BIG)
+            dt, n = train_once(corpus, dev, vocab=vocab, **kw)
             times.append(dt)
             if dev.type == "cuda":
                 peak = max(peak, torch.cuda.max_memory_allocated(dev))
@@ -729,7 +762,8 @@ def measure_big_vocab(corpus: str, device) -> dict:
             layout = dict(L=L, W=W, NC=NC, cw=W // NC,
                           n_words=built[-1].n_words)
     got = {k: fns[k].launches - n0 for k, n0 in before.items()}
-    engine, kernel = ("giant", "K3") if layout else ("flat", "F1")
+    engine, kernel = (("giant", "K3") if layout else
+                      ("sharded giant", "G1") if sharded else ("flat", "F1"))
     if dev.type == "cuda" and got[kernel] == 0:
         raise BenchError(f"{kernel} never launched on {dev}")
     return {"merges": n, "seconds": min(times), "times": times,

@@ -23,6 +23,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_dist_workers import one_rank_gloo
 
 from shredword_tpu_torch import bench
 
@@ -165,10 +166,91 @@ def test_measure_big_vocab_reports_the_giant_route(tmp_path, monkeypatch):
     assert got["engine"] == "giant" and got["chunk_width"] == 1024
     assert got["layout"]["cw"] == 1024 and got["layout"]["L"] == 16
     assert len(got["times"]) == 2 and got["seconds"] == min(got["times"])
-    assert got["launches"] == {"K3": 0, "F1": 0} and got["peak_bytes"] == 0
+    assert got["launches"] == {"K3": 0, "G1": 0, "F1": 0}
+    assert got["peak_bytes"] == 0
     _, n = bench.train_once(path, "cpu", vocab=4608, engine="flat",
                             **bench.BIG)
     assert got["merges"] == n > 0
+
+
+@pytest.fixture(scope="module")
+def heaps_400kb(tmp_path_factory):
+    """The first 400 KB of a one-block Heaps-law corpus."""
+    path = str(tmp_path_factory.mktemp("heaps") / "big.txt")
+    bench.make_big_corpus(path, 1)
+    with open(path, "rb") as f:
+        data = f.read(400_000)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+@pytest.fixture
+def one_thread():
+    """One PyTorch thread: the plain versions' many small ops run many
+    times slower when the test workers' thread pools oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# name: (vocab, config, over a one-rank gloo group, the route): config 5
+# at vocab 768 with the table engines' single-device limits cut to 512,
+# so that auto declines them as it declines them above 32768
+BIG_VOCAB_ROUTES = {"config2": (4608, "BIG", False, "giant"),
+                    "config5_auto": (768, "BIG5", False, "flat"),
+                    "config5_gloo1": (768, "BIG5", True, "sharded giant")}
+
+
+@pytest.mark.parametrize("case", sorted(BIG_VOCAB_ROUTES))
+def test_measure_big_vocab_reports_its_route(case, heaps_400kb, tmp_path,
+                                             monkeypatch, one_thread):
+    """measure_big_vocab on the CPU (no launch counted) reports the
+    engine each configuration takes, with the flat engine's merges;
+    over a one-rank gloo group the row-sharded giant engine (G1's plain
+    version) trains."""
+    from shredword_tpu_torch.ops import bpe_giant, bpe_hist
+
+    vocab, name, group, route = BIG_VOCAB_ROUTES[case]
+    cfg = getattr(bench, name)
+    if name == "BIG5":
+        monkeypatch.setattr(bpe_hist, "MAX_V", 512)
+        monkeypatch.setattr(bpe_giant, "MAX_V", 512)
+    monkeypatch.setattr(bench, "BIG_RUNS", 1)
+    with contextlib.ExitStack() as stack:
+        mesh = (stack.enter_context(one_rank_gloo(str(tmp_path / "store")))
+                if group else None)
+        got = bench.measure_big_vocab(heaps_400kb, "cpu", vocab, cfg, mesh)
+    assert got["engine"] == route
+    assert (got["layout"] is not None) == (route == "giant")
+    assert got["launches"] == {"K3": 0, "G1": 0, "F1": 0}
+    assert len(got["times"]) == 1 and got["seconds"] == got["times"][0]
+    _, n = bench.train_once(heaps_400kb, "cpu", vocab=vocab, engine="flat",
+                            **cfg)
+    assert got["merges"] == n > 0
+
+
+def test_config5_merges_extend_those_of_a_smaller_vocab(zipf_corpus_file,
+                                                        one_thread):
+    """At config 5's arguments the greedy merges do not depend on the
+    target: each run's merges begin with those of any smaller target
+    (so config 5's 65536 run is the first 65,280 merges of its 131072
+    run).  Vocab 512 and 768 on the flat engine, 65536 through auto
+    (the flat engine, the corpus running out of pairs at 725 merges)."""
+    from shredword_tpu_torch import BPETrainer
+
+    merges = []
+    for vocab, engine in ((512, "flat"), (768, "flat"), (65536, "auto")):
+        t = BPETrainer(vocab, backend="cuda", device="cpu", engine=engine,
+                       **bench.BIG5)
+        t.load_corpus(zipf_corpus_file)
+        t.train()
+        merges.append(np.asarray(t.merges))
+    assert [len(m) for m in merges] == [256, 512, 725]
+    for small, big in zip(merges, merges[1:]):
+        np.testing.assert_array_equal(big[:len(small)], small)
 
 
 def test_constants_match_the_jax_bench():

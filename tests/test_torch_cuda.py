@@ -10,8 +10,8 @@ there with
 import numpy as np
 import pytest
 import torch
-from torch_encode_cases import (FHUS, boundary_cases, random_chunks,
-                                random_merges)
+from torch_encode_cases import (FHUS, boundary_cases, high_id_merges,
+                                random_chunks, random_merges)
 from torch_flat_cases import FLAT_CASES, flat_corpus
 from torch_pretok_cases import all_inputs, code_points
 from torch_unigram_cases import (LATTICES, OVERFLOW_CONFIG, OVERFLOW_TEXT,
@@ -398,7 +398,19 @@ SHARDED_GIANT_CASES = {
     # (merges 32510-32524, ids past 32767), on the own rows [30976, v)
     # that hold every pair of its words
     "int16_resume_v32896": (None, 32896, 5, 14, 2, -1),
+    # the same at the top of vocab 65536 (merges 65260-65273, new ids to
+    # 65529), on the own rows [64896, 65536)
+    "top_resume_v65536": (None, 65536, 5, 14, 2, -1),
 }
+TOP_N_PREV = 65260
+
+
+def _top_corpus():
+    """Two 8-token chain words near vocab 65536 (counts 100 and 50)."""
+    tokens = np.concatenate([np.arange(65000, 65008, dtype=np.int32),
+                             np.arange(65100, 65108, dtype=np.int32)])
+    word_id = np.repeat(np.arange(2, dtype=np.int32), 8)
+    return tokens, word_id, np.asarray([100, 50], np.int32)
 G1_CW = 256       # chunk width: several chunks on these corpora
 
 
@@ -419,8 +431,11 @@ def test_sharded_giant_kernel_call_by_call(case, reduce, cuda, request):
     corpus_kw, v, steps, merges, minf, unk = SHARDED_GIANT_CASES[case]
     start, base = 0, 0
     if corpus_kw is None:
-        tokens, word_id, counts, _ = envelope_corpus()
-        start, base = ENVELOPE_N_PREV, 30976
+        resumed = {"int16_resume_v32896": (
+            lambda: envelope_corpus()[:3], ENVELOPE_N_PREV, 30976, 32767),
+            "top_resume_v65536": (_top_corpus, TOP_N_PREV, 64896, 65519)}
+        make, start, base, past = resumed[case]
+        tokens, word_id, counts = make()
         assert tokens.min() >= base
     else:
         tokens, word_id, counts = _corpus(**corpus_kw)
@@ -458,7 +473,7 @@ def test_sharded_giant_kernel_call_by_call(case, reduce, cuda, request):
     assert (n == merges) == (minf == 2) and n > 0
     if corpus_kw is None:
         done = torch.cat(recs).cpu()
-        assert bool((done[done[:, 3] == 1, :2] > 32767).any())
+        assert bool((done[done[:, 3] == 1, :2] > past).any())
 
 
 # ---------------------------------------------------------------------
@@ -466,17 +481,23 @@ def test_sharded_giant_kernel_call_by_call(case, reduce, cuda, request):
 # ---------------------------------------------------------------------
 
 # name: (v, n_long): the dense table below vocab 4097, the hash table
-# above; chunks over 64 bytes take the kernel's global-memory mode
+# above; chunks over 64 bytes take the kernel's global-memory mode; past
+# vocab 32768 the merges of high_id_merges on letters a-h: ids past
+# 32767 in int16 storage up to 65536, int32 ids past 65535 above it
 ENCODE_CASES = {"dense_v300": (300, 0), "dense_v768_long": (768, 12),
-                "dense_v4096": (4096, 0), "hash_v5000_long": (5000, 12)}
+                "dense_v4096": (4096, 0), "hash_v5000_long": (5000, 12),
+                "hash_v65536_wrap": (65536, 0),
+                "hash_v131072_int32": (131072, 12)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(ENCODE_CASES))
 def test_encode_kernel_matches_plain(case, cuda):
     v, n_long = ENCODE_CASES[case]
-    merges = random_merges(v, v - 256)
-    flat, lens = random_chunks(v + 1, 3000, n_long=n_long)
+    high = v > 32768
+    merges = (high_id_merges if high else random_merges)(v, v - 256)
+    flat, lens = random_chunks(v + 1, 3000, alpha=8 if high else 6,
+                               n_long=n_long)
     tables = {dev: (encode_ops.build_rank_table(merges, v, dev)
                     if v <= encode_ops.DENSE_V_MAX
                     else encode_ops.build_merge_table(merges, dev))
@@ -491,10 +512,13 @@ def test_encode_kernel_matches_plain(case, cuda):
         assert encode_ops.encode_core.launches - n0 == (2 if dev == cuda
                                                         else 0)
     (ip, cp), (ik, ck) = out["cpu"], out[cuda]
-    assert ik.dtype == ip.dtype == torch.int16
+    assert ik.dtype == ip.dtype == encode_ops.out_dtype(v)
     torch.testing.assert_close(ck.cpu(), cp, rtol=0, atol=0)
     torch.testing.assert_close(ik.cpu(), ip, rtol=0, atol=0)
     assert len(ip) < len(flat) * 0.9                   # merges fired
+    if high:                        # the ids past 32767 (and 65535) fired
+        ids = encode_ops.ids_to_numpy(ip)
+        assert ids.max() == v - 1 and (ids == 32771).any()
     lookups = torch.zeros(1, dtype=torch.int64, device=cuda)
     encode_ops.encode_core(torch.from_numpy(flat).to(cuda),
                            torch.from_numpy(lens.astype(np.int32)).to(cuda),
@@ -755,8 +779,11 @@ def test_flat_kernel_call_by_call(case, steps, cuda):
         for g, w in zip(bpe_ops.final_corpus(got.corpus), want.corpus):
             assert torch.equal(g.cpu(), w)
     assert _kernels.flat_train.launches - n0 == calls
+    assert got.corpus.pres.shape[0] == max(256 + target,
+                                           int(arrays[0].max()) + 1)
     assert want.done == (case in ("min_freq_stop", "to_one_token",
-                                  "long_tail", "late_edge_pair"))
+                                  "long_tail", "late_edge_pair",
+                                  "reserve_131328_rows"))
     assert want.n_merges > n_prev
     if case == "to_one_token":              # every word is one token
         assert bool((got.corpus.len == 1).all())

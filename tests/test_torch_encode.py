@@ -1,19 +1,22 @@
 """The port's encoder (shredword_tpu_torch.ops.encode_ops) against the JAX
 package's (shredword_tpu.ops.encode_ops) on the CPU: the rank tables,
 the plain versions of the encode kernel (csrc/encode.cu) against
-_encode_device, _encode_device_hash and encode_chunks, and the host
-entry points encode_stream and encode_ws_text.  Inputs are seeded numpy
+_encode_device, _encode_device_hash and encode_chunks, the host
+entry points encode_stream and encode_ws_text, and the Tokenizer with
+merge tables whose ids pass 32767 and 65535.  Inputs are seeded numpy
 arrays; the outputs are integer ids, so every comparison is exact."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_encode_cases import (FHUS, boundary_cases, random_chunks,
-                                random_merges)
+from torch_encode_cases import (FHUS, boundary_cases, high_id_merges,
+                                random_chunks, random_merges)
 
+from shredword_tpu import Tokenizer as JaxTokenizer
 from shredword_tpu.ops import encode_ops as J
 from shredword_tpu.pretokenize import whitespace_keep_split
+from shredword_tpu_torch import Tokenizer
 from shredword_tpu_torch.ops import encode_ops as P
 
 
@@ -200,6 +203,37 @@ def test_encode_ws_text_matches_jax():
     got = P.encode_ws_text(long, merges, 768, {}, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert P.encode_ws_text(flat[:0], merges, 768, device="cpu").shape == (0,)
+
+
+@pytest.fixture
+def one_thread():
+    """One PyTorch thread: the plain versions' many small ops run many
+    times slower when the test workers' thread pools oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("v", [65536, 131072])
+def test_tokenizer_ids_past_32767_match_jax(v, one_thread):
+    """A merge table of vocab v (high_id_merges: most ranks name pairs
+    that never occur, the last ones make ids past 32767, stored as int16
+    up to vocab 65536, and past 65535 above it, in int32): the port's
+    Tokenizer (the encode kernel's plain versions) gives the ids of the
+    JAX package's device path on the CPU, and decode round-trips."""
+    merges = high_id_merges(v, v - 256)
+    rng = np.random.RandomState(v)
+    words = ["".join(chr(97 + c) for c in rng.randint(0, 8, k))
+             for k in rng.randint(1, 14, 2000)]
+    text = " ".join(words) + " gggh ghhg hg\tgh\n"
+    want = JaxTokenizer(merges=merges, backend="tpu").encode(text)
+    tok = Tokenizer(merges=merges, device="cpu")
+    got = tok.encode(text)
+    assert got == want
+    assert max(got) == v - 1 and 32771 in got and 32772 in got
+    assert tok.decode(got) == text
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

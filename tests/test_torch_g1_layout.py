@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch_dist_workers import one_rank_gloo
 
 from shredword_tpu.parallel import make_mesh
 from shredword_tpu.parallel import sharded_giant_train as jax_sharded_giant
@@ -193,11 +194,8 @@ def test_maintained_presence_is_exact(case):
 @pytest.fixture
 def gloo_world1(tmp_path):
     """A one-rank gloo process group in this process."""
-    assert not dist.is_initialized()
-    dist.init_process_group("gloo", rank=0, world_size=1,
-                            store=dist.FileStore(str(tmp_path / "store"), 1))
-    yield dist.group.WORLD
-    dist.destroy_process_group()
+    with one_rank_gloo(str(tmp_path / "store")) as group:
+        yield group
 
 
 def test_world1_passes_no_reduce_and_matches_jax(gloo_world1, monkeypatch):

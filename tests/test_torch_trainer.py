@@ -3,6 +3,7 @@ trainer: byte-identical .model/.vocab files on the golden corpora,
 checkpoints that cross from one package to the other, routing, device
 handling, and a JAX-free import."""
 
+import contextlib
 import logging
 import subprocess
 import sys
@@ -11,6 +12,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from torch_dist_workers import one_rank_gloo
 
 from golden.corpus_gen import GOLDEN_CONFIGS
 from shredword_tpu import checkpoint as ckpt
@@ -56,6 +58,45 @@ def test_model_bytes_match_jax_flat(name, i, engine, request, tmp_path,
     t.load_corpus(path)
     t.train()
     assert _save(t, tmp_path, "port") == jax_flat_files[name, i]
+
+
+@pytest.fixture
+def one_thread():
+    """One PyTorch thread: the plain versions' many small ops run many
+    times slower when the test workers' thread pools oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("route", ["auto", "gloo1"])
+def test_config5_bytes_match_jax_flat(route, zipf_corpus_file, tmp_path,
+                                      jax_flat_files, one_thread):
+    """BASELINE config 5's arguments (unk 0, coverage 1.0, min_pair_freq
+    2) on the zipf corpus, which runs out of pairs at 725 merges: auto at
+    vocab 65536 (the table engines decline, the flat engine trains) and
+    a one-rank gloo group (the row-sharded giant engine, G1's plain
+    version; at vocab 4608, as a [65536, 65536] table is 17 GB) save the
+    bytes of the JAX package's flat engine at 65536."""
+    cfg = (65536, 0, 1.0, 2)
+    if "config5" not in jax_flat_files:
+        j = JaxTrainer(*cfg, backend="tpu", engine="flat")
+        j.load_corpus(zipf_corpus_file)
+        assert j.train() == 725
+        jax_flat_files["config5"] = _save(j, tmp_path, "jax")
+    with contextlib.ExitStack() as stack:
+        kw, engine = {}, "flat engine"
+        if route == "gloo1":
+            cfg, engine = (4608, *cfg[1:]), "sharded giant engine"
+            kw["mesh"] = stack.enter_context(
+                one_rank_gloo(str(tmp_path / "store")))
+        t = _port(cfg, **kw)
+        t.load_corpus(zipf_corpus_file)
+        n, logs = _train_logged(t)
+    assert n == 725 and any(engine in m for m in logs)
+    assert _save(t, tmp_path, "port") == jax_flat_files["config5"]
 
 
 def test_cpu_backend_matches_jax_cpu_backend(small_corpus_file, tmp_path):

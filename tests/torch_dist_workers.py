@@ -1,5 +1,6 @@
 """Rank workers for tests/test_torch_parallel.py,
-tests/test_torch_sharded_giant.py and tests/test_torch_sharded_flat.py.
+tests/test_torch_sharded_giant.py and tests/test_torch_sharded_flat.py,
+and a one-rank gloo group in the test's own process.
 
 Each rank runs in its own spawned process with one thread, joins a gloo
 process group through a FileStore under the test's tmp directory (so
@@ -9,6 +10,7 @@ module and pickles what it returns.  This module imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import pickle
@@ -16,6 +18,19 @@ import pickle
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+@contextlib.contextmanager
+def one_rank_gloo(store: str):
+    """A one-rank gloo process group in this process (a FileStore at
+    `store`), destroyed on leaving the block."""
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(store, 1))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
 
 
 def run_ranks(fn, world: int, tmp_dir: str, *args, timeout: float = 120):

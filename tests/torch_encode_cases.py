@@ -29,6 +29,27 @@ def random_merges(seed: int, n: int, alpha: int = 6) -> np.ndarray:
     return merges
 
 
+def high_id_merges(seed: int, n: int, head: int = 400) -> np.ndarray:
+    """int32 [n, 2] for a vocab 256 + n past 32768: random_merges(seed,
+    head) first, then pairs no letter text holds (a control byte 1-31 and
+    an earlier id), but for five ranks that join the letters g and h,
+    which the head never names: 'gh' and 'hg' at ranks 32515 and 32516
+    (ids 32771 and 32772, past int16), then at the last three ranks
+    'ghhg', 'gg' and 'gg' + 'gh' (ids up to 256 + n - 1: past 65535 when
+    n > 65280)."""
+    m = np.empty((n, 2), np.int32)
+    m[:head] = random_merges(seed, head)
+    i = np.arange(head, n)
+    m[head:, 0] = 1 + i % 31
+    m[head:, 1] = 256 + (i - head) // 31
+    g, h = ord("g"), ord("h")
+    m[32515], m[32516] = (g, h), (h, g)
+    m[n - 3] = (32771, 32772)
+    m[n - 2] = (g, g)
+    m[n - 1] = (256 + n - 2, 32771)
+    return m
+
+
 def random_chunks(seed: int, n: int, alpha: int = 6, n_long: int = 0,
                   max_len: int = 64) -> tuple[np.ndarray, np.ndarray]:
     """(flat uint8, lens int64): n chunks of 1..max_len bytes, then

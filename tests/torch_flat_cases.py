@@ -4,7 +4,8 @@ words up to 1,000 tokens, a run of 1,001 'a's, unk bytes (-1 too), new
 ids past 65535 (a resume near merge 65280), a min_pair_freq stop, words
 that merge down to one token, and the cases of F1's presence index: a
 long tail of count-1 merges, late pairs held by one word at a chunk's
-edge, a resumed stream that holds ids past 65535."""
+edge, a resumed stream that holds ids past 65535, and a run toward
+vocab 131,328, for which F1's presence index grows to 131,328 rows."""
 
 import numpy as np
 
@@ -73,4 +74,9 @@ FLAT_CASES = {
     # a resumed stream that holds ids past 65535
     "resumed_high_ids": (dict(seed=69, n_words=400, max_len=60,
                               high=65400), 65460, 65400, -1, 2),
+    # a run toward vocab 131,328 resumed at merge 65270: the presence
+    # index grows to 131,328 rows, new ids cross 65535 after ten merges
+    # and most of the 454 merges (to a min_pair_freq stop) hold one past it
+    "reserve_131328_rows": (dict(seed=70, n_words=400, max_len=60,
+                                 high=65270), 131072, 65270, -1, 60),
 }
