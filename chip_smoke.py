@@ -184,17 +184,17 @@ Phases (any failure exits non-zero, and no result line is printed):
      golden digest: cold, then under SHREDWORD_TRACE (K1 launched,
      counted in the trace), then through the daemon
      (SHREDWORD_TORCH_DAEMON=1): its first call (which starts it) and
-     two warm calls; encode of the first 1,000,000 characters == the
+     a warm call; encode of the first 1,000,000 characters == the
      Tokenizer's ids on the card, decode round-trips; train-unigram
      --vocab-size 1024 --seed-size 10000 == phase 14's pieces; the
      daemon is stopped at the end, also on failure
 
- 18. (runs last) the port's bench, python -m shredword_tpu_torch.bench
-     --corpus <this corpus>, in a fresh process on the card: exit 0, the
-     last line bench.py's four keys (metric train_mb_s, value and
-     vs_baseline above 0), the hist == giant == flat cross-check on its
-     standard error; its standard error is echoed as [bench] lines, with
-     the phase's seconds
+ 18. (runs before phase 22) the port's bench, python -m
+     shredword_tpu_torch.bench --corpus <this corpus>, in a fresh process
+     on the card: exit 0, the last line bench.py's four keys (metric
+     train_mb_s, value and vs_baseline above 0), the hist == giant == flat
+     cross-check on its standard error; its standard error is echoed as
+     [bench] lines, with the phase's seconds
  19. (runs after phase 6) the flat engine's loop F1 (csrc/flat.cu,
      _kernels.flat_train: one persistent launch per call) against its
      plain version (bpe_ops.train_loop) on the card, call by call in
@@ -257,7 +257,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      at most two 17.2 GB tables live at once), and phase 13's encode
      main path on the corpus's first 4,000,000 characters with both
      models (ids == the CPU backend's, decode round-trips); the phase's
-     seconds.  "[time]" lines give each phase's seconds
+     seconds.  Phases 20 and 21 load the gigabyte once (`one_load`)
+ 22. (runs last) BASELINE configs 3 and 4 with phase 20's
+     merges (v 16,028, the hash table): bench.measure_big_encode once:
+     run A, Tokenizer(merges).encode_array over the whole gigabyte, in
+     the windows of encode_ops.STREAM_WINDOW_BYTES, and run B, its
+     documents of about 64 KB (cut after a newline) through
+     encode_batch_arrays (the arrays concatenated == A; decode_bytes ==
+     the file); run A again with its layers on the host clock
+     (config3_layers: the windows, the chunk lengths, per window the
+     upload, encode_core, E1's launches alone and the download) with
+     E1's bound, its ids == the native CPU encoder's (timed once); a run
+     with no window (its peak beside the windowed one); each document
+     of B decodes to itself; run C, the documents of the first 64 MB
+     joined by a registered <|endoftext|> (id 16,028) through
+     encode(allowed_special="all"): B's ids with the special between,
+     decode == the joined text, two E1 launches a document, the host
+     outside E1, and encode_batch taking the per-text path (== B); run
+     D, the GPT pattern on the first 256 MB: ids == the CPU backend's,
+     P1 (gpt_starts_device) over its code points == the native scanner's
+     starts, P1 timed with its bound; E1 and P1 against their plain
+     versions on 1 MB slices.
+     "[time]" lines give each phase's seconds
 
 The long-word corpus is generated here too (make_long_corpus), and the
 1 GB corpus (make_big_corpus, on every core).
@@ -270,6 +291,7 @@ CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -1594,6 +1616,16 @@ def encode_kernel_ms(df, dl, table, v: int, device) -> tuple[float, ...]:
     return encode_launch_ms(df, dl, table, v, device, KERNEL_REPS)
 
 
+def encode_bound(nbytes: int, chunks: int, ids_bytes: int,
+                 lookups: int) -> dict:
+    """E1's bound: the bytes in, an int32 length in and an int32 count
+    out per chunk, the ids out (the kernel derives each chunk's offset
+    itself); each rank lookup is an operation.  The rank table is not
+    charged: the lookups touch part of it, and that part may stay in the
+    50 MB L2."""
+    return bound(nbytes + 8 * chunks + ids_bytes, lookups)
+
+
 def encode_kernel_cost(df, lens: np.ndarray, table, v: int, device):
     """The kernel on the chunks `lens` of the bytes df: (its ms per call,
     its plain version's ms, max |kernel - plain|, its rank lookups, the
@@ -1616,12 +1648,8 @@ def encode_kernel_cost(df, lens: np.ndarray, table, v: int, device):
     lookups = torch.zeros(1, dtype=torch.int64, device=device)
     encode_ops.encode_core(df, dl, table, v=v, lookups=lookups)
     n_look = int(lookups)
-    # the bytes in; per chunk its length, offset and count; the ids out;
-    # each rank lookup reads one int32 (dense) or one probe of three
-    # (hash; at least one probe each); a compare per lookup
-    per_look = 4 if v <= encode_ops.DENSE_V_MAX else 12
-    cost = bound(int(lens.sum()) + 16 * len(lens) + ik.element_size()
-                 * len(ik) + per_look * n_look, n_look)
+    cost = encode_bound(int(lens.sum()), len(lens), len(ik) *
+                        ik.element_size(), n_look)
     return ms, plain_ms, err, n_look, cost, plain, split
 
 
@@ -1662,23 +1690,6 @@ def best_ms(fn, trials: int = 3):
     return best, out
 
 
-def gather_spans(flat: np.ndarray, off: np.ndarray,
-                 lens: np.ndarray) -> np.ndarray:
-    """The spans flat[off[i]:off[i] + lens[i]] concatenated."""
-    new_off = np.cumsum(lens) - lens
-    return flat[np.repeat(off - new_off, lens)
-                + np.arange(int(lens.sum()), dtype=np.int64)]
-
-
-def expand_ids(ids_u, cnt_u, inverse) -> np.ndarray:
-    """Every chunk's ids from each distinct chunk's (native memcpy)."""
-    from shredword_tpu_torch.runtime import native
-
-    uoff = np.zeros(len(cnt_u) + 1, np.int64)
-    np.cumsum(cnt_u, out=uoff[1:])
-    return native.expand_ids(ids_u, uoff, inverse, int(cnt_u[inverse].sum()))
-
-
 def encode_routes(text: str, merges: np.ndarray, v: int, device) -> list:
     """Whitespace-keep and GPT chunks of `text` encoded two ways, each
     layer timed alone (best of 3) and the ids checked equal to the
@@ -1689,6 +1700,7 @@ def encode_routes(text: str, merges: np.ndarray, v: int, device) -> list:
     every chunk).  The GPT scanner's offsets are common to both routes
     and not timed.  Returns the lines to print."""
     from shredword_tpu_torch import Tokenizer, pretokenize
+    from shredword_tpu_torch.bench import expand_ids, gather_spans
     from shredword_tpu_torch.ops import encode_ops
     from shredword_tpu_torch.runtime import native
 
@@ -3286,18 +3298,15 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
     try:
         first_s, out = cli_run(train_args("daemon1"), env=env_d)
         check_golden("daemon1", out)
-        warm = []
-        for i in range(2):
-            secs, out = cli_run(train_args(f"daemon{i + 2}"), env=env_d)
-            check_golden(f"daemon{i + 2}", out)
-            warm.append(secs)
+        warm_s, out = cli_run(train_args("daemon2"), env=env_d)
+        check_golden("daemon2", out)
         _, status = cli_run(["daemon", "status", "--socket", sock])
         check(status.strip() == "daemon running", "the daemon still runs")
     finally:
         stop_daemon(sock)
     print(f"[cli] train through the daemon (SHREDWORD_TORCH_DAEMON=1): "
-          f"first call (starts it) {first_s:.3f} s, warm calls "
-          + ", ".join(f"{s:.3f}" for s in warm) + " s; == golden")
+          f"first call (starts it) {first_s:.3f} s, a warm call "
+          f"{warm_s:.3f} s; == golden")
 
     text = enc_text[:UNI_ENCODE_CHARS]
     src, ids_path, back = (os.path.join(d, f) for f in
@@ -3569,6 +3578,40 @@ def big_corpus() -> str:
     return path
 
 
+@contextlib.contextmanager
+def one_load(path: str):
+    """Inside the block, the gigabyte is loaded once: every
+    NativeCorpus.from_file of ``path`` after the first (with the same
+    arguments) returns the first's corpus, whose free() is put off to the
+    block's end.  Phases 20 and 21 load it five times otherwise (about 35
+    s each); what a trainer's load_corpus then measures is the first
+    load, or the arrays and coverage of the shared corpus."""
+    from shredword_tpu_torch.runtime import native
+
+    from_file = native.NativeCorpus.from_file
+    held: dict = {}
+
+    def shared(p, *args, **kw):
+        if os.path.abspath(p) != os.path.abspath(path):
+            return from_file(p, *args, **kw)
+        key = (args, tuple(sorted(kw.items())))
+        if key not in held:
+            corpus = from_file(p, *args, **kw)
+            held[key] = (corpus, corpus.free)
+            corpus.free = lambda: None
+        else:
+            print(f"[one_load] {p}: the loaded corpus again")
+        return held[key][0]
+
+    native.NativeCorpus.from_file = shared
+    try:
+        yield
+    finally:
+        native.NativeCorpus.from_file = from_file
+        for _, free in held.values():
+            free()
+
+
 def config2_layers(corpus, out_dir, device) -> dict:
     """BASELINE config 2 through the public API, load_corpus -> train ->
     save, with each host layer on the host clock: load_corpus (the
@@ -3681,13 +3724,14 @@ def config2_layers(corpus, out_dir, device) -> dict:
                 vocab=vocab_b, arrays=seen["arrays"])
 
 
-def phase_config2(device, out_dir) -> tuple[dict, dict]:
+def phase_config2(device, out_dir) -> tuple[dict, dict, np.ndarray]:
     """Phase 20: BASELINE config 2 on the card: the auto path layer by
     layer (K3 at chunk width 2048), engine="flat" on the same corpus (F1;
     bytes == the auto path's), K3 against its plain version for the
     first 128 merges on the auto path's layout, and F1 against its plain
     version for the first 128 merges of its stream, each timed with its
-    bound.  Returns the kernels-line records of K3 and F1 here."""
+    bound.  Returns the kernels-line records of K3 and F1 here, and the
+    auto path's merges (phase 22's model)."""
     from shredword_tpu_torch.bench import BIG
     from shredword_tpu_torch.ops import _kernels
 
@@ -3750,7 +3794,7 @@ def phase_config2(device, out_dir) -> tuple[dict, dict]:
     flat = dict(max_abs_err=e, ms=fms_k / n, plain_ms=fms_p / n, **fcost,
                 library_ms=None)
     return (dict(k3, launches=run["launches"]),
-            dict(flat, launches=f1_launches))
+            dict(flat, launches=f1_launches), merges_of(model))
 
 
 # ---------------------------------------------------------------------
@@ -4061,6 +4105,330 @@ def phase_config5(device, out_dir) -> list[dict]:
 
 
 # ---------------------------------------------------------------------
+# phase 22
+# ---------------------------------------------------------------------
+
+C3_SPECIAL = "<|endoftext|>"
+C3_SPECIAL_BYTES = 64 * 10 ** 6     # run C: the documents of the first 64 MB
+C4_BYTES = 256 * 10 ** 6            # run D: the first 256 MB
+C3_SLICE = 10 ** 6                  # E1 and P1 against their plain versions
+
+
+def config3_layers(tok, text: str, device) -> tuple:
+    """Run A through ``tok.encode_array(text)`` once more, its layers on
+    the host clock by HostClock wraps of the encode_ops functions that
+    encode_ws_text calls: the windows (ws_windows), the chunk lengths
+    (ws_chunk_lens), per window the device call (_encode_contiguous),
+    encode_core (synchronised: its wait is E1 on the card) and the
+    download (ids_to_numpy); the upload is the device call less the
+    other two.  Then, on each window's device tensors kept from the run,
+    E1's two launches together and each alone (``encode_launch_ms``, 3
+    calls) and its rank lookups.  Returns (the ids, the seconds per
+    layer, E1's ms per window, E1's bound over the windows with its
+    lookups, the windows' chunks)."""
+    from shredword_tpu_torch.bench import encode_launch_ms
+    from shredword_tpu_torch.ops import encode_ops
+
+    v = 256 + len(tok.merges)
+    clock = HostClock(device)
+    core = encode_ops.encode_core
+    kept = []
+
+    def keep(flat, lens, table, **kw):
+        kept.append((flat, lens, table))
+        return core(flat, lens, table, **kw)
+
+    names = {"ws_windows": "windows", "ws_chunk_lens": "chunk lengths",
+             "_encode_contiguous": "device call", "ids_to_numpy": "download"}
+    saved = {k: getattr(encode_ops, k) for k in names}
+    for k, name in names.items():
+        setattr(encode_ops, k, clock.wrap(name, saved[k]))
+    encode_ops.encode_core = clock.wrap("encode_core", keep, sync=True)
+    try:
+        ids = tok.encode_array(text)
+    finally:
+        for k, fn in saved.items():
+            setattr(encode_ops, k, fn)
+        encode_ops.encode_core = core
+    s = clock.secs
+    core_s = s["encode_core"] + s["encode_core wait"]
+    layers = {"windows": s["windows"],
+              "chunk lengths (numpy)": s["chunk lengths"],
+              "upload": s["device call"] - core_s - s["download"],
+              "encode_core (synchronised)": core_s,
+              "download": s["download"]}
+    e1, sizes = [], []
+    nbytes = ids_bytes = n_look = 0
+    for flat, lens, table in kept:
+        e1.append(encode_launch_ms(flat, lens, table, v, device, 3))
+        lookups = torch.zeros(1, dtype=torch.int64, device=device)
+        out, _ = core(flat, lens, table, v=v, lookups=lookups)
+        n_look += int(lookups)
+        nbytes += flat.shape[0]
+        ids_bytes += out.numel() * out.element_size()
+        sizes.append(lens.shape[0])
+        del out
+    del kept
+    cost = encode_bound(nbytes, sum(sizes), ids_bytes, n_look)
+    return ids, layers, e1, dict(cost, lookups=n_look), sizes
+
+
+def phase_config3(device, corpus: str, merges: np.ndarray) -> list[dict]:
+    """Phase 22: BASELINE config 3 (and config 4's pre-split) on the card
+    with config 2's merges (the auto path's, K3 at chunk width 2048):
+    bench.measure_big_encode once (run A, the whole gigabyte through
+    Tokenizer.encode_array; run B, its 64 KB documents through
+    encode_batch_arrays; B == A, decode_bytes == the file); run A again
+    layer by layer (== the native CPU encoder) and once without windows
+    (its peak); each document of B round trips; run C, the documents of
+    the first 64 MB joined by a registered <|endoftext|> through
+    encode(allowed_special="all"); run D, the GPT pattern on the first
+    256 MB (== the CPU backend; P1 over its code points == the native
+    scanner); E1 and P1 against their plain versions on 1 MB slices.
+    Returns the kernels-line records of E1 and P1."""
+    from shredword_tpu_torch import Tokenizer, bench, pretokenize
+    from shredword_tpu_torch.bench import timed_peak
+    from shredword_tpu_torch.ops import encode_ops, pretok_ops
+
+    t_phase = time.perf_counter()
+    v = 256 + len(merges)
+    tag = f"[config3] v{v}"
+
+    # runs A and B (bench.measure_big_encode: B == A, A decodes to the
+    # file)
+    reset_counts()
+    m = bench.measure_big_encode(corpus, device, merges, runs=(1, 1),
+                                 decode=(1, 0))
+    launches = encode_ops.encode_core.launches
+    windows = m["windows"]
+    check(launches == 4 * windows,
+          f"config 3: two E1 launches a window, {windows} windows a run")
+    ids, batch = m.pop("ids"), m.pop("batch")
+    with open(corpus, "rb") as f:
+        data = f.read()
+    text = data.decode()
+    nbytes = len(data)
+    mb = nbytes / 1e6
+
+    # the layers of a run, E1 alone per window and its bound
+    tok = Tokenizer(merges, device=device)
+    lay_ids, layers, e1, cost, sizes = config3_layers(tok, text, device)
+    check(len(sizes) == windows, "the layered run took the bench's windows")
+    check(np.array_equal(lay_ids, ids), "config 3: the layered run == run A")
+    del lay_ids
+    cpu_s, want = best_ms(lambda: Tokenizer(merges, backend="cpu")
+                          .encode_array(text), 1)
+    check(np.array_equal(ids, want),
+          "config 3 run A: card ids == the native CPU encoder's, 1 GB")
+    del want
+    chunks = sum(sizes)
+    print(f"{tag}: run A, encode_array over {nbytes} bytes "
+          f"({chunks} chunks, {windows} windows of at most "
+          f"{encode_ops.STREAM_WINDOW_BYTES} bytes): {len(ids)} ids == the "
+          f"native CPU encoder's; {m['a_mbs']:.3f} MB/s (s: "
+          + ", ".join(f"{t:.4f}" for t in m["a_times"])
+          + f"), native CPU {mb / (cpu_s / 1e3):.3f} MB/s "
+          f"({cpu_s / 1e3:.4f} s once); peak device memory "
+          f"{m['a_peak_bytes'] / 1e9:.3f} GB; decode_bytes (== the file) "
+          + ", ".join(f"{mb / x:.3f}" for x in m["decode_times"])
+          + f" MB/s [{CARD}]")
+    e1_ms = sum(e[0] for e in e1)
+    print(f"{tag}: run A layer by layer (s): " + ", ".join(
+        f"{k} {x:.4f}" for k, x in layers.items())
+        + f"; windows of {min(sizes)}-{max(sizes)} chunks")
+    print(f"{tag}: E1 per window (ms; merge + pack, merge alone, pack "
+          f"alone; CUDA events, 3 calls): " + "; ".join(
+              f"{a:.4f}, {b:.4f}, {c:.4f}" for a, b, c in e1)
+          + f"; over the {windows} windows {e1_ms:.4f} ms; "
+          f"{cost['lookups']} rank lookups; bound {cost['bound_ms']:.6f} ms "
+          f"({cost['bound_by']}), {e1_ms / cost['bound_ms']:.1f}x [{CARD}]")
+
+    # without windows: one call over every chunk
+    saved = encode_ops.STREAM_WINDOW_BYTES
+    encode_ops.STREAM_WINDOW_BYTES = nbytes
+    try:
+        one_s, one_peak, one = timed_peak(lambda: tok.encode_array(text),
+                                          device)
+    finally:
+        encode_ops.STREAM_WINDOW_BYTES = saved
+    check(np.array_equal(one, ids), "config 3: one call == the windows")
+    del one
+    torch.cuda.empty_cache()
+    print(f"{tag}: run A without windows (one call over {chunks} "
+          f"chunks): {one_s:.4f} s, peak device memory "
+          f"{one_peak / 1e9:.3f} GB; with windows "
+          f"{m['a_peak_bytes'] / 1e9:.3f} GB [{CARD}]")
+
+    # run B: every document decodes to itself.  The arrays concatenated
+    # are run A's ids, which decode to the file, so document i decodes to
+    # itself when each array's pieces hold as many bytes as its document
+    docs = bench.big_documents(text)
+    piece_len = tok._decode_table()[2]
+    at = np.zeros(len(batch), np.int64)
+    np.cumsum([len(b) for b in batch[:-1]], out=at[1:])
+    check(len(batch) == len(docs) and all(len(b) for b in batch)
+          and np.array_equal(np.add.reduceat(piece_len[ids], at),
+                             [len(d) for d in docs]),
+          "config 3 run B: each document decodes to itself")
+    print(f"{tag}: run B, encode_batch_arrays over {len(docs)} documents "
+          f"of about {bench.BIG_DOC_BYTES} bytes: {m['b_mbs']:.3f} MB/s "
+          f"(s: "
+          + ", ".join(f"{t:.4f}" for t in m["b_times"])
+          + f"), {windows} windows, peak {m['b_peak_bytes'] / 1e9:.3f} GB; "
+          f"the arrays concatenated == run A, each document round trips "
+          f"[{CARD}]")
+    del ids, data
+
+    # run C: the documents of the first 64 MB joined by <|endoftext|>
+    n_c, size = 0, 0
+    while size < C3_SPECIAL_BYTES:
+        size += len(docs[n_c])
+        n_c += 1
+    docs_c, batch_c = docs[:n_c], batch[:n_c]
+    del docs, batch
+    eot = v
+    tok_s = Tokenizer(merges, special_tokens={C3_SPECIAL: eot},
+                      device=device)
+    joined = C3_SPECIAL.join(docs_c)
+    # one call, encode_core on the host clock (synchronised)
+    clock = HostClock(device)
+    core = encode_ops.encode_core
+    encode_ops.encode_core = clock.wrap("encode_core", core, sync=True)
+    reset_counts()
+    try:
+        c_s, ids_c = best_ms(lambda: tok_s.encode(
+            joined, allowed_special="all"), 1)
+        c_launches = encode_ops.encode_core.launches   # counted on the wrap
+    finally:
+        encode_ops.encode_core = core
+    core_s = clock.secs["encode_core"] + clock.secs["encode_core wait"]
+    want = []
+    for i, b in enumerate(batch_c):
+        want += ([eot] if i else []) + b.tolist()
+    check(ids_c == want,
+          "config 3 run C: ids == run B's with the special between")
+    del want
+    dstr_ms, out = best_ms(lambda: tok_s.decode(ids_c), 1)
+    check(out == joined, "config 3 run C: decode == the joined text")
+    del out
+    check(c_launches == 2 * n_c, "run C: two E1 launches a document")
+    reset_counts()
+    per_text = tok_s.encode_batch(docs_c)
+    check(encode_ops.encode_core.launches == 2 * n_c,
+          "run C: encode_batch with a special registered goes text by text")
+    check(all(p == b.tolist() for p, b in zip(per_text, batch_c)),
+          "run C: encode_batch (per text) == run B's arrays")
+    cmb = len(joined.encode()) / 1e6
+    print(f"[config3] run C: {n_c} documents ({cmb:.3f} MB) joined by "
+          f"{C3_SPECIAL} (id {eot}), encode(allowed_special='all'): "
+          f"{len(ids_c)} ids == run B's with {n_c - 1} specials between, "
+          f"decode to str == the text ({cmb / (dstr_ms / 1e3):.3f} MB/s "
+          f"once); {cmb / (c_s / 1e3):.3f} MB/s ({c_s / 1e3:.4f} s once), "
+          f"{c_launches} E1 launches (2 a document); encode_core "
+          f"{core_s:.4f} s (synchronised), the host outside it "
+          f"{c_s / 1e3 - core_s:.4f} s; encode_batch "
+          f"with the special registered: per text, {2 * n_c} launches, == "
+          f"run B [{CARD}]")
+    del ids_c, joined, per_text, docs_c, batch_c
+
+    # run D: config 4's GPT pre-split on the first 256 MB
+    gtext = text[:C4_BYTES]
+    del text
+    gdata = gtext.encode()
+    gtok = Tokenizer(merges, pattern="gpt", device=device)
+    gtok.encode_array(gtext[:C3_SLICE])                       # warm-up
+    reset_counts()
+    g_s, g_peak, gids = timed_peak(lambda: gtok.encode_array(gtext), device)
+    g_launches = encode_ops.encode_core.launches
+    gcpu_s, gwant = best_ms(lambda: Tokenizer(
+        merges, pattern="gpt", backend="cpu").encode_array(gtext), 1)
+    check(np.array_equal(gids, gwant), "config 4: gpt ids == the CPU's")
+    del gids, gwant
+    scan_s, starts = best_ms(lambda: pretokenize.gpt_starts_bytes(gdata), 1)
+    g_lens = np.diff(np.append(starts, len(gdata)))
+    g_win = len(encode_ops.stream_windows(g_lens)) - 1
+    check(g_launches == 2 * g_win, "config 4: two E1 launches a window")
+    cp = np.frombuffer(gdata, np.uint8)
+    check(int(cp.max()) < 0x80, "the corpus is ASCII: a byte a character")
+    cp = cp.astype(np.uint32)
+    reset_counts()
+    p_s, p_peak, p_starts = timed_peak(
+        lambda: pretok_ops.gpt_starts_device(cp, device), device)
+    p_launches = pretok_ops.gpt_starts_mask.launches
+    check(p_launches == 2, "config 4: gpt_starts_device launched P1 twice")
+    check(np.array_equal(p_starts, starts),
+          "config 4: P1's starts == the native scanner's, 256M characters")
+    del p_starts
+    table_c = pretok_ops.class_table()
+    look_ms, cls_np = best_ms(lambda: table_c[cp].astype(np.int8), 1)
+    cls = torch.from_numpy(cls_np).to(device)
+    del cls_np
+    p1_ms = p1_kernel_ms(cls, len(cp), device)
+    p1_b = bound(2 * len(cp), 5 * len(cp))
+    gmb = len(gdata) / 1e6
+    print(f"[config4] v{v} run D, the GPT pattern on {len(gdata)} bytes "
+          f"({len(starts)} chunks, {g_win} windows): encode_array "
+          f"{g_s:.4f} s ({gmb / g_s:.3f} MB/s, {g_launches} E1 launches, "
+          f"peak {g_peak / 1e9:.3f} GB) == the CPU backend's "
+          f"({gmb / (gcpu_s / 1e3):.3f} MB/s); the native scanner "
+          f"{gmb / (scan_s / 1e3):.3f} MB/s ({scan_s / 1e3:.4f} s); "
+          f"gpt_starts_device over {len(cp)} code points {p_s:.4f} s "
+          f"({p_launches} P1 launches, peak {p_peak / 1e9:.3f} GB) == the "
+          f"scanner's starts: host class lookup {look_ms:.3f} ms, P1 "
+          f"{p1_ms:.4f} ms a call (CUDA events, {KERNEL_REPS} calls), bound "
+          f"{p1_b['bound_ms']:.6f} ms ({p1_b['bound_by']}), "
+          f"{p1_ms / p1_b['bound_ms']:.1f}x [{CARD}]")
+    del cls, cp, starts, g_lens
+
+    # E1 and P1 against their plain versions on 1 MB slices
+    table = encode_ops._get_table(merges, v, tok._tables(), device)
+    sl = np.frombuffer(gdata[:C3_SLICE], np.uint8).copy()
+    lens = encode_ops.ws_chunk_lens(sl)
+    df = torch.from_numpy(sl).to(device)
+    ms, plain_ms, err, n_look, cost, plain, split = encode_kernel_cost(
+        df, lens, table, v, device)
+    err_f, _ = encode_both(sl, lens.astype(np.int32), table, v, device,
+                           encode_ops._flat_plain_counts)
+    check(err_f == 0, "E1 == encode_flat_plain on the 1 MB slice")
+    print(f"{tag}: E1 on the first {len(sl)} bytes ({len(lens)} chunks): "
+          f"{ms:.6f} ms a call (merge {split[0]:.6f}, pack {split[1]:.6f}), "
+          f"plain ({plain.__name__}) {plain_ms:.4f} ms; {n_look} lookups, "
+          f"bound {cost['bound_ms']:.8f} ms ({cost['bound_by']}), "
+          f"{ms / cost['bound_ms']:.1f}x; max |E1 - {plain.__name__}| = "
+          f"{err}, max |E1 - encode_flat_plain| = {err_f} [{CARD}]")
+    cp = sl.astype(np.uint32)
+    cls = torch.from_numpy(table_c[cp].astype(np.int8)).to(device)
+    got = pretok_ops.gpt_starts_mask(cls, len(cp))
+    p_err = max_abs_diff(got, pretok_ops.gpt_starts_mask_plain(cls, len(cp)))
+    check(p_err == 0, "P1 == plain on the 1M-character slice")
+    pms = p1_kernel_ms(cls, len(cp), device)
+    p_plain = elapsed_ms(lambda: pretok_ops.gpt_starts_mask_plain(
+        cls, len(cp)), device)
+    pb = bound(2 * len(cp), 5 * len(cp))
+    print(f"[config4] P1 on the first {len(cp)} characters: {pms:.6f} ms a "
+          f"call, plain {p_plain:.4f} ms, bound {pb['bound_ms']:.8f} ms "
+          f"({pb['bound_by']}), {pms / pb['bound_ms']:.1f}x; max |P1 - "
+          f"plain| = {p_err} [{CARD}]")
+    print(f"[config3] phase 22 in {time.perf_counter() - t_phase:.1f} s "
+          f"({CARD})")
+    return [dict(launches=launches, max_abs_err=max(err, err_f), ms=ms,
+                 plain_ms=plain_ms, **cost, library_ms=None),
+            dict(launches=p_launches, max_abs_err=p_err, ms=pms,
+                 plain_ms=p_plain, **pb, library_ms=None)]
+
+
+def config3_rows(recs: list[dict], n_merges: int) -> list[dict]:
+    """The kernels-line rows of phase 22's E1 and P1 records."""
+    src = "shredword_tpu_torch/csrc/"
+    return [dict(name=f"encode@config3 v{256 + n_merges}", route="cuda",
+                 source=src + "encode.cu", replaces=TPU_KERNEL["encode"],
+                 **recs[0]),
+            dict(name="gpt_starts@config4", route="cuda",
+                 source=src + "pretok.cu", replaces=TPU_KERNEL["gpt_starts"],
+                 **recs[1])]
+
+
+# ---------------------------------------------------------------------
 # phase 18
 # ---------------------------------------------------------------------
 
@@ -4105,7 +4473,7 @@ def main() -> int:
     import torch.distributed as dist
 
     from shredword_tpu_torch.bench import (CORPUS_BYTES, CORPUS_SHA256,
-                                           make_corpus)
+                                           big_corpus_path, make_corpus)
     from shredword_tpu_torch.ops import bpe_giant, bpe_hist
     from shredword_tpu_torch.parallel import multihost
 
@@ -4147,12 +4515,13 @@ def main() -> int:
         launches["flat"], timing["flat"] = phase_flat(device, tmp, long_txt,
                                                       long_arrays)
         lap("phase 19")
-        config2 = phase_config2(device, tmp)
-        torch.cuda.empty_cache()
-        lap("phase 20")
-        config5 = phase_config5(device, tmp)
-        torch.cuda.empty_cache()
-        lap("phase 21")
+        with one_load(big_corpus_path()):
+            *config2, c2_merges = phase_config2(device, tmp)
+            torch.cuda.empty_cache()
+            lap("phase 20")
+            config5 = phase_config5(device, tmp)
+            torch.cuda.empty_cache()
+            lap("phase 21")
         # the merges that phases 3, 4 and 6 trained, for phase 13
         merges = {768: merges_of(model_768), 4096: merges_of(fused_4096[0]),
                   GIANT_VOCAB: merges_of(model_giant)}
@@ -4211,6 +4580,9 @@ def main() -> int:
         lap("phase 15")
         phase_bench(corpus)
         lap("phase 18")
+        # last: its host-heavy runs would precede the profiled phases
+        config3 = phase_config3(device, big_corpus_path(), c2_merges)
+        lap("phase 22")
     src = "shredword_tpu_torch/csrc/"
     rows = [("hist_fused_train@v768", "hist_fused.cu", 768),
             ("hist_fused_train@v4096", "hist_fused.cu", 4096),
@@ -4252,6 +4624,7 @@ def main() -> int:
                      ("encode", "encode.cu", TPU_KERNEL["encode"], 65536),
                      ("encode", "encode.cu", TPU_KERNEL["encode"], 131072)),
                     config5)]
+    kernels += config3_rows(config3, len(c2_merges))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -78,6 +78,9 @@ BIG5_VOCABS = (65536, 131072)
 BIG_CORPUS_BYTES = 1_008_579_866
 BIG_CORPUS_SHA256 = ("7c622e6e39f9bb77742001746e97857b"
                      "9a6c25ab22fe2788f0eab35a90c6ffed")
+# BASELINE config 3 (BASELINE.md:26, batch streaming) on the same corpus:
+# documents of about BIG_DOC_BYTES, each cut right after a newline
+BIG_DOC_BYTES = 65536
 ENGINES = ("hist", "giant", "flat")     # the cross-check's
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -771,6 +774,156 @@ def measure_big_vocab(corpus: str, device, vocab: int = GIANT_VOCAB,
             "engine": engine, "layout": layout,
             "chunk_width": layout["cw"] if layout else None,
             "peak_bytes": peak, "launches": got}
+
+
+def timed_peak(fn, device: torch.device) -> tuple[float, int, object]:
+    """(host seconds of fn between two synchronises, its peak device
+    memory from ``torch.cuda.max_memory_allocated``, 0 on the CPU, and
+    fn's result)."""
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    return dt, peak, out
+
+
+def big_documents(text: str, size: int = BIG_DOC_BYTES) -> list[str]:
+    """``text`` cut into documents of about ``size`` characters, each
+    ending right after the first newline at or past ``size`` characters
+    (the last one at the text's end): each document's whitespace-keep
+    chunks are then the whole text's."""
+    docs, at = [], 0
+    while at < len(text):
+        end = text.find("\n", at + size - 1)
+        end = len(text) if end < 0 else end + 1
+        docs.append(text[at:end])
+        at = end
+    return docs
+
+
+def gather_spans(flat: np.ndarray, off: np.ndarray,
+                 lens: np.ndarray) -> np.ndarray:
+    """The spans flat[off[i]:off[i] + lens[i]] concatenated."""
+    new_off = np.cumsum(lens) - lens
+    return flat[np.repeat(off - new_off, lens)
+                + np.arange(int(lens.sum()), dtype=np.int64)]
+
+
+def expand_ids(ids_u, cnt_u, inverse) -> np.ndarray:
+    """Every chunk's ids from each distinct chunk's (native memcpy)."""
+    from .runtime import native
+
+    uoff = np.zeros(len(cnt_u) + 1, np.int64)
+    np.cumsum(cnt_u, out=uoff[1:])
+    return native.expand_ids(ids_u, uoff, inverse, int(cnt_u[inverse].sum()))
+
+
+def dedup_encode(flat: np.ndarray, tok) -> tuple[np.ndarray, dict, int]:
+    """The JAX package's ``encode_ws_text`` route, once, each layer on the
+    host clock (device calls synchronised): the native whitespace-keep
+    chunking and dedup, the gather of the distinct chunks, one device
+    call over them, the native expansion to every chunk.  Returns (the
+    ids, the seconds per layer, the distinct chunks)."""
+    from .ops import encode_ops
+    from .runtime import native
+
+    layers: dict[str, float] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(tok.device)
+        layers[name] = time.perf_counter() - t0
+        return out
+
+    v = 256 + len(tok.merges)
+    table = encode_ops._get_table(tok.merges, v, tok._tables(), tok.device)
+    inverse, uoff, ulen = timed("native dedup",
+                                lambda: native.ws_chunk_dedup(flat))
+    lens_u = ulen.astype(np.int64)
+    sub = timed("gather", lambda: gather_spans(flat, uoff, lens_u))
+    ids_u, cnt_u = timed("device call", lambda: encode_ops._encode_windows(
+        sub, lens_u, table, v, tok.device, counts=True))
+    ids = timed("expand", lambda: expand_ids(ids_u, cnt_u, inverse))
+    return ids, layers, len(lens_u)
+
+
+def measure_big_encode(corpus: str, device, merges: np.ndarray,
+                       runs: tuple[int, int] = (BIG_RUNS, BIG_RUNS),
+                       decode: tuple[int, int] = (BIG_RUNS, 1),
+                       dedup: bool = False) -> dict:
+    """BASELINE config 3 on the corpus of :func:`make_big_corpus`:
+    ``Tokenizer(merges, device=device)`` encodes the whole text with
+    ``encode_array`` (run A) and its :func:`big_documents` with
+    ``encode_batch_arrays`` (run B), ``runs`` = (A's, B's) times after
+    the kernels are built, each run on the host clock between two
+    synchronises.  The concatenation of run B's arrays must equal run A's
+    ids, and run A's ids must decode to the file's bytes with
+    ``decode_bytes`` and to its text with ``decode``, ``decode`` = (the
+    former's, the latter's) times.  Returns the bytes, run A's ids
+    (``ids``) and run B's arrays (``batch``), every run's seconds, each
+    run's best MB/s and peak device memory
+    (``torch.cuda.max_memory_allocated`` of the run, 0 on the CPU), the
+    device calls of a run (``windows``, those of
+    ``encode_ops.ws_windows``), the documents, every decode's seconds
+    (``decode_times``, ``decode_str_times``) and E1's launches.
+    ``dedup`` adds the route through the distinct chunks
+    (:func:`dedup_encode`), once: its ids must equal run A's; its seconds
+    per layer under ``dedup``, its distinct chunks under ``distinct``."""
+    from .ops import _kernels, encode_ops
+    from .tokenizer import Tokenizer
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        _kernels.lib()
+    with open(corpus, "rb") as f:
+        data = f.read()
+    text = data.decode()
+    tok = Tokenizer(merges, device=dev)
+    docs = big_documents(text)
+    flat = np.frombuffer(data, np.uint8)
+    out: dict = {"bytes": len(data),
+                 "windows": len(encode_ops.ws_windows(flat)) - 1,
+                 "docs": len(docs)}
+
+    with launches(dev, "E1") as got:
+        for key, fn, n in (("a", lambda: tok.encode_array(text), runs[0]),
+                           ("b", lambda: tok.encode_batch_arrays(docs),
+                            runs[1])):
+            res = [timed_peak(fn, dev) for _ in range(n)]
+            times = [r[0] for r in res]
+            out.update({f"{key}_times": times,
+                        f"{key}_mbs": len(data) / 1e6 / min(times),
+                        f"{key}_peak_bytes": max(r[1] for r in res)})
+            out["ids" if key == "a" else "batch"] = res[-1][2]
+            del res
+        if dedup:
+            ids, out["dedup"], out["distinct"] = dedup_encode(flat, tok)
+            if not np.array_equal(ids, out["ids"]):
+                raise BenchError("the route through the distinct chunks "
+                                 "differs from encode_array's ids")
+            del ids
+    if not np.array_equal(np.concatenate(out["batch"]), out["ids"]):
+        raise BenchError("encode_batch_arrays over the documents differs "
+                         "from encode_array's ids")
+    for key, fn, want, n in (("decode_times", tok.decode_bytes, data,
+                              decode[0]),
+                             ("decode_str_times", tok.decode, text,
+                              decode[1])):
+        out[key] = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            if fn(out["ids"]) != want:
+                raise BenchError(f"the ids do not {fn.__name__} to the "
+                                 f"corpus")
+            out[key].append(time.perf_counter() - t0)
+    out["launches"] = got
+    return out
 
 
 def measure_daemon(corpus: str, device: torch.device, work: str) -> dict:

@@ -296,8 +296,10 @@ __global__ void __launch_bounds__(THREADS)
                   int* __restrict__ counts,
                   unsigned long long* __restrict__ lookups) {
   const int lane = threadIdx.x & 31;
-  const int wbase = (blockIdx.x * THREADS + threadIdx.x) & ~31;
-  if (wbase >= W) return;                       // the whole warp
+  // 64-bit until checked against W < 2^31: past it the product wraps
+  const int64_t wb = ((int64_t)blockIdx.x * THREADS + threadIdx.x) & ~31;
+  if (wb >= W) return;                          // the whole warp
+  const int wbase = (int)wb;                    // <= 2^31 - 32
   const int w = wbase + lane;
   const bool live = w < W;
   const int n = live ? lens[w] : 0;
@@ -334,7 +336,7 @@ __global__ void __launch_bounds__(THREADS)
                 const int64_t* __restrict__ start,
                 const int* __restrict__ counts,
                 const int64_t* __restrict__ ends, int W, T* __restrict__ out) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
+  const int64_t w = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (w >= W) return;
   const int n = counts[w];
   const int* src = tok + start[w];
@@ -342,7 +344,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < n; ++i) dst[i] = (T)src[i];
 }
 
-int blocks(int W) { return (W + THREADS - 1) / THREADS; }
+int blocks(int W) { return (int)(((int64_t)W + THREADS - 1) / THREADS); }
 
 }  // namespace
 

@@ -19,11 +19,15 @@ and :func:`encode_flat_plain` (any length, the flat-stream rounds).
 The host entry points (:func:`encode_stream`, :func:`encode_ws_text`,
 :func:`encode_chunks`) are the JAX package's, less what existed only for
 XLA or the TPU: no power-of-two shape buckets, no length-bucketed blocks
-(the kernel sorts no chunk into an [L, W] block), no 2 GiB stream
-windows (the kernel takes int64 offsets), no splice of chunks over 64
-bytes (the kernel takes any length) and no dedup of repeated chunks (on
-the H100 encoding every chunk is faster).  Ids and the per-group split
-are the same.
+(the kernel sorts no chunk into an [L, W] block), no splice of chunks
+over 64 bytes (the kernel takes any length) and no dedup of repeated
+chunks (on the H100 encoding every chunk was faster at 64 KB and 4 MB).
+Like the JAX package's, a stream longer than ``STREAM_WINDOW_BYTES`` is
+cut at chunk boundaries into windows of one device call each: a call
+holds about 27 bytes of device memory per byte of whitespace-chunked
+text, and the kernel takes its chunk count W and its length n as C
+``int``s, which :func:`encode_core` refuses from 2^31 on.  Ids and the
+per-group split are the same.
 """
 
 from __future__ import annotations
@@ -42,6 +46,16 @@ MAX_TW_LEN = 64      # longest chunk of encode_core_plain's [L, W] layout
 # Above this vocab the dense v*v rank table (v*v*4 bytes; 64 MB at 4096)
 # is replaced by the O(merges) hash-probe MergeTable.
 DENSE_V_MAX = 4096
+
+# One device call's stream window: encode_stream cuts longer streams at
+# chunk boundaries.  No larger than the JAX package's 2^31 - 2^27; at
+# 2^28 the 1 GB corpus's whitespace chunks peaked at 7.3 GB a call
+# against 27.0 GB in one call (chip_smoke.py phase 22; NVIDIA H100 80GB
+# HBM3, 700.00 W).
+STREAM_WINDOW_BYTES = 2 ** 28
+
+# encode_core's W and n reach csrc/encode.cu as C ints
+C_INT_LIMIT = 2 ** 31
 
 
 def _np_mix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -225,6 +239,10 @@ def encode_core(flat: torch.Tensor, lens: torch.Tensor, table, *, v: int,
         raise ValueError("flat, lens and the table must share one device")
     dev = flat.device
     W = lens.shape[0]
+    if W >= C_INT_LIMIT or flat.shape[0] >= C_INT_LIMIT:
+        raise ValueError(f"encode_core takes fewer than {C_INT_LIMIT} "
+                         f"chunks and bytes, got W {W}, n {flat.shape[0]}; "
+                         f"encode_stream windows longer streams")
     if W and (int(lens.min()) < 0 or int(lens.sum()) > flat.shape[0]):
         raise ValueError("lens must be >= 0 and sum to at most len(flat)")
     if dev.type == "cpu":
@@ -470,15 +488,115 @@ def _encode_contiguous(flat: np.ndarray, lens: np.ndarray, table, v: int,
             cnt.cpu().numpy().astype(np.int64) if counts else None)
 
 
+def _ws_mask(flat: np.ndarray) -> np.ndarray:
+    """Whether each byte is whitespace (space, tab, CR, LF)."""
+    ws = flat == 32
+    for b in (9, 13, 10):
+        ws |= flat == b
+    return ws
+
+
 def ws_chunk_lens(flat: np.ndarray) -> np.ndarray:
-    """Whitespace-keep chunk lengths of a byte stream (alternating word /
-    whitespace runs, ws = space, tab, CR, LF: whitespace_keep_split's
-    chunks), vectorized."""
-    if len(flat) == 0:
+    """Whitespace-keep chunk lengths (int64) of a byte stream (alternating
+    word / whitespace runs, ws = space, tab, CR, LF: whitespace_keep_split's
+    chunks), vectorized; at most two int64 arrays of the chunk count live
+    at once."""
+    n = len(flat)
+    if n == 0:
         return np.zeros(0, np.int64)
-    ws = (flat == 32) | (flat == 9) | (flat == 13) | (flat == 10)
-    cut = np.nonzero(ws[1:] != ws[:-1])[0] + 1
-    return np.diff(np.concatenate([[0], cut, [len(flat)]]))
+    ws = _ws_mask(flat)
+    cut = np.flatnonzero(ws[1:] != ws[:-1])     # a chunk ends at cut + 1
+    del ws
+    lens = np.empty(len(cut) + 1, np.int64)
+    if len(cut) == 0:
+        lens[0] = n
+        return lens
+    lens[0] = cut[0] + 1
+    np.subtract(cut[1:], cut[:-1], out=lens[1:-1])
+    lens[-1] = n - 1 - cut[-1]
+    return lens
+
+
+def _window_cuts(ends: np.ndarray) -> np.ndarray:
+    """Chunk-index bounds [0, c1, ..., n] of the windows over chunks that
+    end at the byte offsets ``ends``: each window ends at the last chunk
+    boundary at or below ``STREAM_WINDOW_BYTES`` from its start, and
+    holds at least one chunk (a longer chunk is a window of its own)."""
+    n = len(ends)
+    cuts = [0]
+    while cuts[-1] < n:
+        c0 = cuts[-1]
+        start = int(ends[c0 - 1]) if c0 else 0
+        c1 = int(np.searchsorted(ends, start + STREAM_WINDOW_BYTES,
+                                 side="right"))
+        cuts.append(max(c1, c0 + 1))
+    return np.array(cuts, np.int64)
+
+
+def stream_windows(lens: np.ndarray) -> np.ndarray:
+    """Chunk-index bounds [0, c1, ..., n] of :func:`encode_stream`'s
+    device calls over chunks of lengths ``lens`` (see
+    :func:`_window_cuts`); one window when the stream fits."""
+    if len(lens) == 0:
+        return np.zeros(2, np.int64)
+    return _window_cuts(np.cumsum(lens, dtype=np.int64))
+
+
+# bytes a step of ws_windows' search for a chunk boundary looks at
+WS_SCAN_BYTES = 1 << 16
+
+
+def ws_windows(flat: np.ndarray) -> list[int]:
+    """Byte bounds [0, b1, ..., n] of :func:`stream_windows`' windows over
+    the whitespace-keep chunks of ``flat``, found without the chunk
+    lengths: each cut is the last word / whitespace transition at or
+    below ``STREAM_WINDOW_BYTES`` from the window's start, or the first
+    after it when one chunk is longer.  A transition at byte p (ws[p - 1]
+    != ws[p]) is sought in steps of ``WS_SCAN_BYTES``."""
+    n = len(flat)
+    bounds = [0]
+    while n - bounds[-1] > STREAM_WINDOW_BYTES:
+        b0 = bounds[-1]
+        hi = b0 + STREAM_WINDOW_BYTES
+        cut = None
+        while cut is None and hi > b0:         # back from the window's end
+            lo = max(b0, hi - WS_SCAN_BYTES)
+            ws = _ws_mask(flat[lo:hi + 1])
+            t = np.flatnonzero(ws[1:] != ws[:-1])
+            cut = lo + int(t[-1]) + 1 if len(t) else None
+            hi = lo
+        lo = b0 + STREAM_WINDOW_BYTES
+        while cut is None and lo < n - 1:      # the long chunk's end
+            hi = min(n - 1, lo + WS_SCAN_BYTES)
+            ws = _ws_mask(flat[lo:hi + 1])
+            t = np.flatnonzero(ws[1:] != ws[:-1])
+            cut = lo + int(t[0]) + 1 if len(t) else None
+            lo = hi
+        bounds.append(n if cut is None else cut)
+    if bounds[-1] < n or n == 0:
+        bounds.append(n)
+    return bounds
+
+
+def _encode_windows(flat: np.ndarray, lens: np.ndarray, table, v: int,
+                    device, counts: bool):
+    """:func:`_encode_contiguous` over the windows of
+    :func:`stream_windows`: the ids and (when asked) the counts of every
+    window, concatenated in chunk order.  The chunks' byte offsets are
+    summed only when the stream is longer than a window."""
+    if len(flat) <= STREAM_WINDOW_BYTES:
+        return _encode_contiguous(flat, lens, table, v, device, counts)
+    lens = np.asarray(lens, np.int64)
+    ends = np.cumsum(lens)
+    cuts = _window_cuts(ends)
+    ids, cnt = [], []
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        b0 = int(ends[c0 - 1]) if c0 else 0
+        i, c = _encode_contiguous(flat[b0:int(ends[c1 - 1])], lens[c0:c1],
+                                  table, v, device, counts)
+        ids.append(i)
+        cnt.append(c)
+    return np.concatenate(ids), np.concatenate(cnt) if counts else None
 
 
 def encode_stream(flat: np.ndarray, lens: np.ndarray, merges: np.ndarray,
@@ -494,12 +612,15 @@ def encode_stream(flat: np.ndarray, lens: np.ndarray, merges: np.ndarray,
         array per group (e.g. one group per document).  Default: a
         single group.
 
-    Every chunk goes through one device call, repeated chunks too: on
-    the H100 that beats the JAX package's route through the distinct
-    chunks (a native dedup pass, the device over the distinct chunks, a
-    native expansion) at 64 KB and at 4 MB, for whitespace and GPT
-    chunks alike (``chip_smoke.py`` phase 13).  The rank table is built
-    on the device and cached in ``_cache``.
+    Every chunk goes through a device call, repeated chunks too: on the
+    H100 that beat the JAX package's route through the distinct chunks
+    (a native dedup pass, the device over the distinct chunks, a native
+    expansion) at 64 KB and at 4 MB, for whitespace and GPT chunks alike
+    (``chip_smoke.py`` phase 13).  A stream over ``STREAM_WINDOW_BYTES``
+    takes one call per window of :func:`stream_windows`, as the JAX
+    package's does; the per-chunk counts make the group split
+    window-agnostic, so groups may span windows.  The rank table is
+    built on the device and cached in ``_cache``.
     """
     n = len(lens)
     gbn = (np.array([0, n], np.int64) if group_bounds is None
@@ -508,8 +629,8 @@ def encode_stream(flat: np.ndarray, lens: np.ndarray, merges: np.ndarray,
     if n == 0:
         return [np.zeros(0, np.int32)] * g
     table = _get_table(merges, v, _cache, device)
-    ids, counts = _encode_contiguous(flat, lens, table, v, device,
-                                     counts=g > 1)
+    ids, counts = _encode_windows(flat, lens, table, v, device,
+                                  counts=g > 1)
     if g == 1:
         return [ids]
     out_off = np.zeros(n + 1, np.int64)
@@ -520,26 +641,35 @@ def encode_stream(flat: np.ndarray, lens: np.ndarray, merges: np.ndarray,
 def encode_ws_text(flat: np.ndarray, merges: np.ndarray, v: int,
                    _cache: dict | None = None,
                    device="cuda") -> np.ndarray:
-    """Whole-text encode over whitespace-keep chunking: the chunk
-    lengths in one numpy pass, then one :func:`encode_stream` call.
-    Chunks of any length take the same call (the JAX package returns
-    None above 64 bytes and splices them in through encode_chunks; the
-    ids are the same)."""
+    """Whole-text encode over whitespace-keep chunking: the text is cut
+    into :func:`ws_windows` (the windows :func:`encode_stream` would
+    take), then per window the chunk lengths in one numpy pass and one
+    device call over every chunk.  Chunks of any length take the same
+    call (the JAX package returns None above 64 bytes and splices them
+    in through encode_chunks; the ids are the same)."""
     flat = np.asarray(flat, np.uint8)
-    return encode_stream(flat, ws_chunk_lens(flat), merges, v, None,
-                         _cache, device)[0]
+    if len(flat) == 0:
+        return np.zeros(0, np.int32)
+    table = _get_table(merges, v, _cache, device)
+    bounds = ws_windows(flat)
+    ids = [_encode_contiguous(flat[b0:b1], ws_chunk_lens(flat[b0:b1]),
+                              table, v, device, counts=False)[0]
+           for b0, b1 in zip(bounds[:-1], bounds[1:])]
+    return ids[0] if len(ids) == 1 else np.concatenate(ids)
 
 
 def encode_chunks(chunks: list[bytes], table: MergeTable,
                   return_chunk_ids: bool = False):
-    """Encode a list of byte chunks of any length on the table's device;
-    returns int32 ids (optionally with each id's chunk index)."""
+    """Encode a list of byte chunks of any length on the table's device,
+    in :func:`encode_stream`'s windows; returns int32 ids (optionally
+    with each id's chunk index)."""
     if not chunks:
         ids = np.zeros(0, np.int32)
         return (ids, ids) if return_chunk_ids else ids
     lens = np.fromiter((len(c) for c in chunks), np.int64, len(chunks))
-    ids, counts = _encode_contiguous(np.frombuffer(b"".join(chunks), np.uint8),
-                                     lens, table, table.v, table.ka.device)
+    ids, counts = _encode_windows(np.frombuffer(b"".join(chunks), np.uint8),
+                                  lens, table, table.v, table.ka.device,
+                                  counts=return_chunk_ids)
     if return_chunk_ids:
         return ids, np.repeat(np.arange(len(chunks), dtype=np.int32), counts)
     return ids

@@ -468,13 +468,13 @@ def gpt_starts_mask(cls: torch.Tensor, n: int) -> torch.Tensor:
     N = cls.shape[0]
     if not 0 <= n <= N:
         raise ValueError(f"n must be in [0, {N}], got {n}")
+    if n >= GPT_MAX_N:
+        raise ValueError(f"the kernel takes n < {GPT_MAX_N}, got {n}")
     dev = cls.device
     if dev.type == "cpu":
         return gpt_starts_mask_plain(cls, n)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if n >= GPT_MAX_N:
-        raise ValueError(f"the kernel takes n < {GPT_MAX_N}, got {n}")
     out = torch.zeros(N, dtype=torch.bool, device=dev)
     if n == 0:
         return out
@@ -501,6 +501,8 @@ def gpt_starts_device(cp: np.ndarray, device="cuda") -> np.ndarray:
     n = len(cp)
     if n == 0:
         return np.zeros(0, np.int64)
+    if n >= GPT_MAX_N:
+        raise ValueError(f"the kernel takes n < {GPT_MAX_N}, got {n}")
     cls = class_table()[np.asarray(cp, np.uint32)].astype(np.int8)
     mask = gpt_starts_mask(torch.from_numpy(cls).to(dev), n)
     return torch.nonzero(mask).flatten().cpu().numpy()

@@ -11,8 +11,8 @@ base.py:111-149).
 Backends:
   - "cuda" (the default): the device encoder (``ops/encode_ops.py``) on
     ``device``, whose merge loop is ``csrc/encode.cu`` on a CUDA device
-    (one thread per distinct chunk) and its plain PyTorch version on the
-    CPU (``device="cpu"``)
+    (a lane group per chunk) and its plain PyTorch version on the CPU
+    (``device="cpu"``)
   - "cpu": the native C++ rank-loop encoder with a word memo cache
 
 Unlike the JAX package, whose ``Tokenizer`` and ``Tokenizer.load``
@@ -224,7 +224,8 @@ class Tokenizer:
     def _encode_groups_cuda(self, chunks: list[bytes],
                             bounds) -> list[np.ndarray]:
         """Device encode of chunk groups (one output array per group —
-        e.g. one group per document), all groups in one call."""
+        e.g. one group per document), all groups in one encode_stream
+        call (a device call per window)."""
         from .ops import encode_ops
         lens = np.fromiter((len(c) for c in chunks), np.int64, len(chunks))
         return encode_ops.encode_stream(
@@ -233,8 +234,8 @@ class Tokenizer:
 
     def _encode_text_cuda(self, data: bytes) -> np.ndarray:
         """Whole-text device encode: whitespace-keep chunk lengths in
-        one numpy pass, then one device call over every chunk
-        (encode_ops.encode_ws_text)."""
+        one numpy pass, then one device call over every chunk of each
+        window (encode_ops.encode_ws_text)."""
         from .ops import encode_ops
         return encode_ops.encode_ws_text(
             np.frombuffer(data, np.uint8), self.merges,

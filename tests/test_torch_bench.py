@@ -439,3 +439,47 @@ def test_encode_kernel_metric_runs_the_plain_version_on_the_cpu(corpus_1mb):
         np.frombuffer(flat, np.uint8)))
     assert got["kern_ms"] > 0 and got["kern_mbs"] > 0
     assert np.isnan(got["merge_ms"]) and np.isnan(got["pack_ms"])
+
+
+def test_measure_big_encode_on_a_heaps_corpus(heaps_400kb, monkeypatch,
+                                              one_thread):
+    """measure_big_encode on the CPU (the encode kernel's plain versions,
+    no launch counted) over the first 400 KB of a one-block Heaps-law
+    corpus, in windows of 64 KB and documents of 64 KB: run A's ids ==
+    the JAX package's native encoder's, run B's documents end after a
+    newline, the windows are stream_windows' over ws_chunk_lens, each
+    decode is timed as asked, and the route through the distinct chunks
+    gives run A's ids."""
+    from torch_encode_cases import random_merges
+
+    from shredword_tpu import Tokenizer as JaxTokenizer
+    from shredword_tpu_torch.ops import encode_ops
+
+    with open(heaps_400kb, "rb") as f:
+        data = f.read()
+    merges = random_merges(3, 700, alpha=26)
+    monkeypatch.setattr(encode_ops, "STREAM_WINDOW_BYTES", 1 << 16)
+    got = bench.measure_big_encode(heaps_400kb, "cpu", merges, runs=(2, 1),
+                                   decode=(2, 1), dedup=True)
+    want = JaxTokenizer(merges=merges, backend="cpu").encode_array(
+        data.decode())
+    np.testing.assert_array_equal(got["ids"], want)
+    lens = encode_ops.ws_chunk_lens(np.frombuffer(data, np.uint8))
+    assert got["bytes"] == len(data)
+    assert got["windows"] == len(encode_ops.stream_windows(lens)) - 1 \
+        == -(-len(data) // (1 << 16))
+    docs = bench.big_documents(data.decode())
+    assert got["docs"] == len(docs) == len(got["batch"]) >= 6
+    tok = JaxTokenizer(merges=merges)
+    assert [tok.decode(b) for b in got["batch"]] == docs
+    assert len(got["decode_times"]) == 2 and len(got["decode_str_times"]) == 1
+    assert min(got["decode_times"] + got["decode_str_times"]) > 0
+    assert all(d.endswith("\n") and len(d) >= bench.BIG_DOC_BYTES
+               for d in docs[:-1]) and "".join(docs) == data.decode()
+    assert len(got["a_times"]) == 2 and len(got["b_times"]) == 1
+    assert got["a_mbs"] > 0 and got["b_mbs"] > 0
+    assert got["a_peak_bytes"] == got["b_peak_bytes"] == 0
+    assert got["launches"] == {"E1": 0}
+    assert set(got["dedup"]) == {"native dedup", "gather", "device call",
+                                 "expand"}
+    assert 0 < got["distinct"] < len(lens)

@@ -595,6 +595,38 @@ def test_tokenizer_on_cuda_matches_cpu(cuda):
     assert Tokenizer(FHUS, device=cuda).encode("fhus") == [102, 257]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [768, 16028])
+def test_stream_windows_on_cuda_match_one_call(v, cuda, monkeypatch):
+    """encode_stream in windows of 64 KB on the card (two E1 launches a
+    window) == one call over the whole stream == the native CPU encoder,
+    with documents that span windows, for the dense and the hash
+    table."""
+    merges = random_merges(v, v - 256, alpha=26)
+    rng = np.random.RandomState(9)
+    words = ["".join(chr(97 + c) for c in rng.randint(0, 26, k))
+             for k in rng.randint(1, 12, 120000)]
+    text = " ".join(words) + "\n" + "y" * 70000 + " end"
+    docs = [text[i:i + 50000] for i in range(0, len(text), 50000)]
+    tok = Tokenizer(merges, device=cuda)
+    one = tok.encode_array(text)
+    one_b = tok.encode_batch_arrays(docs)
+    window = 1 << 16
+    monkeypatch.setattr(encode_ops, "STREAM_WINDOW_BYTES", window)
+    lens = encode_ops.ws_chunk_lens(np.frombuffer(text.encode(), np.uint8))
+    n_win = len(encode_ops.stream_windows(lens)) - 1
+    assert n_win > len(text) // window
+    n0 = encode_ops.encode_core.launches
+    ids = tok.encode_array(text)
+    assert encode_ops.encode_core.launches - n0 == 2 * n_win
+    np.testing.assert_array_equal(ids, one)
+    np.testing.assert_array_equal(
+        ids, Tokenizer(merges, backend="cpu").encode_array(text))
+    for got, want in zip(tok.encode_batch_arrays(docs), one_b):
+        np.testing.assert_array_equal(got, want)
+    assert tok.decode(ids) == text
+
+
 # ---------------------------------------------------------------------
 # the Unigram lattice kernels (csrc/unigram.cu)
 # ---------------------------------------------------------------------

@@ -299,3 +299,186 @@ def test_encode_core_rejects_bad_input():
     big = torch.tensor([0, 255, 32767, 32768, 65535], dtype=torch.int32)
     np.testing.assert_array_equal(P.ids_to_numpy(P._to_out(big, 65536)),
                                   big.numpy())
+
+
+# ---------------------------------------------------------------------
+# stream windows (JAX: tests/test_advice_r3.py
+# test_encode_stream_windows_large_streams)
+# ---------------------------------------------------------------------
+
+WINDOW = 4096        # STREAM_WINDOW_BYTES patched small on both packages
+
+
+def _windowed(monkeypatch, window=WINDOW):
+    monkeypatch.setattr(J, "STREAM_WINDOW_BYTES", window)
+    monkeypatch.setattr(P, "STREAM_WINDOW_BYTES", window)
+
+
+def _spy_calls(monkeypatch) -> list:
+    """The (bytes, chunks) of every device call the port makes."""
+    calls = []
+    orig = P._encode_contiguous
+
+    def spy(flat, lens, *args, **kw):
+        calls.append((len(flat), len(lens)))
+        return orig(flat, lens, *args, **kw)
+
+    monkeypatch.setattr(P, "_encode_contiguous", spy)
+    return calls
+
+
+@pytest.mark.parametrize("v", [768, 5000])
+def test_encode_stream_windows_match_jax(v, monkeypatch):
+    """The JAX test's stream (4,000 words of 1-11 bytes, groups that span
+    windows) with windows of 4 KB on both packages: the port's windowed
+    encode_stream == its one call == the JAX package's windowed one, and
+    each call holds at most 4 KB, cut at a chunk boundary."""
+    rng = np.random.default_rng(8 + v)
+    words = [bytes(rng.integers(97, 110, int(rng.integers(1, 12))).tolist())
+             for _ in range(4000)]
+    flat = np.frombuffer(b"".join(words), np.uint8)
+    lens = np.array([len(w) for w in words], np.int64)
+    merges = random_merges(v, v - 256, alpha=13)
+    gbn = np.array([0, 7, 1500, 1501, 1501, 4000], np.int64)
+    whole = P.encode_stream(flat, lens, merges, v, gbn, device="cpu")
+    _windowed(monkeypatch)
+    calls = _spy_calls(monkeypatch)
+    got = P.encode_stream(flat, lens, merges, v, gbn, device="cpu")
+    want = J.encode_stream(flat, lens, merges, v, gbn)
+    assert len(got) == len(whole) == len(want) == 5 and len(got[3]) == 0
+    for g, o, w in zip(got, whole, want):
+        np.testing.assert_array_equal(g, o)
+        np.testing.assert_array_equal(g, w)
+    assert len(calls) == -(-len(flat) // WINDOW) >= 6
+    assert all(b <= WINDOW for b, _ in calls)
+    assert sum(b for b, _ in calls) == len(flat)
+    assert sum(c for _, c in calls) == len(lens)
+    bounds = P.stream_windows(lens)
+    ends = np.concatenate([[0], np.cumsum(lens)])
+    assert (ends[bounds[1:-1]] - ends[bounds[:-2]] <= WINDOW).all()
+    # each window ends at the last chunk boundary that fits
+    assert (ends[bounds[1:-1] + 1] - ends[bounds[:-2]] > WINDOW).all()
+
+
+def test_chunk_longer_than_a_window_matches_jax(monkeypatch):
+    """A chunk over the window takes a window of its own; the ids match
+    one call and the JAX package's encode_chunks (any length), also
+    through the port's encode_chunks, which takes the same windows."""
+    merges = random_merges(21, 400, alpha=4)
+    flat, lens = random_chunks(22, 600, alpha=4)
+    starts = np.cumsum(lens) - lens
+    parts = [flat[s:s + n] for s, n in zip(starts, lens)]
+    rng = np.random.RandomState(23)
+    for at, n in ((600, 4097), (300, 9000), (0, 5000)):
+        parts.insert(at, (97 + rng.randint(0, 4, n)).astype(np.uint8))
+    lens = np.array([len(p) for p in parts], np.int64)
+    flat = np.concatenate(parts)
+    chunks = [p.tobytes() for p in parts]
+    v = 656
+    gbn = np.array([0, 1, 300, 302, len(lens)], np.int64)
+    whole = P.encode_stream(flat, lens, merges, v, gbn, device="cpu")
+    want, want_cid = J.encode_chunks(chunks, J.build_merge_table(merges),
+                                     return_chunk_ids=True)
+    _windowed(monkeypatch)
+    calls = _spy_calls(monkeypatch)
+    got = P.encode_stream(flat, lens, merges, v, gbn, device="cpu")
+    for g, o in zip(got, whole):
+        np.testing.assert_array_equal(g, o)
+    np.testing.assert_array_equal(np.concatenate(got), want)
+    assert (5000, 1) in calls and (9000, 1) in calls and (4097, 1) in calls
+    assert len(calls) >= 6
+    del calls[:]
+    ids, cid = P.encode_chunks(chunks, P.build_merge_table(merges, "cpu"),
+                               return_chunk_ids=True)
+    np.testing.assert_array_equal(ids, want)
+    np.testing.assert_array_equal(cid, want_cid)
+    assert len(calls) >= 6
+
+
+@pytest.mark.parametrize("pattern", ["", "gpt"])
+def test_tokenizer_windows_match_jax(pattern, monkeypatch):
+    """Tokenizer.encode_array and encode_batch_arrays with 4 KB windows:
+    the port (whitespace chunks, and the GPT pre-split through
+    encode_stream) == its unwindowed ids == the JAX package's tpu
+    backend, windowed the same; documents span windows."""
+    merges = random_merges(31, 700, alpha=26)
+    rng = np.random.RandomState(32)
+    words = ["".join(chr(97 + c) for c in rng.randint(0, 26, k))
+             for k in rng.randint(1, 10, 6000)]
+    text = " ".join(words[:3000]) + "\n" + "  ".join(words[3000:]) + "\n"
+    docs = [text[i:i + 3000] for i in range(0, len(text), 3000)]
+    tok = Tokenizer(merges, pattern=pattern, device="cpu")
+    whole = tok.encode_array(text)
+    whole_b = tok.encode_batch_arrays(docs)
+    _windowed(monkeypatch)
+    calls = _spy_calls(monkeypatch)
+    jt = JaxTokenizer(merges=merges, pattern=pattern, backend="tpu")
+    got = tok.encode_array(text)
+    n_calls = len(calls)
+    assert n_calls >= -(-len(text) // WINDOW) >= 10
+    np.testing.assert_array_equal(got, whole)
+    np.testing.assert_array_equal(got, jt.encode(text))
+    batch = tok.encode_batch_arrays(docs)
+    assert len(calls) - n_calls >= 10
+    want = jt.encode_batch(docs)
+    for g, o, w in zip(batch, whole_b, want):
+        np.testing.assert_array_equal(g, o)
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(np.concatenate(batch), got)
+
+
+def test_encode_core_refuses_c_int_overflow(monkeypatch):
+    """W and n reach csrc/encode.cu as C ints, which ctypes wraps without
+    a word: encode_core raises from C_INT_LIMIT (patched to 8 here) on,
+    on the CPU too, before the plain versions run."""
+    monkeypatch.setattr(P, "C_INT_LIMIT", 8)
+    merges = random_merges(1, 40)
+    table = P.build_rank_table(merges, 296, "cpu")
+    with pytest.raises(ValueError, match="fewer than 8"):
+        P.encode_core(torch.zeros(8, dtype=torch.uint8),
+                      torch.ones(4, dtype=torch.int32), table, v=296)
+    with pytest.raises(ValueError, match="W 8"):
+        P.encode_core(torch.zeros(7, dtype=torch.uint8),
+                      torch.zeros(8, dtype=torch.int32), table, v=296)
+    ids, counts = P.encode_core(torch.full((7,), 97, dtype=torch.uint8),
+                                torch.tensor([3, 4], dtype=torch.int32),
+                                table, v=296)
+    assert counts.sum() == len(ids) > 0
+    # the windows keep each call below the limit
+    monkeypatch.setattr(P, "STREAM_WINDOW_BYTES", 7)
+    flat = np.full(40, 97, np.uint8)
+    got = P.encode_stream(flat, np.full(20, 2, np.int64), merges, 296,
+                          device="cpu")[0]
+    monkeypatch.setattr(P, "C_INT_LIMIT", 2 ** 31)
+    monkeypatch.setattr(P, "STREAM_WINDOW_BYTES", 2 ** 28)
+    np.testing.assert_array_equal(got, P.encode_stream(
+        flat, np.full(20, 2, np.int64), merges, 296, device="cpu")[0])
+
+
+@pytest.mark.parametrize("window,scan", [(1, 1), (7, 3), (64, 5),
+                                         (300, 1 << 16)])
+def test_ws_windows_are_stream_windows(window, scan, monkeypatch):
+    """encode_ws_text's byte windows (each cut found by a search for a
+    word / whitespace transition in steps of WS_SCAN_BYTES, without the
+    chunk lengths) are stream_windows' over ws_chunk_lens, on seeded
+    texts with whitespace runs and chunks longer than the window; its
+    ids equal one call's."""
+    monkeypatch.setattr(P, "STREAM_WINDOW_BYTES", window)
+    monkeypatch.setattr(P, "WS_SCAN_BYTES", scan)
+    rng = np.random.default_rng(window)
+    alphabet = np.frombuffer(b"ab \n\t\r", np.uint8)
+    for _ in range(150):
+        flat = rng.choice(alphabet, int(rng.integers(0, 700)),
+                          p=rng.dirichlet(np.ones(6))).astype(np.uint8)
+        if len(flat) > 200:
+            at = int(rng.integers(0, 100))
+            flat[at:at + int(rng.integers(1, 3 * window + 2))] = 97
+        ends = np.concatenate([[0], np.cumsum(P.ws_chunk_lens(flat))])
+        want = ends[P.stream_windows(P.ws_chunk_lens(flat))].tolist()
+        assert P.ws_windows(flat) == want
+    merges = random_merges(41, 300, alpha=4)
+    text = np.frombuffer(b"abba  ab\n\tbbbbbbbbbbbbbbbbab a " * 40, np.uint8)
+    got = P.encode_ws_text(text, merges, 556, device="cpu")
+    monkeypatch.setattr(P, "STREAM_WINDOW_BYTES", len(text))
+    np.testing.assert_array_equal(
+        got, P.encode_ws_text(text, merges, 556, device="cpu"))

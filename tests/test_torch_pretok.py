@@ -161,3 +161,21 @@ def test_device_splitter_defaults_to_the_card():
     n0 = P.gpt_starts_mask.launches
     np.testing.assert_array_equal(P.gpt_starts_device(cp), P.gpt_starts(cp))
     assert P.gpt_starts_mask.launches == n0 + 2
+
+
+def test_splitter_refuses_n_past_its_limit(monkeypatch):
+    """P1 keys a run start as 2 p + bit in a C int, so the wrapper and
+    gpt_starts_device refuse n >= GPT_MAX_N (2^30; patched to 64 here)
+    on the CPU too, before the plain version runs; below it they give
+    the starts."""
+    monkeypatch.setattr(P, "GPT_MAX_N", 64)
+    cp = code_points("we'll buy 123 apples!\n  next line, " * 4)
+    cls = torch.from_numpy(P.class_table()[cp].astype(np.int8))
+    with pytest.raises(ValueError, match="n < 64"):
+        P.gpt_starts_mask(cls, 64)
+    with pytest.raises(ValueError, match="n < 64"):
+        P.gpt_starts_device(cp[:64], device="cpu")
+    np.testing.assert_array_equal(P.gpt_starts_device(cp[:63], "cpu"),
+                                  P.gpt_starts(cp[:63]))
+    assert torch.equal(P.gpt_starts_mask(cls, 63),
+                       P.gpt_starts_mask_plain(cls, 63))

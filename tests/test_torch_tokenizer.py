@@ -15,6 +15,7 @@ import shredword_tpu
 import shredword_tpu_torch
 from shredword_tpu import Tokenizer as JaxTokenizer
 from shredword_tpu_torch import Tokenizer, merge, pretokenize
+from shredword_tpu_torch.bench import big_documents
 from shredword_tpu_torch.errors import ConfigError, DecodeError, EncodeError
 
 BACKENDS = ("cuda", "cpu")          # the port's; "cuda" on device="cpu"
@@ -154,6 +155,42 @@ def test_special_tokens(trained):
             jt.encode(text, allowed_special=allowed)
     with pytest.raises(EncodeError):
         tok.encode(text, allowed_special=3)
+
+
+@pytest.mark.parametrize("pattern", ["", "gpt"])
+def test_endoftext_documents_match_jax(pattern):
+    """Documents cut right after a newline and joined by a registered
+    <|endoftext|> (64 KB documents in the 1 GB run, 2 KB here): the
+    port's encode(allowed_special="all") == the JAX package's == each
+    document's ids with the special's id between them, decode gives the
+    joined text back, and encode_batch with the special registered (the
+    per-text path) == encode_batch_arrays without it."""
+    merges = random_merges(41, 900, alpha=26)
+    rng = np.random.RandomState(42)
+    words = ["".join(chr(97 + c) for c in rng.randint(0, 26, k))
+             for k in rng.randint(1, 12, 4000)]
+    text = "".join(w + ("\n" if i % 16 == 15 else " ")
+                   for i, w in enumerate(words))
+    docs = big_documents(text, 2048)
+    assert len(docs) >= 10 and all(d.endswith("\n") for d in docs)
+    eot = 256 + len(merges)
+    plain = _tok(merges, pattern=pattern)
+    per_doc = plain.encode_batch_arrays(docs)
+    tok = _tok(merges, pattern=pattern,
+               special_tokens={"<|endoftext|>": eot})
+    joined = "<|endoftext|>".join(docs)
+    ids = tok.encode(joined, allowed_special="all")
+    want = []
+    for i, d in enumerate(per_doc):
+        want += ([eot] if i else []) + d.tolist()
+    assert ids == want
+    jt = JaxTokenizer(merges=merges, pattern=pattern,
+                      special_tokens={"<|endoftext|>": eot}, backend="tpu")
+    assert ids == jt.encode(joined, allowed_special="all")
+    assert tok.decode(ids) == joined
+    batch = tok.encode_batch(docs)
+    assert batch == [d.tolist() for d in per_doc]
+    assert np.array_equal(np.concatenate(per_doc), plain.encode_array(text))
 
 
 def test_special_id_collision_rejected(trained):
