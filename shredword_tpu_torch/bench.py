@@ -926,6 +926,641 @@ def measure_big_encode(corpus: str, device, merges: np.ndarray,
     return out
 
 
+# ---------------------------------------------------------------------
+# Unigram at GB scale
+# ---------------------------------------------------------------------
+
+# the JAX bench's Unigram default config (bench.py:400), every other
+# setting at its default: max_piece_len 15, max_word_len 32, shrink 0.75,
+# 2 EM rounds
+UNI_DEFAULT = dict(target_vocab_size=8192, seed_size=100_000)
+UNI_SAMPLE = 10_000         # distinct words held against the host DP
+UNI_SAMPLE_SEED = 19
+UNI_PPW_BYTES = 10 ** 6     # pieces per word: over the prefix's first MB
+
+
+def prefix_bytes(corpus: str, mb: float) -> bytes:
+    """The first ``mb`` MB (10^6 bytes) of the file, cut right after the
+    last newline there; the whole file when it is not longer."""
+    n = int(mb * 10 ** 6)
+    with open(corpus, "rb") as f:
+        data = f.read(n + 1)
+    if len(data) <= n:
+        return data
+    cut = data.rfind(b"\n", 0, n) + 1
+    if cut == 0:
+        raise BenchError(f"no newline in the first {mb:g} MB of {corpus}")
+    return data[:cut]
+
+
+def rss_bytes() -> int:
+    """This process's peak resident set so far (``ru_maxrss``, which
+    Linux gives in KB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def marker_words(norm: bytes) -> bytes:
+    """Normalized bytes as the Unigram encoder's ids decode them: every
+    word (a run between newlines and U+2581 markers) with one marker
+    before it."""
+    from .models.unigram import _MARKER
+
+    b = norm.replace(b"\n", _MARKER)
+    while _MARKER * 2 in b:
+        b = b.replace(_MARKER * 2, _MARKER)
+    if b.startswith(_MARKER):
+        b = b[len(_MARKER):]
+    if b.endswith(_MARKER):
+        b = b[:-len(_MARKER)]
+    return _MARKER + b if b else b""
+
+
+class Recorder:
+    """A kernel wrapper that keeps the arguments of the calls that
+    ``keep(i)`` picks (every call by default), i counting the calls from
+    0, with each table (the first argument) copied to the host so that
+    it holds no device memory, and forwards the kernel's launch count."""
+
+    def __init__(self, fn, keep=lambda i: True):
+        self.fn, self.keep, self.calls, self.n = fn, keep, {}, 0
+
+    def __call__(self, *args, **kw):
+        if self.keep(self.n):
+            self.calls[self.n] = ((args[0].cpu(), *args[1:]), kw)
+        self.n += 1
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+
+def checked_slabs(lengths: list[int]) -> set[int]:
+    """The first, a middle and the last slab of each length bucket, by
+    their place in the list of slabs' lengths L."""
+    by_len: dict[int, list[int]] = {}
+    for i, L in enumerate(lengths):
+        by_len.setdefault(L, []).append(i)
+    return {i for idx in by_len.values()
+            for i in (idx[0], idx[len(idx) // 2], idx[-1])}
+
+
+class Timed:
+    """A function that records CUDA events around each call (no
+    synchronisation inside the loop).  Where the host enqueues more slowly
+    than the device runs, the device waits for the host between the
+    events and their span is the host's time to enqueue the call; with
+    ``lead`` cycles a spin kernel runs first, the call is enqueued while
+    it spins, and the span is the device's time for the call alone (when
+    the spin outlasts the enqueue: ``enqueue_ms`` is the host's time for
+    each call)."""
+
+    def __init__(self, fn, lead: int = 0, keep: bool = False):
+        self.fn = fn
+        self.lead = lead
+        self.keep = keep
+        self.events = []
+        self.enqueue_ms = []
+        self.outs = []       # what fn returned, when keep
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if self.lead:
+            torch.cuda._sleep(self.lead)
+        start.record()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        self.enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        self.events.append((start, end))
+        if self.keep:
+            self.outs.append(out)
+        return out
+
+    # a kernel wrapper counts its launches on the module attribute it is
+    # called through, which may be this object while it stands in for it
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def ms(self, calls: int | None = None) -> float:
+        """Device ms of the first `calls` calls (of all by default)."""
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[:calls])
+
+
+class HostClock:
+    """Host seconds of wrapped functions, summed per name; with sync the
+    device is synchronized after each call and its wait is kept apart
+    under "<name> wait"."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.secs: dict = {}
+        self.calls: dict = {}
+
+    def add(self, name: str, sec: float) -> None:
+        self.secs[name] = self.secs.get(name, 0.0) + sec
+
+    def wrap(self, name: str, fn, sync: bool = False):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            t1 = time.perf_counter()
+            self.add(name, t1 - t0)
+            self.calls[name] = self.calls.get(name, 0) + 1
+            if sync:
+                torch.cuda.synchronize(self.device)
+                self.add(name + " wait", time.perf_counter() - t1)
+            return out
+        wrapped.launches = 0    # a wrapper counts on the name it is under
+        return wrapped
+
+
+class LayerClock(HostClock):
+    """A HostClock whose wraps stand in for module attributes inside
+    ``with``: ``timed`` wraps a host call by name, ``evented`` puts a
+    :class:`Timed` around an entry point of the kernel library (the
+    launch alone: no host check or copy inside).  Every wrap is undone
+    at the block's end."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        self.timers: dict[str, Timed] = {}
+        self._undo: list = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in reversed(self._undo):
+            setattr(obj, attr, fn)
+        self._undo.clear()
+
+    def patch(self, obj, attr: str, wrap) -> None:
+        fn = getattr(obj, attr)
+        self._undo.append((obj, attr, fn))
+        setattr(obj, attr, wrap(fn))
+
+    def timed(self, obj, attr: str, name: str) -> None:
+        self.patch(obj, attr, lambda fn: self.wrap(name, fn))
+
+    def evented(self, lib, attr: str, name: str) -> None:
+        def wrap(fn):
+            self.timers[name] = Timed(fn)
+            return self.timers[name]
+        self.patch(lib, attr, wrap)
+
+    def device_ms(self, name: str):
+        """Summed ms of the launches, None off a card."""
+        if self.device.type != "cuda":
+            return None
+        return self.timers[name].ms()
+
+
+def _seed_layers(clock: LayerClock, marks: dict) -> None:
+    """Wraps ``native.SeedVocab`` so that ``marks`` gets the time it is
+    made, its entries before the export, and the export's and free's
+    spans."""
+    from .runtime import native
+
+    def init(fn):
+        def call(self):
+            marks["made"] = time.perf_counter()
+            fn(self)
+        return call
+
+    def export(fn):
+        def call(self, top_k):
+            marks["entries"] = len(self)
+            t0 = time.perf_counter()
+            out = fn(self, top_k)
+            marks["export"] = (t0, time.perf_counter())
+            return out
+        return call
+
+    def free(fn):
+        def call(self):
+            t0 = time.perf_counter()
+            held = bool(self._h)
+            fn(self)
+            if held:
+                marks["free"] = (t0, time.perf_counter())
+        return call
+
+    for attr, wrap in (("__init__", init), ("export", export),
+                       ("free", free)):
+        clock.patch(native.SeedVocab, attr, wrap)
+
+
+def u1_vs_plain(args, **kw) -> tuple[float, float, bool]:
+    """U1 (``fb_core``) and its plain version on the same tensors: (max
+    |diff| over the counts, the log-likelihood's relative difference,
+    whether the counts are float64 within rtol 1e-5 / atol 1e-6 and the
+    log-likelihood within 1e-6 relative)."""
+    from .ops import unigram_ops as U
+
+    counts, ll = U.fb_core(*args, **kw)
+    pc, pll = U.fb_core_plain(*args[:4])
+    err = float((counts - pc).abs().max()) if len(pc) else 0.0
+    rel = abs(float(ll) - float(pll)) / max(abs(float(pll)), 1e-300)
+    ok = (counts.dtype == torch.float64 and rel <= 1e-6
+          and bool(torch.allclose(counts, pc, rtol=1e-5, atol=1e-6)))
+    return err, rel, ok
+
+
+def u2_is_plain(ids, lp, wlen) -> bool:
+    """U2 (``viterbi_core``), with the backtrace and scores only, gives
+    exactly what its plain version gives in the same form."""
+    from .ops import unigram_ops as U
+
+    for bt in (False, True):
+        got = U.viterbi_core(ids, lp, wlen, backtrace=bt)
+        want = U.viterbi_core_plain(ids, lp, wlen, backtrace=bt)
+        if not all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(got, want)):
+            return False
+    return True
+
+
+def check_unigram_kernels(fb_calls: dict, vit_call, device) -> dict:
+    """:func:`u1_vs_plain` on the recorded E-step slabs (``fb_calls``:
+    slab -> its call) and :func:`u2_is_plain` on ``vit_call``'s slab,
+    each table uploaded to ``device`` again.  Raises BenchError where
+    they differ.  Returns the slabs' records and U2's."""
+    slabs = []
+    for i in sorted(fb_calls):
+        (ids, *rest), kw = fb_calls[i]
+        err, rel, ok = u1_vs_plain((ids.to(device), *rest), **kw)
+        if not ok:
+            raise BenchError(f"U1 differs from its plain version on E-step "
+                             f"slab {i} (max |diff| {err}, ll relative "
+                             f"{rel})")
+        slabs.append(dict(slab=i, L=int(ids.shape[0]), W=int(ids.shape[2]),
+                          max_abs_err=err, ll_rel=rel))
+    (ids, lp, wlen), _ = vit_call
+    if not u2_is_plain(ids.to(device), lp, wlen):
+        raise BenchError("U2 differs from its plain version on the first "
+                         "prune's first slab")
+    return dict(u1=slabs, u2=dict(L=int(ids.shape[0]), K=int(ids.shape[1]),
+                                  W=int(ids.shape[2]), identical=True))
+
+
+def check_unigram_model(t) -> None:
+    """The trained model has its target's pieces, finite log-probs, and
+    every byte of its corpus's words as a piece."""
+    cfg = t.config
+    if len(t.pieces) != cfg.target_vocab_size:
+        raise BenchError(f"{len(t.pieces)} pieces, not "
+                         f"{cfg.target_vocab_size}")
+    if not np.isfinite(t.log_probs).all():
+        raise BenchError("a log-prob is not finite")
+    seen = np.unique(np.frombuffer(b"".join(t._words), np.uint8))
+    singles = {p[0] for p in t.pieces if len(p) == 1}
+    missing = [int(b) for b in seen if int(b) not in singles]
+    if missing:
+        raise BenchError(f"bytes of the corpus without a piece: {missing}")
+
+
+def check_unigram_sample(tok, n: int = UNI_SAMPLE,
+                         seed: int = UNI_SAMPLE_SEED) -> int:
+    """The encoder's ids of a seeded sample of ``n`` of its distinct
+    words against the host DP (``encode_word``); a word may take another
+    path of the same score within 1e-6 relative (a float32 near-tie).
+    Returns how many did."""
+    words = list(tok._memo)
+    pick = np.random.default_rng(seed).choice(
+        len(words), min(n, len(words)), replace=False)
+    flips = 0
+    for i in sorted(pick.tolist()):
+        w = words[i]
+        got, want = tok._memo[w], tok.encode_word(w)
+        if got == want:
+            continue
+        a = float(np.sum(tok.log_probs[got]))
+        b = float(np.sum(tok.log_probs[want]))
+        if b"".join(tok.pieces[j] for j in got) != w \
+                or abs(a - b) > 1e-6 * abs(b):
+            raise BenchError(f"encode differs from the host DP on {w!r}: "
+                             f"{got} ({a!r}) against {want} ({b!r})")
+        flips += 1
+    return flips
+
+
+def _train_unigram(path: str, data: bytes, device: torch.device) -> tuple:
+    """The trainer's load_corpus and train() on ``path`` (whose bytes are
+    ``data``), each layer timed (see measure_big_unigram).  Returns (the
+    trainer, the record, the recorded U1 and U2 calls)."""
+    from .models.unigram import UnigramTrainer
+    from .ops import _kernels
+    from .ops import unigram_ops as U
+    from .runtime import native
+
+    out: dict = {}
+    marks: dict = {}
+    t = UnigramTrainer(**UNI_DEFAULT, device=device)
+    picked: list = []
+
+    def first_round(i: int) -> bool:
+        # the first E-step's calls, one per slab in order, at the seed
+        # pieces (the slabs exist by the first call)
+        if not picked:
+            picked.append(checked_slabs([int(dt.ids.shape[0])
+                                         for dt in t._slabs]))
+        return i in picked[0]
+
+    fb = Recorder(U.fb_core, first_round)
+    vit = Recorder(U.viterbi_core, lambda i: i == 0)
+    n0 = (U.fb_core.launches, U.viterbi_core.launches)
+    with LayerClock(device) as clock:
+        clock.timed(native, "normalize", "normalize")
+        t0 = time.perf_counter()
+        t.load_corpus(path)
+        load_s = time.perf_counter() - t0
+        out["peak_rss_load_bytes"] = rss_bytes()
+        _seed_layers(clock, marks)
+        clock.patch(U, "fb_core", lambda f: fb)
+        clock.patch(U, "viterbi_core", lambda f: vit)
+        if device.type == "cuda":
+            lib = _kernels.lib()
+            clock.evented(lib, "shred_unigram_fb", "U1")
+            clock.evented(lib, "shred_unigram_viterbi", "U2")
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        n = t.train()
+        _sync(device)
+        train_s = time.perf_counter() - t0
+        out["launches"] = {"U1": fb.launches - n0[0],
+                           "U2": vit.launches - n0[1]}
+        out["u1_ms"] = clock.device_ms("U1")
+        out["u2_prune_ms"] = clock.device_ms("U2")
+    if device.type == "cuda" and 0 in out["launches"].values():
+        raise BenchError(f"U1 or U2 never launched on {device}: "
+                         f"{out['launches']}")
+    tm = t.timings
+    made, (e0, e1), (f0, f1) = marks["made"], marks["export"], marks["free"]
+    norm_s = clock.secs["normalize"]
+    out["layers"] = {
+        "load: normalize": norm_s,
+        "load: read, split and count": load_s - norm_s,
+        "seed: adds": e0 - made, "seed: export and sort": e1 - e0,
+        "seed: free": f1 - f0, "seed: singles": tm["seed"] - (f1 - made),
+        "tables": tm.get("tables", 0.0), "e_step": tm["e_step"],
+        "m_step": tm["m_step"], "prune": tm.get("prune", 0.0)}
+    wc = t._wcounts
+    lens = collections.Counter(int(dt.ids.shape[0]) for dt in t._slabs)
+    out.update(
+        load_s=load_s, train_s=train_s,
+        train_mbs=len(data) / 1e6 / train_s, pieces=n,
+        unique_words=len(t._words), occurrences=int(wc.sum()),
+        max_count=int(wc.max()),
+        count_f32_max_err=float(np.abs(wc.astype(np.float32)
+                                       .astype(np.float64) - wc).max()),
+        seed_entries=marks["entries"],
+        slabs={str(L): lens[L] for L in sorted(lens)},
+        final_ll=t.final_ll, ll_per_word=t.final_ll_per_word,
+        ll_per_byte=t.final_ll_per_byte,
+        peak_device_bytes=(torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else 0),
+        peak_rss_bytes=rss_bytes())
+    return t, out, fb.calls, vit.calls.get(0)
+
+
+def _encode_unigram(tok, text: str, device: torch.device) -> dict:
+    """``tok.encode_array(text)`` once, its layers timed, then
+    ``decode_bytes`` and ``decode`` (see measure_big_unigram)."""
+    from .models.unigram import _MARKER
+    from .ops import _kernels
+    from .ops import unigram_ops as U
+    from .runtime import native
+
+    nbytes = len(text.encode())
+    n0 = U.viterbi_core.launches
+    words: list[int] = []
+
+    def count_words(fn):
+        def call(norm):
+            inverse, *rest = fn(norm)
+            words.append(len(inverse))
+            return (inverse, *rest)
+        return call
+
+    with LayerClock(device) as clock:
+        clock.patch(native, "marker_word_dedup", count_words)
+        for attr, name in (("normalize", "normalize"),
+                           ("marker_word_dedup", "marker_word_dedup"),
+                           ("piece_table", "viterbi slabs: piece tables"),
+                           ("expand_ids", "expand_ids")):
+            clock.timed(native, attr, name)
+        clock.timed(U, "viterbi", "viterbi slabs: viterbi")
+        clock.timed(tok, "_segment_new", "viterbi slabs")
+        if device.type == "cuda":
+            clock.evented(_kernels.lib(), "shred_unigram_viterbi", "U2")
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        ids = tok.encode_array(text)
+        _sync(device)
+        enc_s = time.perf_counter() - t0
+        layers = dict(clock.secs)
+        u2_ms = clock.device_ms("U2")
+    launches = U.viterbi_core.launches - n0
+    if device.type == "cuda" and launches == 0:
+        raise BenchError(f"U2 never launched on {device} in encode_array")
+    seg = layers["viterbi slabs"]
+    layers["viterbi slabs: the rest"] = (
+        seg - layers["viterbi slabs: piece tables"]
+        - layers["viterbi slabs: viterbi"])
+    layers["the rest"] = enc_s - sum(
+        layers[k] for k in ("normalize", "marker_word_dedup",
+                            "viterbi slabs", "expand_ids"))
+    n_words = words[0]
+    out = dict(bytes=nbytes, s=enc_s, mbs=nbytes / 1e6 / enc_s,
+               layers=layers, u2_ms=u2_ms, launches={"U2": launches},
+               distinct=len(tok._memo), n_ids=len(ids), words=n_words,
+               pieces_per_word=len(ids) / max(n_words, 1),
+               peak_device_bytes=(torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else 0),
+               rss_bytes=rss_bytes())
+    out["sample_flips"] = check_unigram_sample(tok)
+    want = marker_words(native.normalize(text.encode()))
+    t0 = time.perf_counter()
+    got = tok.decode_bytes(ids)
+    dec_s = time.perf_counter() - t0
+    out["decode_bytes"] = dict(s=dec_s, mbs=nbytes / 1e6 / dec_s,
+                               rss_bytes=rss_bytes())
+    if got != want:
+        raise BenchError("decode_bytes of the ids differs from the "
+                         "normalized text's words")
+    del got
+    t0 = time.perf_counter()
+    s = tok.decode(ids)
+    dec_s = time.perf_counter() - t0
+    out["decode"] = dict(s=dec_s, mbs=nbytes / 1e6 / dec_s,
+                         rss_bytes=rss_bytes())
+    if s != want[len(_MARKER):].replace(_MARKER, b" ").decode():
+        raise BenchError("decode of the ids differs from the normalized "
+                         "text")
+    return out
+
+
+def measure_big_unigram(corpus: str, device, mb: float, *,
+                        encode_mb: float = 0.0, model: str | None = None,
+                        save_to: str | None = None, mesh=None,
+                        keep_calls: bool = False) -> dict:
+    """The Unigram main path at GB scale, in the calling process (run it
+    in a fresh one per size: the peak RSS is the process's own).
+
+    Train (``mb`` > 0): ``UnigramTrainer(**UNI_DEFAULT)`` (the JAX
+    bench's default config; read at the call) load_corpus -> train() on
+    the first ``mb`` MB of the corpus, cut after a newline
+    (:func:`prefix_bytes`; the file itself when that is all of it),
+    then save to ``save_to``.  Returned: each layer's seconds under
+    ``layers`` (load: normalize, then the read, split and count; the
+    seed: the adds, the export with its sort, the map's free, the
+    singles; tables, e_step, m_step, prune), U1's and U2's device ms
+    from CUDA events around their launches (``u1_ms``,
+    ``u2_prune_ms``; None off a card), their launches, unique words,
+    the seed map's entries, slabs per length bucket, ``train_s`` and
+    ``train_mbs`` (the prefix's bytes over train()), the final LL per
+    word, ``pieces_per_word`` over the prefix's first MB, peak device
+    memory (``torch.cuda.max_memory_allocated``) and peak RSS, after
+    load_corpus and after train().  The word counts reach the kernels as
+    float32: ``max_count`` and ``count_f32_max_err`` say what that
+    rounds.  Checked: :func:`check_unigram_kernels` on the first
+    E-step's slabs and the first prune's first slab (``checks``),
+    :func:`check_unigram_model`.  ``mesh``: train again over it, the
+    pieces must be the single device's.
+
+    Encode (``encode_mb`` > 0): ``UnigramTokenizer.load`` of the model
+    just trained (or of ``model``), then ``encode_array`` over the
+    corpus's first ``encode_mb`` MB, its layers timed (normalize,
+    marker_word_dedup, the Viterbi slabs with their piece tables and U2's
+    device ms, expand_ids, the rest), the ids of a seeded sample of
+    UNI_SAMPLE distinct words against the host DP
+    (:func:`check_unigram_sample`), then ``decode_bytes`` (== the
+    normalized text's words, :func:`marker_words`) and ``decode``, each
+    with s, MB/s and the peak RSS after it, under ``encode``.
+
+    ``keep_calls`` keeps the recorded kernel calls under ``calls`` (U1's
+    per E-step slab, U2's first) for the caller to time.  Any failed
+    check raises BenchError."""
+    from .models.unigram import UnigramTokenizer, UnigramTrainer
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from .ops import _kernels
+
+        _kernels.lib()
+        torch.cuda.synchronize(dev)     # the allocator's stats need it
+    out: dict = {"mb": mb}
+    with tempfile.TemporaryDirectory(prefix="shredword_uni_") as work:
+        if mb > 0:
+            data = prefix_bytes(corpus, mb)
+            path = corpus
+            if len(data) < os.path.getsize(corpus):
+                path = os.path.join(work, "prefix.txt")
+                with open(path, "wb") as f:
+                    f.write(data)
+            t, rec, fb_calls, vit_call = _train_unigram(
+                path, data, dev)
+            out.update(rec, bytes=len(data))
+            model = save_to or os.path.join(work, "uni.model")
+            t.save(model)
+            head = data[:UNI_PPW_BYTES]
+            head = head[:head.rfind(b"\n") + 1] or head
+            tok = UnigramTokenizer.load(model, device=dev)
+            n_ids = len(tok.encode_array(head.decode()))
+            from .runtime import native
+
+            out["pieces_per_word"] = n_ids / max(len(
+                native.marker_word_dedup(native.normalize(head))[0]), 1)
+            del data, head, tok
+            out["checks"] = check_unigram_kernels(fb_calls, vit_call, dev)
+            check_unigram_model(t)
+            if keep_calls:
+                out["calls"] = dict(fb=fb_calls, viterbi=vit_call)
+            del fb_calls, vit_call
+            if mesh is not None:
+                pieces, logp = t.pieces, t.log_probs
+                del t
+                m = UnigramTrainer(**UNI_DEFAULT, device=dev, mesh=mesh)
+                m.load_corpus(path)
+                t0 = time.perf_counter()
+                m.train()
+                _sync(dev)
+                out["mesh"] = dict(train_s=time.perf_counter() - t0,
+                                   max_logp_diff=float(np.abs(
+                                       m.log_probs - logp).max()))
+                if m.pieces != pieces:
+                    raise BenchError("UnigramTrainer(mesh=...) gives other "
+                                     "pieces than one device")
+                del m
+            else:
+                del t
+        if encode_mb > 0:
+            if model is None:
+                raise BenchError("nothing to encode with: train (mb > 0) "
+                                 "or pass model")
+            text = prefix_bytes(corpus, encode_mb).decode()
+            tok = UnigramTokenizer.load(model, device=dev)
+            out["encode"] = _encode_unigram(tok, text, dev)
+    return out
+
+
+def report_big_unigram(mb: float, encode_mb: float = 0.0, *,
+                       model: str | None = None, save_to: str | None = None,
+                       mesh: bool = False) -> dict:
+    """:func:`measure_big_unigram` on the card, on the corpus of
+    :func:`make_big_corpus` (:func:`ensure_big_corpus`; write it in a
+    process of its own first, or its generator's memory counts in this
+    one's peak RSS), with the card's name and power limit on standard
+    error and the result as one JSON line on standard output.  ``mesh``:
+    the mesh check over a one-rank NCCL group.  Meant for a fresh process
+    per size::
+
+        python -c "from shredword_tpu_torch import bench; \\
+            bench.report_big_unigram(256, mesh=True)"
+    """
+    dev = resolve_device("cuda")
+    corpus, reused = ensure_big_corpus()
+    _say(f"card: {card_line()}")
+    _say(f"corpus {corpus} ({'reused' if reused else 'generated'})")
+    group = None
+    if mesh:
+        import socket
+
+        import torch.distributed as dist
+
+        from .parallel import multihost
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        multihost.initialize(f"tcp://localhost:{port}", world_size=1, rank=0)
+        group = multihost.global_mesh()
+    try:
+        res = measure_big_unigram(corpus, dev, mb, encode_mb=encode_mb,
+                                  model=model, save_to=save_to, mesh=group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def measure_daemon(corpus: str, device: torch.device, work: str) -> dict:
     """The warm-daemon CLI workflow: after one warming request, a fresh
     ``python -m shredword_tpu_torch`` client process (routed by
