@@ -155,7 +155,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      one G1 launch per call; the run again under torch.profiler (G1
      launches == the wrapper's count, busy share) and split into layers
      on the host clock; the sharded flat engine forced at the headline
-     (bytes == the JAX golden digest, ms per merge); BPETrainer(shards=2)
+     (bytes == the JAX golden digest, ms per merge, S1 launched once a
+     call); BPETrainer(shards=2)
      as 2 gloo ranks on cuda:0 at vocab 4608, min_pair_freq 50: bytes ==
      the single-device giant engine's
  16. (runs after phase 13) the GPT splitter: P1 (csrc/pretok.cu,
@@ -198,7 +199,7 @@ Phases (any failure exits non-zero, and no result line is printed):
  19. (runs after phase 6) the flat engine's loop F1 (csrc/flat.cu,
      _kernels.flat_train: one persistent launch per call) against its
      plain version (bpe_ops.train_loop) on the card, call by call in
-     calls of 7 and 64 merges with a call past the end, on the seeded
+     calls of 7 merges (phase 24: 64) with a call past the end, on the seeded
      streams of tests/torch_flat_cases.py (words up to 1,000 tokens, a
      run of 1,001 'a's, unk bytes, ids past 65535, a min_pair_freq stop,
      words merged down to one token, a long tail of count-1 merges over
@@ -217,7 +218,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      (CUDA events around each call, its readback included) and chunks
      visited per merge, the final compaction and copy to the host timed
      apart, and the bytes equal to the plain flat engine's on the card
-     over the whole run
+     over the whole run (that run is made in phase 22, beside the
+     native CPU encoder's pass over the gigabyte)
  20. (runs after phase 19) BASELINE config 2: BPETrainer(vocab 32768,
      min_pair_freq 2000, coverage 1.0, the other arguments at their
      defaults) on the 1 GB Heaps-law corpus of bench.make_big_corpus
@@ -293,6 +295,33 @@ Phases (any failure exits non-zero, and no result line is printed):
      timed on the largest recorded slabs with their bounds and their
      launches per call from the profiler.
      "[time]" lines give each phase's seconds
+ 24. (runs after phase 19) the sharded flat loop S1
+     (_kernels.flat_sharded_train): against its plain version call by
+     call (calls of 64) on the seeded streams of
+     tests/torch_flat_cases.py over a one-rank NCCL group, where S1 is
+     F1's launch (records, merge count, done and the compacted stream
+     identical), and the long-word corpus's first 128 merges in one call,
+     timed against the plain version's (the kernels line's "world 1"
+     row, F1's bound); the slice over that group,
+     BPETrainer(vocab 32768, min_pair_freq 2, coverage 1.0, mesh)
+     load_corpus -> train -> save on the long-word corpus: bytes ==
+     phase 19's single-device output, one launch a call, train() s and ms
+     a merge beside phase 19's (within 1.5x); then 2 gloo ranks on the
+     card (spawned), S1's chain (launch A, launch M, the exchange): the
+     seeded streams of S1_GLOO_CASES against the plain version call by call
+     (torch_dist_workers.s1_calls: two launches a merge, one
+     bpe_ops.pair_counts a run), the headline (vocab 768) through
+     BPETrainer(shards=2) with the table engines declined: bytes == the
+     JAX golden digest; on the long-word corpus the first 1,024
+     merges == single-device F1's with every rank's merges gathered and
+     equal, the first 128 merges in one call timed against the plain
+     version's, with the bound of F1's bytes plus the rows an exchange of
+     exact deltas must carry (each rank's distinct changed pairs, written
+     once and read by the other rank: s1_exchange_rows), and the next 64
+     merges under torch.profiler: launch A's and launch M's device µs and
+     the exchange's host ms per merge; each rank's seconds per part (the
+     kernels line's "2 gloo ranks" row: launches, times and bound of
+     rank 0's long-word run)
 
 The long-word corpus is generated here too (make_long_corpus), and the
 1 GB corpus (make_big_corpus, on every core).
@@ -305,6 +334,7 @@ CUDA device is available.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
@@ -340,7 +370,9 @@ TPU_KERNEL = {768: "shredword_tpu/ops/bpe_hist.py:488",     # _fused_kernel
               "g1":                 # shard_body of build_sharded_giant_loop
               "shredword_tpu/parallel/giant.py:108",
               "gpt_starts":                         # gpt_starts_mask_jnp
-              "shredword_tpu/ops/pretok_ops.py:313"}
+              "shredword_tpu/ops/pretok_ops.py:313",
+              "s1":                 # shard_body of build_sharded_train_loop
+              "shredword_tpu/parallel/train.py:175"}
 TIMED_MERGES = 128
 LATE_START = 16128   # the giant late window: new ids from 16384 on
 # One H100 SXM (NVIDIA's data sheet): memory
@@ -632,7 +664,7 @@ def reset_counts() -> None:
     for k in (_kernels.hist_fused_train, _kernels.giant_train_step,
               _kernels.hist_sharded_train, _kernels.hist_sparse_train,
               _kernels.giant_sharded_train, _kernels.flat_train,
-              encode_ops.encode_core,
+              _kernels.flat_sharded_train, encode_ops.encode_core,
               unigram_ops.fb_core, unigram_ops.viterbi_core,
               pretok_ops.gpt_starts_mask):
         k.launches = 0
@@ -2769,6 +2801,9 @@ def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
                    par_giant.sharded_giant_train)
         par_hist.sharded_hist_train = par_giant.sharded_giant_train = \
             lambda *a, **k: None
+        s1 = Timed(_kernels.flat_sharded_train)
+        _kernels.flat_sharded_train = s1
+        s1.launches = 0
         try:
             n, secs, _, _, model, vocab_b = train_and_save(
                 corpus, out_dir, 768, device, tag="_sharded_flat",
@@ -2776,13 +2811,17 @@ def phase_sharded_giant_main(corpus, out_dir, device, giant_bytes) -> int:
         finally:
             par_hist.sharded_hist_train, par_giant.sharded_giant_train = \
                 engines
+            _kernels.flat_sharded_train = s1.fn
         check(hashlib.sha256(model).hexdigest() == golden["model_sha256"]
               and hashlib.sha256(vocab_b).hexdigest()
               == golden["vocab_sha256"] and n == golden["merges"],
               "sharded flat == JAX golden digest")
+        check(0 < s1.launches == len(s1.events),
+              "the sharded flat engine launched S1 once a call")
         print(f"[sharded flat] NCCL world 1, vocab 768 (table engines "
               f"declined): {n} merges, train {secs:.4f} s "
-              f"({secs / n * 1e3:.4f} ms per merge); bytes equal the JAX "
+              f"({secs / n * 1e3:.4f} ms per merge), {s1.launches} S1 "
+              f"launches in {len(s1.events)} calls; bytes equal the JAX "
               f"golden digest")
     finally:
         dist.destroy_process_group()
@@ -3266,42 +3305,51 @@ def flat_states(arrays, device, target, n_prev=0):
 
 
 def flat_both(arrays, device, *, target, n_prev=0, unk, minf, steps,
-              merges=None):
-    """F1 and its plain version call by call from the same arrays, from
-    merge n_prev towards merge `target`; with `merges`, only that many
-    (a window of the run), else to the end and then one call past it (no
-    launch, nothing changes); returns (max |diff| after every call,
-    merges done, F1 ms, plain ms, the chunks F1's passes visited)."""
+              merges=None, fns=None, group=None):
+    """F1 and its plain version (or the wrapper pair `fns`, called with
+    `group`: S1 and its plain version) call by call from the same arrays,
+    from merge n_prev towards merge `target`; with `merges`, only that
+    many (a window of the run), else to the end and then one call past it
+    (no launch, nothing changes); returns (max |diff| after every call,
+    merges done, kernel ms, plain ms, the chunks F1's passes visited)."""
     from shredword_tpu_torch.ops import _kernels
 
+    kernel, plain = fns or (_kernels.flat_train, _kernels.flat_train_plain)
+    gkw = {} if fns is None else dict(group=group)
     k, p = flat_states(arrays, device, target, n_prev)
     stop = target if merges is None else min(target, n_prev + merges)
     err, ms_k, ms_p, calls = 0, 0.0, 0.0, 0
-    n0 = _kernels.flat_train.launches
+    n0 = kernel.launches
     while not p.done and p.n_merges < stop:
         kw = dict(target_merges=target,
-                  max_steps=min(steps, stop - p.n_merges))
+                  max_steps=min(steps, stop - p.n_merges), **gkw)
         out = {}
         ms_k += elapsed_ms(lambda: out.__setitem__(
-            "k", _kernels.flat_train(k, unk, minf, **kw)), device)
+            "k", kernel(k, unk, minf, **kw)), device)
         ms_p += elapsed_ms(lambda: out.__setitem__(
-            "p", _kernels.flat_train_plain(p, unk, minf, **kw)), device)
+            "p", plain(p, unk, minf, **kw)), device)
         k, p = out["k"], out["p"]
         calls += 1
         err = max(err, flat_diff(k, p))
     if merges is None:
-        k = _kernels.flat_train(k, unk, minf, target_merges=target,
-                                max_steps=steps)
+        k = kernel(k, unk, minf, target_merges=target, max_steps=steps,
+                   **gkw)
         err = max(err, flat_diff(k, p))
-    check(_kernels.flat_train.launches - n0 == calls,
-          "one F1 launch per call with merges to make, none past the end")
+    check(kernel.launches - n0 == calls,
+          "one launch per call with merges to make, none past the end")
     return err, p.n_merges - n_prev, ms_k, ms_p, k.corpus.visited
 
 
 def flat_cost(arrays, device, n: int, cfg=GIANT, start: int = 0) -> dict:
-    """bound() per merge of the n flat merges after merge `start` (the
-    arrays hold the stream after `start` merges), from what they must
-    move on this data: once, the stream's tokens in and out and each
+    """bound() per merge of flat_work."""
+    return bound(*flat_work(arrays, device, n, cfg, start))
+
+
+def flat_work(arrays, device, n: int, cfg=GIANT,
+              start: int = 0) -> tuple[float, float]:
+    """(bytes, operations) per merge of the n flat merges after merge
+    `start` (the arrays hold the stream after `start` merges), from what
+    they must move on this data: once, the stream's tokens in and out and each
     word's offset, length and count; per merge every pair whose count
     changed (its key and count read, its count written) and the record.
     A compare per pair ever counted and per live token, each merge.  The
@@ -3330,7 +3378,7 @@ def flat_cost(arrays, device, n: int, cfg=GIANT, start: int = 0) -> dict:
         keys, counts = k2, c2
     check(ts.n_merges == start + n,
           "the plain version merges through the window")
-    return bound(nbytes / n, ops / n)
+    return nbytes / n, ops / n
 
 
 def long_corpus(device, out_dir) -> tuple[str, tuple]:
@@ -3357,26 +3405,30 @@ def long_corpus(device, out_dir) -> tuple[str, tuple]:
 
 
 def flat_cases(device) -> int:
-    """F1 against its plain version, call by call, on every seeded stream
-    of tests/torch_flat_cases.py; returns the largest difference."""
+    """F1 against its plain version, call by call in calls of 7, on every
+    seeded stream of tests/torch_flat_cases.py (phase 24 runs them again
+    in calls of 64 through S1 at world 1, which is F1's launch); returns
+    the largest difference."""
     from torch_flat_cases import FLAT_CASES, flat_corpus
 
     err = 0
     for case, (ckw, target, n_prev, unk, minf) in sorted(FLAT_CASES.items()):
-        for steps in (7, 64):
-            e, n, *_ = flat_both(flat_corpus(**ckw), device, target=target,
-                                   n_prev=n_prev, unk=unk, minf=minf,
-                                   steps=steps)
-            print(f"[flat] {case}: {n} merges in calls of {steps}, max "
-                  f"|F1 - plain| = {e}")
-            check(e == 0 and n > 0, f"F1 == plain on {case}")
-            err = max(err, e)
+        e, n, *_ = flat_both(flat_corpus(**ckw), device, target=target,
+                             n_prev=n_prev, unk=unk, minf=minf, steps=7)
+        print(f"[flat] {case}: {n} merges in calls of 7, max |F1 - plain| "
+              f"= {e}")
+        check(e == 0 and n > 0, f"F1 == plain on {case}")
+        err = max(err, e)
     return err
 
 
-def phase_flat(device, out_dir, corpus, arrays) -> tuple[int, dict]:
+def phase_flat(device, out_dir, corpus, arrays) -> tuple[int, dict, dict]:
     """F1 against its plain version, then the long-word slice; returns
-    F1's launches in the slice's train() and its kernels-line timing."""
+    F1's launches in the slice's train(), its kernels-line timing and
+    the slice's (train() s, .model and .vocab bytes) with the first 128
+    merges' work (flat_work) for phase 24 and the check of its bytes
+    against the plain flat engine's whole run, for phase 22 to call
+    ("plain")."""
     from shredword_tpu_torch.ops import _kernels, bpe_ops
 
     err = flat_cases(device)
@@ -3386,7 +3438,8 @@ def phase_flat(device, out_dir, corpus, arrays) -> tuple[int, dict]:
         arrays, device, target=TIMED_MERGES, steps=TIMED_MERGES, **kw)
     check(e == 0 and n == TIMED_MERGES, "F1 == plain, first 128 merges")
     err = max(err, e)
-    cost = flat_cost(arrays, device, TIMED_MERGES)
+    work = flat_work(arrays, device, TIMED_MERGES)
+    cost = bound(*work)
     print(f"[flat] first {n} merges at vocab {GIANT_VOCAB}: F1 "
           f"{ms_k / n:.6f} ms/merge (bound {cost['bound_ms']:.8f}, "
           f"{cost['bound_by']}), plain {ms_p / n:.4f} ms/merge, max "
@@ -3428,22 +3481,389 @@ def phase_flat(device, out_dir, corpus, arrays) -> tuple[int, dict]:
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock; "
           f"{len(final.tokens)} live tokens)")
     del fs, final, timer.outs[:]
-    _kernels.flat_train = _kernels.flat_train_plain
-    try:
-        pn, psecs, _, _, pmodel, pvocab = train_and_save(
-            corpus, out_dir, GIANT_VOCAB, device, "auto", GIANT,
-            tag="_long_plain")
-    finally:
-        _kernels.flat_train = timer.fn
-    print(f"[flat] the plain flat engine on the card: {pn} merges in "
-          f"{psecs:.4f} s ({psecs / pn * 1e3:.4f} ms per merge)")
-    check(model == pmodel and vocab_b == pvocab,
-          "the slice's bytes == the plain flat engine's")
-    print(f"[flat] slice .model/.vocab == the plain flat engine's over "
-          f"the whole run ({CARD})")
+    flat_train = timer.fn
+
+    def plain_slice() -> None:
+        """The slice through the plain flat engine on the card, its bytes
+        == F1's.  Phase 22 runs it beside the native CPU encoder's pass
+        over the gigabyte: this one waits on the card, that one on the
+        host's cores."""
+        _kernels.flat_train = _kernels.flat_train_plain
+        try:
+            pn, psecs, _, _, pmodel, pvocab = train_and_save(
+                corpus, out_dir, GIANT_VOCAB, device, "auto", GIANT,
+                tag="_long_plain")
+        finally:
+            _kernels.flat_train = flat_train
+        print(f"[flat] the plain flat engine on the card: {pn} merges in "
+              f"{psecs:.4f} s ({psecs / pn * 1e3:.4f} ms per merge; beside "
+              f"phase 22's native CPU encoder)")
+        check(model == pmodel and vocab_b == pvocab,
+              "the slice's bytes == the plain flat engine's")
+        print(f"[flat] slice .model/.vocab == the plain flat engine's over "
+              f"the whole run ({CARD})")
+
     return launches, dict(max_abs_err=err, ms=ms_k / TIMED_MERGES,
                           plain_ms=ms_p / TIMED_MERGES, **cost,
-                          library_ms=None)
+                          library_ms=None), dict(
+        secs=secs, bytes=(model, vocab_b), work=work, plain=plain_slice)
+
+
+# ---------------------------------------------------------------------
+# phase 24
+# ---------------------------------------------------------------------
+
+S1_MERGES = 1024     # the long-word corpus's merges in 2 gloo ranks
+S1_PROFILED = 64     # the profiled call's merges, after the timed 128
+S1_KERNELS = ("flat_apply_pick_kernel", "flat_merge_kernel")  # A, M
+# the seeded streams of the gloo ranks, for the script's time: the ids
+# past 65535, long words, a min_pair_freq stop, words merged to one token
+# and unk -1, 769 merges at 3-5 ms each there (the card tests run all)
+S1_GLOO_CASES = ("ids_past_65535", "long_words", "min_freq_stop",
+                 "to_one_token", "unk_minus_one")
+
+
+def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
+                 result, dev):
+    """One gloo rank of phase 24 (spawned): S1's chain against its plain
+    version on the seeded streams (torch_dist_workers.s1_calls), the
+    headline through BPETrainer(shards=world) with the table engines patched
+    to decline (its seconds, S1's launches, the bytes' digests), then on the
+    rank's span of the long-word corpus the first 128 merges in one call,
+    timed (CUDA events around it), against the plain version's (timed alike;
+    records and the span's compacted stream), the next S1_PROFILED merges
+    under torch.profiler (launch A's and launch M's device µs) with the
+    exchange on the host clock, then on to S1_MERGES merges in calls of 256
+    (S1's launches over this run); every rank's merges gathered and
+    compared. Writes the results."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch_dist_workers as workers
+    from shredword_tpu_torch.bench import HostClock
+    from shredword_tpu_torch.ops import _kernels, bpe_ops
+    from shredword_tpu_torch.parallel import giant as par_giant
+    from shredword_tpu_torch.parallel import hist as par_hist
+    from shredword_tpu_torch.parallel import train as par_train
+
+    device = torch.device(dev)
+    torch.cuda.set_device(device)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    secs, t = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - t[0]
+        t[0] = now
+
+    try:
+        group = dist.group.WORLD
+        cases = workers.s1_calls(dev, 64, S1_GLOO_CASES)
+        lap("seeded streams")
+        engines = (par_hist.sharded_hist_train,
+                   par_giant.sharded_giant_train)
+        par_hist.sharded_hist_train = par_giant.sharded_giant_train = \
+            lambda *a, **k: None
+        l0 = _kernels.flat_sharded_train.launches
+        try:
+            n, train_s, _, _, model, vocab_b = train_and_save(
+                headline, out_dir, 768, device, tag=f"_s1r{rank}",
+                shards=world)
+        finally:
+            par_hist.sharded_hist_train, par_giant.sharded_giant_train = \
+                engines
+        lap("headline")
+        head = dict(n=n, secs=train_s,
+                    launches=_kernels.flat_sharded_train.launches - l0,
+                    model=hashlib.sha256(model).hexdigest(),
+                    vocab=hashlib.sha256(vocab_b).hexdigest())
+        with np.load(arrays_path) as z:
+            sc = par_train.shard_corpus(z["tokens"], z["word_id"],
+                                        z["wcount"], world)
+        unk, minf = GIANT["unk_id"], GIANT["min_pair_freq"]
+        target = GIANT_VOCAB - 256
+
+        def call(ts, steps, fn=_kernels.flat_sharded_train):
+            return fn(ts, unk, minf, target_merges=target, max_steps=steps,
+                      group=group)
+
+        def fresh():
+            return bpe_ops.train_init(
+                par_train.local_state(sc, rank, device), target)
+
+        out = {}
+        ts = fresh()
+        dist.barrier()
+        run0 = _kernels.flat_sharded_train.launches
+        ms = elapsed_ms(lambda: out.__setitem__(
+            "k", call(ts, TIMED_MERGES)), device)
+        ts = out["k"]
+        listed, exchanged = ts.corpus.listed, ts.corpus.exchanged
+        lap("long words' first 128")
+        p = fresh()
+        dist.barrier()
+        plain_ms = elapsed_ms(lambda: out.__setitem__("p", call(
+            p, TIMED_MERGES, _kernels.flat_sharded_train_plain)), device)
+        err = flat_diff(ts, out.pop("p"))
+        del p
+        lap("plain, first 128")
+        clock = HostClock(device)
+        gather = par_train.gather_padded
+        par_train.gather_padded = clock.wrap("exchange", gather)
+        n0, l0 = ts.n_merges, _kernels.flat_sharded_train.launches
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ts = call(ts, S1_PROFILED)
+                torch.cuda.synchronize(device)
+        finally:
+            par_train.gather_padded = gather
+        n_prof = ts.n_merges - n0
+        prof_launches = _kernels.flat_sharded_train.launches - l0
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        us = {k: sum(e.time_range.elapsed_us() for e in events
+                     if k in e.name) / n_prof for k in S1_KERNELS}
+        traced = {k: sum(k in e.name for e in events) for k in S1_KERNELS}
+        lap("profiled")
+        while not ts.done and ts.n_merges < S1_MERGES:
+            ts = call(ts, min(256, S1_MERGES - ts.n_merges))
+        run_launches = _kernels.flat_sharded_train.launches - run0
+        mine = torch.tensor(ts.merges[:ts.n_merges], device=device)
+        every = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(every, mine, group=group)
+        same = all(torch.equal(m, mine) for m in every)
+        lap(f"to {S1_MERGES}")
+    finally:
+        dist.destroy_process_group()
+    with open(result, "w") as f:
+        json.dump(dict(
+            cases={c: dict(r, merges=len(r["merges"]))
+                   for c, r in cases.items()}, headline=head,
+            merges=ts.merges[:ts.n_merges].tolist(),
+            freqs=ts.merge_freqs[:ts.n_merges].tolist(), same=same,
+            err=err, ms=ms / TIMED_MERGES, plain_ms=plain_ms / TIMED_MERGES,
+            listed=listed, exchanged=exchanged, us=us, traced=traced,
+            prof_merges=n_prof, prof_launches=prof_launches,
+            run_launches=run_launches,
+            exchange_ms=clock.secs["exchange"] * 1e3 / n_prof,
+            exchange_calls=clock.calls["exchange"], secs=secs), f)
+
+
+def run_s1_ranks(arrays, headline, out_dir, device,
+                 world=2) -> list[dict]:
+    """s1_gloo_rank in `world` spawned gloo ranks on `device`."""
+    path = os.path.join(out_dir, "s1_long.npz")
+    np.savez(path, tokens=arrays[0], word_id=arrays[1], wcount=arrays[2])
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(out_dir, "store_s1")
+    results = [os.path.join(out_dir, f"s1_rank{r}.json")
+               for r in range(world)]
+    procs = [ctx.Process(target=s1_gloo_rank,
+                         args=(r, world, store, path, headline, out_dir,
+                               results[r], str(device)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"S1's gloo ranks exited with {codes}")
+    out = []
+    for path in results:
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def s1_exchange_rows(arrays, device, merges, world: int) -> list[int]:
+    """Per rank of `world` (parallel.train.shard_corpus's spans of the
+    arrays), the (key, delta) rows an exchange of exact deltas must carry
+    over `merges`: the span's distinct pairs once (the start), then after
+    each merge every distinct pair of the span whose count it changed,
+    but (a, b), whose count every rank sets to 0 itself.  The merges are
+    applied by the plain version (bpe_ops.apply_merge), so the rows do
+    not depend on S1's warp-summed lists or their padding."""
+    from shredword_tpu_torch.ops import bpe_ops
+    from shredword_tpu_torch.parallel import train as par_train
+
+    unk = GIANT["unk_id"]
+    sc = par_train.shard_corpus(*arrays, world)
+    rows = []
+    for r in range(world):
+        st = par_train.local_state(sc, r, device)
+        keys, counts = bpe_ops.pair_counts(st, unk)
+        n = len(keys)
+        for i, (a, b) in enumerate(merges):
+            st = bpe_ops.apply_merge(st, int(a), int(b), 256 + i)
+            k2, c2 = bpe_ops.pair_counts(st, unk)
+            uk, diff = bpe_ops.sum_by_key(torch.cat([keys, k2]),
+                                          torch.cat([-counts, c2]))
+            n += int(((diff != 0) & (uk != (int(a) << 32 | int(b)))).sum())
+            keys, counts = k2, c2
+        rows.append(n)
+    return rows
+
+
+def phase_s1(device, out_dir, corpus, arrays, f1_slice, headline,
+             golden) -> tuple[dict, dict]:
+    """S1 (the sharded flat loop, _kernels.flat_sharded_train): against
+    its plain version on the seeded streams of tests/torch_flat_cases.py
+    over a one-rank NCCL group (F1's launch, calls of 64) and on the
+    long-word corpus's first 128 merges, timed, the slice over that group
+    (== phase 19's single-device bytes, one launch a call), then the chain
+    in 2 gloo ranks on the card (s1_gloo_rank): the seeded streams, the
+    headline corpus at vocab 768 through the sharded flat route (== the
+    JAX golden digest), the long-word corpus's first S1_MERGES merges ==
+    single-device F1's, launch A, launch M and the exchange per merge, the
+    first 128 merges timed with the bound of F1's bytes plus the rows an
+    exchange of exact deltas must carry (s1_exchange_rows).  Returns two
+    kernels-line rows: at world 1 (F1's launch; S1's launches in the
+    slice's train(), every count set to 0 just before it and read just
+    after) and in 2 gloo ranks (the chain; launches, times and bound of
+    the ranks' long-word run)."""
+    import torch.distributed as dist
+    from torch_flat_cases import FLAT_CASES, flat_corpus
+
+    from shredword_tpu_torch.ops import _kernels
+    from shredword_tpu_torch.parallel import multihost
+
+    unk, minf = GIANT["unk_id"], GIANT["min_pair_freq"]
+    fns = (_kernels.flat_sharded_train, _kernels.flat_sharded_train_plain)
+    err, t0 = 0, time.perf_counter()
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                         rank=0)
+    try:
+        first_collective(device)
+        group = dist.group.WORLD
+        for case, (ckw, target, n_prev, c_unk, c_minf) in sorted(
+                FLAT_CASES.items()):
+            e, n, *_ = flat_both(flat_corpus(**ckw), device, target=target,
+                                 n_prev=n_prev, unk=c_unk, minf=c_minf,
+                                 steps=64, fns=fns, group=group)
+            check(e == 0 and n > 0, f"S1 (NCCL world 1) == plain on {case}")
+            err = max(err, e)
+        e, n, ms_k, ms_p, _ = flat_both(
+            arrays, device, target=TIMED_MERGES, steps=TIMED_MERGES,
+            unk=unk, minf=minf, fns=fns, group=group)
+        check(e == 0 and n == TIMED_MERGES,
+              "S1 (NCCL world 1) == plain, first 128 merges")
+        err = max(err, e)
+        cost = bound(*f1_slice["work"])
+        print(f"[s1] NCCL world 1: S1 == plain call by call (calls of 64) "
+              f"on the {len(FLAT_CASES)} seeded streams, max |S1 - plain| "
+              f"= {err} ({time.perf_counter() - t0:.1f} s); the long-word "
+              f"corpus's first {n} merges in one call: S1 "
+              f"{ms_k / n:.6f} ms/merge (bound {cost['bound_ms']:.8f}, "
+              f"{cost['bound_by']}, F1's), plain {ms_p / n:.4f} ms/merge")
+        reset_counts()
+        timer = Timed(_kernels.flat_sharded_train)
+        _kernels.flat_sharded_train = timer
+        try:
+            n, secs, raw, peak, model, vocab_b = train_and_save(
+                corpus, out_dir, GIANT_VOCAB, device, "auto", GIANT,
+                tag="_s1", mesh=multihost.global_mesh())
+        finally:
+            _kernels.flat_sharded_train = timer.fn
+        launches = _kernels.flat_sharded_train.launches
+        calls = len(timer.events)
+    finally:
+        dist.destroy_process_group()
+    print(f"[s1] slice over NCCL world 1: BPETrainer(vocab {GIANT_VOCAB}, "
+          f"mesh) on the long-word corpus: {n} merges, train {secs:.4f} s "
+          f"({secs / n * 1e3:.6f} ms per merge, {raw / 1e6 / secs:.3f} "
+          f"MB/s), {launches} S1 launches in {calls} calls "
+          f"({launches / max(calls, 1):.2f} a call), peak device memory "
+          f"{peak / 1e9:.3f} GB; single device (phase 19) "
+          f"{f1_slice['secs']:.4f} s, ratio {secs / f1_slice['secs']:.3f}")
+    check(launches == calls > 0, "the slice ran S1, one launch a call")
+    check((model, vocab_b) == f1_slice["bytes"],
+          "S1 at world 1 == phase 19's single-device bytes")
+    check(secs <= 1.5 * f1_slice["secs"],
+          "S1 at world 1 within 1.5x of the single-device train()")
+    world1 = dict(launches=launches, max_abs_err=err,
+                  ms=ms_k / TIMED_MERGES, plain_ms=ms_p / TIMED_MERGES,
+                  **cost, library_ms=None)
+
+    k, _ = flat_states(arrays, device, GIANT_VOCAB - 256)
+    k = _kernels.flat_train(k, unk, minf, target_merges=GIANT_VOCAB - 256,
+                            max_steps=S1_MERGES)
+    want = k.merges[:k.n_merges]
+    del k
+    t0 = time.perf_counter()
+    ranks = run_s1_ranks(arrays, headline, out_dir, device)
+    print(f"[s1] 2 gloo ranks spawned and joined in "
+          f"{time.perf_counter() - t0:.1f} s")
+    err = 0
+    for r, res in enumerate(ranks):
+        head = res["headline"]
+        check(head["model"] == golden["model_sha256"]
+              and head["vocab"] == golden["vocab_sha256"]
+              and head["n"] == golden["merges"]
+              and 2 * head["n"] <= head["launches"] <= 2 * head["n"] + 2,
+              f"gloo rank {r}: the sharded flat route at the headline == "
+              f"the JAX golden digest, two S1 launches a merge")
+        print(f"[s1] gloo rank {r}/2 on {device}, the headline (vocab 768, "
+              f"table engines declined): {head['n']} merges, train "
+              f"{head['secs']:.4f} s ({head['secs'] / head['n'] * 1e3:.4f} "
+              f"ms per merge), {head['launches']} S1 launches; bytes equal "
+              f"the JAX golden digest")
+        for case, c in res["cases"].items():
+            check(c["same"] and c["merges"] > 0 and c["past_end"] == 0
+                  and c["pair_counts"] == 1
+                  and 2 * c["merges"] <= c["launches"]
+                  <= 2 * c["merges"] + 2 * c["done"],
+                  f"gloo rank {r}: S1 == plain on {case}, two launches a "
+                  f"merge, one pair count a run")
+        check(res["same"], f"gloo rank {r}: every rank picked the same "
+              f"pairs")
+        check(len(res["merges"]) == S1_MERGES
+              and np.array_equal(np.asarray(res["merges"]), want),
+              f"gloo rank {r}: the first {S1_MERGES} merges == F1's")
+        check(res["err"] == 0, f"gloo rank {r}: S1 == plain, first 128")
+        check(res["prof_launches"] == 2 * res["prof_merges"]
+              and res["run_launches"] == 2 * S1_MERGES,
+              f"gloo rank {r}: two S1 launches a merge")
+        err = max(err, res["err"])
+        us = res["us"]
+        print(f"[s1] gloo rank {r}/2 on {device}: the seeded streams == "
+              f"plain; the long-word corpus's first {S1_MERGES} merges == "
+              f"single-device F1's, the same on every rank, "
+              f"{res['run_launches']} S1 launches; first "
+              f"{TIMED_MERGES}: {res['ms']:.6f} ms per merge (CUDA events "
+              f"around the call, the host's exchange included), plain "
+              f"{res['plain_ms']:.4f}, max |S1 - plain| = {res['err']}, "
+              f"{res['listed'] / TIMED_MERGES:.1f} deltas listed and "
+              f"{res['exchanged'] / TIMED_MERGES:.1f} rows gathered (pads "
+              f"included) per merge; the next {res['prof_merges']} merges "
+              f"(profiled, {res['prof_launches']} launches): launch A "
+              f"{us[S1_KERNELS[0]]:.3f} µs, launch M {us[S1_KERNELS[1]]:.3f}"
+              f" µs per merge on the card ({res['traced']} traced), the "
+              f"exchange {res['exchange_ms']:.4f} ms per merge on the host "
+              f"clock ({res['exchange_calls']} calls); the rank's seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in res["secs"].items()))
+    rows = s1_exchange_rows(arrays, device, want[:TIMED_MERGES], 2)
+    nbytes, ops = f1_slice["work"]
+    # each rank's rows written once and read by the other rank
+    per_merge = 16 * 2 * sum(rows) / TIMED_MERGES
+    cost = bound(nbytes + per_merge, ops)
+    print(f"[s1] bound of the first {TIMED_MERGES} merges in 2 ranks: "
+          f"{cost['bound_ms']:.8f} ms per merge ({cost['bound_by']}; F1's "
+          f"bytes {nbytes:.0f} plus the exact deltas' rows {per_merge:.0f} "
+          f"per merge: " + ", ".join(
+              f"rank {r} {n / TIMED_MERGES:.1f}" for r, n in enumerate(rows))
+          + f" distinct rows a merge, the start included) ({CARD})")
+    gloo = dict(launches=ranks[0]["run_launches"], max_abs_err=err,
+                ms=ranks[0]["ms"], plain_ms=ranks[0]["plain_ms"], **cost,
+                library_ms=None)
+    return world1, gloo
 
 
 # ---------------------------------------------------------------------
@@ -4066,14 +4486,17 @@ def config3_layers(tok, text: str, device) -> tuple:
     return ids, layers, e1, dict(cost, lookups=n_look), sizes
 
 
-def phase_config3(device, corpus: str, merges: np.ndarray) -> list[dict]:
+def phase_config3(device, corpus: str, merges: np.ndarray,
+                  beside) -> list[dict]:
     """Phase 22: BASELINE config 3 (and config 4's pre-split) on the card
     with config 2's merges (the auto path's, K3 at chunk width 2048):
     bench.measure_big_encode once (run A, the whole gigabyte through
     Tokenizer.encode_array; run B, its 64 KB documents through
     encode_batch_arrays; B == A, decode_bytes == the file); run A again
-    layer by layer (== the native CPU encoder) and once without windows
-    (its peak); each document of B round trips; run C, the documents of
+    layer by layer (== the native CPU encoder, whose pass runs in a
+    thread beside `beside`, phase 19's check of the slice against the
+    plain flat engine) and once without windows (its peak); each
+    document of B round trips; run C, the documents of
     the first 64 MB joined by a registered <|endoftext|> through
     encode(allowed_special="all"); run D, the GPT pattern on the first
     256 MB (== the CPU backend; P1 over its code points == the native
@@ -4109,8 +4532,13 @@ def phase_config3(device, corpus: str, merges: np.ndarray) -> list[dict]:
     check(len(sizes) == windows, "the layered run took the bench's windows")
     check(np.array_equal(lay_ids, ids), "config 3: the layered run == run A")
     del lay_ids
-    cpu_s, want = best_ms(lambda: Tokenizer(merges, backend="cpu")
-                          .encode_array(text), 1)
+    # the native CPU encoder on the host's cores while `beside` (phase
+    # 19's plain flat engine on the card) runs in this thread
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(best_ms, lambda: Tokenizer(
+            merges, backend="cpu").encode_array(text), 1)
+        beside()
+        cpu_s, want = cpu.result()
     check(np.array_equal(ids, want),
           "config 3 run A: card ids == the native CPU encoder's, 1 GB")
     del want
@@ -4514,9 +4942,14 @@ def main() -> int:
             kernel="giant_train_step")
         lap("phases 5-6")
         long_txt, long_arrays = long_corpus(device, tmp)
-        launches["flat"], timing["flat"] = phase_flat(device, tmp, long_txt,
-                                                      long_arrays)
+        launches["flat"], timing["flat"], f1_slice = phase_flat(
+            device, tmp, long_txt, long_arrays)
         lap("phase 19")
+        s1_rows = phase_s1(device, tmp, long_txt, long_arrays, f1_slice,
+                           corpus, golden)
+        plain_slice = f1_slice["plain"]
+        del f1_slice
+        lap("phase 24")
         with one_load(big_corpus_path()):
             *config2, c2_merges = phase_config2(device, tmp)
             torch.cuda.empty_cache()
@@ -4583,7 +5016,8 @@ def main() -> int:
         phase_bench(corpus)
         lap("phase 18")
         # last: their host-heavy runs would precede the profiled phases
-        config3 = phase_config3(device, big_corpus_path(), c2_merges)
+        config3 = phase_config3(device, big_corpus_path(), c2_merges,
+                                plain_slice)
         lap("phase 22")
         uni_big = phase_uni_big(device, big_corpus_path())
         lap("phase 23")
@@ -4613,6 +5047,12 @@ def main() -> int:
     kernels.append(dict(name=f"flat_train@long v{GIANT_VOCAB}", route="cuda",
                         source=src + "flat.cu", replaces=F1_SOURCE,
                         launches=launches["flat"], **timing["flat"]))
+    kernels += [dict(name=f"flat_sharded_train@long v{GIANT_VOCAB} {how}",
+                     route="cuda", source=src + f, replaces=TPU_KERNEL["s1"],
+                     **rec)
+                for how, f, rec in zip(("world 1", "2 gloo ranks"),
+                                       ("flat.cu", "flat_sharded.cu"),
+                                       s1_rows)]
     kernels += [dict(name=f"{name}@config2 v{GIANT_VOCAB}", route="cuda",
                      source=src + f, replaces=replaces, **rec)
                 for (name, f, replaces), rec in zip(

@@ -12,8 +12,10 @@ with the helpers of this checkout's chip_smoke.py, and measured on:
   - the 16 MB long-word corpus at vocab 32768: the first 128 merges and
     the whole run in calls of 64 (CUDA events around each call, its
     readback included), twice, after a warm-up call on a seeded stream;
-  - the slice, BPETrainer(vocab 32768) train() on that corpus, twice
-    (seconds, peak device memory, the .model digest);
+  - the slice, BPETrainer(vocab 32768) train() on that corpus, twice,
+    then once over a one-rank NCCL group (BPETrainer(mesh=...): the
+    sharded flat route, S1 from PR 20 on, before it the per-merge
+    recount) (seconds, peak device memory, the .model digest);
   - engine="flat" on the bench corpus at vocab 768, 4096, 32768 and
     65536 (train() seconds, the .model digest).
 Lines start with "[compare] <checkout name>"; the card's name and power
@@ -22,6 +24,7 @@ limit end each checkout's block.  Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
 import os
@@ -77,12 +80,14 @@ def measure(root: str) -> None:
                   f"{first / c.TIMED_MERGES:.6f}, whole run "
                   f"{whole / k.n_merges:.6f} ms per merge")
             del k, out
-        for _ in range(2):
-            n, secs, _, peak, model, _ = c.train_and_save(
-                txt, tmp, c.GIANT_VOCAB, dev, "auto", c.GIANT, tag="_long")
-            print(f"{tag}: slice train {secs:.4f} s, {n} merges, peak "
-                  f"{peak / 1e9:.3f} GB, .model sha256 "
-                  f"{hashlib.sha256(model).hexdigest()[:16]}")
+        for what in ("", "", "over NCCL world 1 "):
+            with one_rank_nccl(c, dev, bool(what)) as kw:
+                n, secs, _, peak, model, _ = c.train_and_save(
+                    txt, tmp, c.GIANT_VOCAB, dev, "auto", c.GIANT,
+                    tag="_long", **kw)
+            print(f"{tag}: slice {what}train {secs:.4f} s, {n} merges, "
+                  f"peak {peak / 1e9:.3f} GB, .model sha256 "
+                  f"{hashlib.sha256(model).hexdigest()[:16]}", flush=True)
         corpus = os.path.join(tmp, "corpus.txt")
         make_corpus(corpus)
         for v in (768, 4096, c.GIANT_VOCAB, 65536):
@@ -94,6 +99,26 @@ def measure(root: str) -> None:
                   f"{hashlib.sha256(model).hexdigest()[:16]}")
     print(c.run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]), flush=True)
+
+
+@contextlib.contextmanager
+def one_rank_nccl(c, dev, on: bool):
+    """BPETrainer's mesh argument inside the block: a one-rank NCCL
+    group's when ``on`` (destroyed on leaving), else none."""
+    if not on:
+        yield {}
+        return
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"tcp://localhost:{c.free_port()}", world_size=1,
+                         rank=0)
+    try:
+        c.first_collective(dev)
+        yield dict(mesh=multihost.global_mesh())
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:

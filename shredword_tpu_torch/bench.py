@@ -308,7 +308,8 @@ def _counters() -> dict:
 
     return {"K1": _kernels.hist_fused_train, "K3": _kernels.giant_train_step,
             "G1": _kernels.giant_sharded_train,
-            "F1": _kernels.flat_train, "E1": encode_ops.encode_core,
+            "F1": _kernels.flat_train, "S1": _kernels.flat_sharded_train,
+            "E1": encode_ops.encode_core,
             "U1": unigram_ops.fb_core, "U2": unigram_ops.viterbi_core}
 
 
@@ -707,55 +708,69 @@ def giant_layouts():
 
 
 @contextlib.contextmanager
-def sharded_giant_runs():
-    """Counts, in the list it yields, the runs of the row-sharded giant
-    engine inside the block that took the corpus (returned merges)."""
+def sharded_runs():
+    """Records, in the dict it yields, the runs inside the block of the
+    sharded engines that took the corpus (returned merges): their merge
+    counts under "G1" (the row-sharded giant engine) and "S1" (the
+    sharded flat engine)."""
     from .parallel import giant as par_giant
+    from .parallel import train as par_train
 
-    took: list = []
-    run = par_giant.sharded_giant_train
+    took: dict = {"G1": [], "S1": []}
+    runs = [(par_giant, "sharded_giant_train", "G1"),
+            (par_train, "sharded_train", "S1")]
 
-    def recorded(*args, **kw):
-        out = run(*args, **kw)
-        if out is not None:
-            took.append(len(out[0]))
-        return out
+    def recorded(run, name):
+        def call(*args, **kw):
+            out = run(*args, **kw)
+            if out is not None:
+                took[name].append(len(out[0]))
+            return out
+        return call
 
-    par_giant.sharded_giant_train = recorded
+    saved = [getattr(mod, attr) for mod, attr, _ in runs]
+    for (mod, attr, name), run in zip(runs, saved):
+        setattr(mod, attr, recorded(run, name))
     try:
         yield took
     finally:
-        par_giant.sharded_giant_train = run
+        for (mod, attr, _), run in zip(runs, saved):
+            setattr(mod, attr, run)
 
 
 def measure_big_vocab(corpus: str, device, vocab: int = GIANT_VOCAB,
-                      cfg: dict = BIG, mesh=None) -> dict:
+                      cfg: dict = BIG, mesh=None,
+                      save_to: str | None = None) -> dict:
     """BPETrainer(vocab, **cfg, mesh=mesh) with the other arguments at
     their defaults (by default BASELINE config 2; config 5 is ``BIG5`` at
     ``BIG5_VOCABS``) on the corpus of :func:`make_big_corpus`,
     ``BIG_RUNS`` times (each load_corpus -> train, timed as
-    :func:`train_once` times it; the kernels are built first).  Returns
-    the merges, every run's train() seconds and the best's MB/s, the
-    engine the trainer's routing took (``engine``: "giant" when the giant
-    engine built a layout, whose chunk width and shape are returned,
-    "sharded giant" when the row-sharded giant engine trained over
-    ``mesh``, else "flat"), the launches of K3, G1 and F1 (the engine's
-    kernel must launch on a card) and the peak device memory of a
-    run."""
+    :func:`train_once` times it; the kernels are built first; the last
+    run saves to ``save_to``.model/.vocab when given).  Returns the
+    merges, every run's train() seconds and the best's MB/s, the engine
+    the trainer's routing took (``engine``: "giant" when the giant engine
+    built a layout, whose chunk width and shape are returned, "sharded
+    giant" when the row-sharded giant engine trained over ``mesh``,
+    "sharded flat" when the sharded flat engine did, "flat" without a
+    mesh; a mesh run that the sharded hist engine takes raises), the
+    launches of K3, G1, F1 and S1 (the engine's kernel must launch on a
+    card) and the peak device memory of a run."""
     from .ops import _kernels
 
     dev = resolve_device(device)
     if dev.type == "cuda":
         _kernels.lib()
     fns = _counters()
-    before = {k: fns[k].launches for k in ("K3", "G1", "F1")}
+    before = {k: fns[k].launches for k in ("K3", "G1", "F1", "S1")}
     times, peak = [], 0
     kw = dict(cfg) if mesh is None else dict(cfg, mesh=mesh)
-    with giant_layouts() as built, sharded_giant_runs() as sharded:
-        for _ in range(BIG_RUNS):
+    with giant_layouts() as built, sharded_runs() as sharded:
+        for i in range(BIG_RUNS):
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            dt, n = train_once(corpus, dev, vocab=vocab, **kw)
+            dt, n = train_once(
+                corpus, dev, vocab=vocab,
+                save_to=save_to if i == BIG_RUNS - 1 else None, **kw)
             times.append(dt)
             if dev.type == "cuda":
                 peak = max(peak, torch.cuda.max_memory_allocated(dev))
@@ -766,7 +781,11 @@ def measure_big_vocab(corpus: str, device, vocab: int = GIANT_VOCAB,
                           n_words=built[-1].n_words)
     got = {k: fns[k].launches - n0 for k, n0 in before.items()}
     engine, kernel = (("giant", "K3") if layout else
-                      ("sharded giant", "G1") if sharded else ("flat", "F1"))
+                      ("sharded giant", "G1") if sharded["G1"] else
+                      ("sharded flat", "S1") if sharded["S1"] else
+                      ("flat", "F1") if mesh is None else (None, None))
+    if engine is None:
+        raise BenchError("the sharded hist engine took the mesh run")
     if dev.type == "cuda" and got[kernel] == 0:
         raise BenchError(f"{kernel} never launched on {dev}")
     return {"merges": n, "seconds": min(times), "times": times,
@@ -774,6 +793,51 @@ def measure_big_vocab(corpus: str, device, vocab: int = GIANT_VOCAB,
             "engine": engine, "layout": layout,
             "chunk_width": layout["cw"] if layout else None,
             "peak_bytes": peak, "launches": got}
+
+
+def report_big_vocab(vocab: int, *, mesh: bool = False,
+                     save_to: str | None = None) -> dict:
+    """:func:`measure_big_vocab` of BASELINE config 5 (``BIG5``) at
+    ``vocab`` on the card, on the corpus of :func:`make_big_corpus`
+    (:func:`ensure_big_corpus`), with the card's name and power limit on
+    standard error and the result as one JSON line on standard output.
+    ``mesh``: over a one-rank NCCL group (the sharded engines)::
+
+        python -c "from shredword_tpu_torch import bench; \\
+            bench.report_big_vocab(131072, mesh=True, save_to='c5m')"
+    """
+    dev = resolve_device("cuda")
+    corpus, reused = ensure_big_corpus()
+    _say(f"card: {card_line()}")
+    _say(f"corpus {corpus} ({'reused' if reused else 'generated'})")
+    with _one_rank_nccl(mesh) as group:
+        res = measure_big_vocab(corpus, dev, vocab, BIG5, mesh=group,
+                                save_to=save_to)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def _one_rank_nccl(on: bool):
+    """A one-rank NCCL process group (its mesh) inside the block when
+    ``on``, else None; destroyed on leaving it."""
+    if not on:
+        yield None
+        return
+    import socket
+
+    import torch.distributed as dist
+
+    from .parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        yield multihost.global_mesh()
+    finally:
+        dist.destroy_process_group()
 
 
 def timed_peak(fn, device: torch.device) -> tuple[float, int, object]:
@@ -1538,25 +1602,9 @@ def report_big_unigram(mb: float, encode_mb: float = 0.0, *,
     corpus, reused = ensure_big_corpus()
     _say(f"card: {card_line()}")
     _say(f"corpus {corpus} ({'reused' if reused else 'generated'})")
-    group = None
-    if mesh:
-        import socket
-
-        import torch.distributed as dist
-
-        from .parallel import multihost
-
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        multihost.initialize(f"tcp://localhost:{port}", world_size=1, rank=0)
-        group = multihost.global_mesh()
-    try:
+    with _one_rank_nccl(mesh) as group:
         res = measure_big_unigram(corpus, dev, mb, encode_mb=encode_mb,
                                   model=model, save_to=save_to, mesh=group)
-    finally:
-        if group is not None:
-            dist.destroy_process_group()
     print(json.dumps(res), flush=True)
     return res
 

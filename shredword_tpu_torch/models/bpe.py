@@ -365,7 +365,8 @@ class BPETrainer:
         JAX package routes it: the sharded hist engine (parallel/hist.py,
         vocab <= 4096), then the row-sharded giant engine
         (parallel/giant.py, vocab <= 65536), then the sharded flat engine
-        (parallel/train.py), each taking what the one before declines.
+        (parallel/train.py; S1 on the card), each taking what the one
+        before declines.
         Merge sequences are bit-identical to single-device training.
         Resume: the caller has already replayed n_prev merges into
         `tokens`."""
@@ -394,8 +395,8 @@ class BPETrainer:
         self._set_final_replay(self._merges)
         self._trained = True
         log.info("Training completed: %d merges performed. (%.2f s, "
-                 "sharded %s engine, %d shards)", len(merges), t.elapsed,
-                 engine, group.size())
+                 "sharded %s engine%s, %d shards)", len(merges), t.elapsed,
+                 engine, " (S1)" if engine == "flat" else "", group.size())
         return len(merges)
 
     def _replay_for_resume(self, tokens, word_id, wcount):

@@ -11,7 +11,8 @@ Every wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; it never falls back from one to
 the other.  Each wrapper counts its kernel launches in ``.launches``.
 The wrappers of the BPE training kernels (K1-K5, the row-sharded
-giant step G1 and the flat engine's loop F1) live here; the encoder's
+giant step G1, the flat engine's loop F1 and its sharded loop S1) live
+here; the encoder's
 (``csrc/encode.cu``) is ``encode_ops.encode_core`` and the Unigram
 lattice kernels' (``csrc/unigram.cu``) are ``unigram_ops.fb_core`` and
 ``unigram_ops.viterbi_core``, and the GPT splitter's (``csrc/pretok.cu``)
@@ -21,6 +22,7 @@ is ``pretok_ops.gpt_starts_mask``, each beside its plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,7 +41,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ["hist_fused.cu", "giant.cu", "hist_step.cu", "encode.cu",
-           "unigram.cu", "giant_sharded.cu", "pretok.cu", "flat.cu"]
+           "unigram.cu", "giant_sharded.cu", "pretok.cu", "flat.cu",
+           "flat_sharded.cu"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # the persistent kernels read data that other blocks of the same launch
@@ -147,6 +150,8 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_gpt_status_ints.restype = i
     L.shred_flat_train.argtypes = [p] * 14 + [i] * 9 + [p]
     L.shred_flat_train.restype = i
+    L.shred_flat_sharded_step.argtypes = [p] * 16 + [i] * 12 + [p]
+    L.shred_flat_sharded_step.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
     return L
@@ -927,8 +932,8 @@ def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
 
 FLAT_MAX_BLOCKS = 1024     # block results the wrapper makes room for
 FLAT_ST_OVERFLOW, FLAT_ST_MERGED, FLAT_ST_STEPS, FLAT_ST_DONE, \
-    FLAT_ST_VISITED, FLAT_ST_CANDIDATES, \
-    FLAT_ST_REFRESHED = range(7)              # csrc/flat.cu's st[]
+    FLAT_ST_VISITED, FLAT_ST_CANDIDATES, FLAT_ST_REFRESHED, \
+    FLAT_ST_LISTED = range(8)           # csrc/flat_table.cuh's st[]
 
 
 def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
@@ -955,62 +960,205 @@ def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
     pair and the segment maxima the picks recomputed).  A call
     after ``done`` or at ``target_merges`` changes nothing and launches
     nothing."""
-    corpus = ts.corpus
-    dev = corpus.tokens.device
+    dev = _flat_device(ts)
     if dev.type == "cpu":
-        if isinstance(corpus, bpe_ops.FlatState):
-            raise ValueError("F1's FlatState runs on a CUDA device only")
         return flat_train_plain(ts, unk_id, min_pair_freq,
                                 target_merges=target_merges,
                                 max_steps=max_steps)
-    if dev.type != "cuda":
+    ts, launched = _flat_call(ts, unk_id, min_pair_freq,
+                              target_merges=target_merges,
+                              max_steps=max_steps)
+    flat_train.launches += launched
+    return ts
+
+
+flat_train.launches = 0
+
+# The plain version of flat_train: the flat engine's per-merge loop in
+# PyTorch ops (recount, argmax, select, compact).
+flat_train_plain = bpe_ops.train_loop
+
+
+def _flat_device(ts: bpe_ops.TrainState) -> torch.device:
+    """The device of a flat TrainState: a CPU one holds the plain
+    version's arrays, a CUDA one either."""
+    dev = ts.corpus.tokens.device
+    if dev.type == "cpu" and isinstance(ts.corpus, bpe_ops.FlatState):
+        raise ValueError("F1's FlatState runs on a CUDA device only")
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    fs = (corpus if isinstance(corpus, bpe_ops.FlatState)
-          else bpe_ops.FlatState(corpus))
-    ts = ts._replace(corpus=fs)
+    return dev
+
+
+def _flat_steps(ts: bpe_ops.TrainState, target_merges: int,
+                max_steps: int) -> int:
+    """The merges a call makes at most (0 after done or at the target)."""
     n = ts.n_merges
     steps = min(max_steps, target_merges - n)
     if ts.done or steps <= 0:
-        return ts
+        return 0
     if n + steps > len(ts.merges) or 256 + n + steps > 2**31 - 1:
         raise ValueError(f"merges {n}..{n + steps} exceed the records "
                          f"({len(ts.merges)}) or the int32 ids")
-    fs.reserve(256 + target_merges)      # a row for every new id
-    i32 = dict(dtype=torch.int32, device=dev)
-    records = torch.empty((steps, 3), **i32)
-    bbest = torch.empty(2 * FLAT_MAX_BLOCKS, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().shred_flat_train(
-            fs.tokens.data_ptr(), fs.off.data_ptr(), fs.len.data_ptr(),
-            fs.wcnt.data_ptr(), fs.pres.data_ptr(), fs.sig.data_ptr(),
-            fs.tkey.data_ptr(), fs.cnt.data_ptr(), fs.skey.data_ptr(),
-            fs.sce.data_ptr(), fs.dirty.data_ptr(), fs.st.data_ptr(),
-            bbest.data_ptr(), records.data_ptr(), fs.n_words,
-            fs.pres.shape[1], fs.cap, steps,
-            unk_id, min(min_pair_freq, 2**31 - 1), n, int(not fs.counted),
-            FLAT_MAX_BLOCKS, stream)
-    _check(rc)
-    flat_train.launches += 1
-    fs.counted = True
-    out = torch.cat([fs.st, records.view(-1)]).cpu().numpy()
-    st, rec = out[:8], out[8:].reshape(steps, 3)
+    return steps
+
+
+def _flat_args(fs: bpe_ops.FlatState, bbest: torch.Tensor,
+               records: torch.Tensor) -> list[int]:
+    """The pointers of F1's state, in the C interface's order."""
+    return [x.data_ptr() for x in (
+        fs.tokens, fs.off, fs.len, fs.wcnt, fs.pres, fs.sig, fs.tkey,
+        fs.cnt, fs.skey, fs.sce, fs.dirty, fs.st, bbest, records)]
+
+
+def _flat_finish(ts, fs, st, rec, n: int, k: int, done: bool):
+    """ts after a call that made merges n .. n + k (records rec), with
+    F1's counters from its state st (int32 [8] on the host)."""
     if st[FLAT_ST_OVERFLOW]:
         raise RuntimeError("F1's pair table is full: its counts are no "
                            "longer exact")
-    k = int(st[FLAT_ST_STEPS])
     ts.merges[n:n + k] = rec[:k, :2]
     ts.merge_freqs[n:n + k] = rec[:k, 2]
     fs.merged = int(st[FLAT_ST_MERGED])
     fs.visited = int(st[FLAT_ST_VISITED])
     fs.refreshed = int(st[FLAT_ST_REFRESHED])
     fs.candidates = int(st[FLAT_ST_CANDIDATES])
-    return ts._replace(n_merges=n + k, done=bool(st[FLAT_ST_DONE]))
+    return ts._replace(corpus=fs, n_merges=n + k, done=done)
 
 
-flat_train.launches = 0
+def _flat_call(ts, unk_id, min_pair_freq, *, target_merges, max_steps):
+    """One call of F1 on a CUDA device: (the advanced ts, the launches
+    made: 1, or 0 when it had no merge to make)."""
+    dev = ts.corpus.tokens.device
+    fs = (ts.corpus if isinstance(ts.corpus, bpe_ops.FlatState)
+          else bpe_ops.FlatState(ts.corpus))
+    ts = ts._replace(corpus=fs)
+    n = ts.n_merges
+    steps = _flat_steps(ts, target_merges, max_steps)
+    if not steps:
+        return ts, 0
+    fs.reserve(256 + target_merges)      # a row for every new id
+    records = torch.empty((steps, 3), dtype=torch.int32, device=dev)
+    bbest = torch.empty(2 * FLAT_MAX_BLOCKS, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().shred_flat_train(
+            *_flat_args(fs, bbest, records), fs.n_words, fs.pres.shape[1],
+            fs.cap, steps, unk_id, min(min_pair_freq, 2**31 - 1), n,
+            int(not fs.counted), FLAT_MAX_BLOCKS, stream)
+    _check(rc)
+    fs.counted = True
+    out = torch.cat([fs.st, records.view(-1)]).cpu().numpy()
+    st, rec = out[:8], out[8:].reshape(steps, 3)
+    return _flat_finish(ts, fs, st, rec, n, int(st[FLAT_ST_STEPS]),
+                        bool(st[FLAT_ST_DONE])), 1
 
-# The plain version of flat_train: the flat engine's per-merge loop in
-# PyTorch ops (recount, argmax, select, compact), also the sharded flat
-# engine's loop with its cross-rank pick.
-flat_train_plain = bpe_ops.train_loop
+
+# ---------------------------------------------------------------------
+# the sharded flat engine's merge loop (S1)
+# ---------------------------------------------------------------------
+
+def flat_sharded_train(ts: bpe_ops.TrainState, unk_id: int,
+                       min_pair_freq: int, *, target_merges: int,
+                       max_steps: int, group=None) -> bpe_ops.TrainState:
+    """:func:`flat_train` over the ranks of a torch.distributed ``group``,
+    each holding its own span of the stream (words never span ranks):
+    every rank makes the same merges, those of the whole corpus, with the
+    same tie-break, and returns the same records; ``ts.corpus`` is this
+    rank's span.  Called by every rank of the group alike.
+
+    Replaces the per-merge body of ``shredword_tpu.parallel.train``
+    (``shard_body`` of ``build_sharded_train_loop``).  CPU tensors run
+    :func:`flat_sharded_train_plain`; CUDA tensors run S1:
+
+      - no group or a rank alone (world 1): F1's call (:func:`flat_train`
+        on the span, ``csrc/flat.cu``), one persistent launch a call, no
+        collective;
+      - world > 1: the chain of ``csrc/flat_sharded.cu``.  The first call
+        makes ``ts.corpus`` a ``bpe_ops.FlatState`` whose table is sized
+        on the whole stream and is to hold the whole corpus's pair
+        counts: the ranks' pair counts (``bpe_ops.pair_counts`` of the span,
+        once), gathered (``parallel.train.gather_pairs``) and summed by key,
+        are its first deltas. Then per merge launch A (add the gathered
+        deltas to the table, the pick, the record) and launch M (F1's pass
+        over the span, its net deltas into the rank's delta list), the
+        list's length read back, and ``parallel.train.gather_padded`` of the
+        lists: the deltas the next merge's launch A adds
+        (``FlatState.pending``; over the run ``FlatState.listed`` rows
+        listed, ``.exchanged`` gathered). Two launches a merge; a merge that
+        finds no pair is the last.
+
+    A call after ``done`` or at ``target_merges`` changes nothing and
+    launches nothing.  Every launch counts.  A build or launch failure
+    raises; nothing falls back to the plain version."""
+    dev = _flat_device(ts)
+    kw = dict(target_merges=target_merges, max_steps=max_steps)
+    if dev.type == "cpu":
+        return flat_sharded_train_plain(ts, unk_id, min_pair_freq,
+                                        group=group, **kw)
+    if group is None or group.size() == 1:
+        ts, launched = _flat_call(ts, unk_id, min_pair_freq, **kw)
+        flat_sharded_train.launches += launched
+        return ts
+    from ..parallel import train as par_train   # the chain's collectives
+
+    n = ts.n_merges
+    steps = _flat_steps(ts, target_merges, max_steps)
+    if not steps:
+        return ts
+    fs = ts.corpus
+    if not isinstance(fs, bpe_ops.FlatState):
+        n_all, first = par_train.initial_deltas(fs, unk_id, group)
+        fs = bpe_ops.FlatState(fs, table_n=n_all)
+        fs.counted, fs.pending = True, first
+        fs.dlist = torch.empty((max(2 * fs.n, 1), 2), dtype=torch.int64,
+                               device=dev)
+    fs.reserve(256 + target_merges)
+    i32 = dict(dtype=torch.int32, device=dev)
+    records = torch.empty((steps, 3), **i32)
+    bbest = torch.empty(2 * FLAT_MAX_BLOCKS, dtype=torch.int64, device=dev)
+    ptrs = _flat_args(fs, bbest, records)
+    minf = min(min_pair_freq, 2**31 - 1)
+    k, done = 0, False
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i in range(steps):
+            for phase in (0, 1):            # launch A, then launch M
+                _check(lib().shred_flat_sharded_step(
+                    *ptrs, fs.dlist.data_ptr(), fs.pending.data_ptr(),
+                    fs.n_words, fs.pres.shape[1], fs.cap, steps, unk_id,
+                    minf, n, len(fs.dlist), len(fs.pending), i, phase,
+                    FLAT_MAX_BLOCKS, stream))
+                flat_sharded_train.launches += 1
+            st = fs.st.cpu().numpy()        # waits for launch M
+            if st[FLAT_ST_OVERFLOW] or st[FLAT_ST_DONE]:
+                done = bool(st[FLAT_ST_DONE])
+                fs.pending = fs.pending[:0]     # launch A added it
+                break
+            fs.listed += int(st[FLAT_ST_LISTED])
+            fs.pending = par_train.gather_padded(
+                fs.dlist, int(st[FLAT_ST_LISTED]), group)
+            fs.exchanged += len(fs.pending)
+            k = i + 1
+    rec = records[:k].cpu().numpy()
+    return _flat_finish(ts, fs, st, rec, n, k, done)
+
+
+flat_sharded_train.launches = 0
+
+
+def flat_sharded_train_plain(ts, unk_id, min_pair_freq, *, target_merges,
+                             max_steps, group=None) -> bpe_ops.TrainState:
+    """Plain PyTorch version of :func:`flat_sharded_train`:
+    ``bpe_ops.train_loop`` on the span, each merge picked by
+    ``parallel.train.global_best_pair`` over ``group`` (every rank's
+    pairs counted again, gathered and summed by key) when it has more
+    than one rank."""
+    pick = bpe_ops.best_pair
+    if group is not None and group.size() > 1:
+        from ..parallel.train import global_best_pair
+
+        pick = functools.partial(global_best_pair, group=group)
+    return bpe_ops.train_loop(ts, unk_id, min_pair_freq,
+                              target_merges=target_merges,
+                              max_steps=max_steps, pick=pick)

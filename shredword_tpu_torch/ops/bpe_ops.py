@@ -17,7 +17,9 @@ It is the auto route for corpora whose words exceed the hist layout, and
 the independent cross-check of the hist engine; ``parallel/train.py``
 runs it on the ranks' shards of the stream.  :func:`train_loop` is the
 plain version of F1 (``csrc/flat.cu``, ``_kernels.flat_train``), which
-runs the same merges on the card from a :class:`FlatState`.
+runs the same merges on the card from a :class:`FlatState`, and of S1
+(``csrc/flat_sharded.cu``, ``_kernels.flat_sharded_train``), its loop
+over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -182,9 +184,17 @@ class FlatState:
     power of two of at least 6N, so at most half full: the run inserts
     at most 3N keys) with an int32 count per slot, and the kept maximum
     of every ``SEG_SLOTS`` slots; the table is empty until the first
-    call counts the stream."""
+    call counts the stream.
 
-    def __init__(self, corpus: CorpusState):
+    S1 (``_kernels.flat_sharded_train`` over several ranks) keeps one per
+    rank, of the rank's span, whose table holds the whole corpus's
+    counts: N is then ``table_n``, the whole stream's length (3N keys
+    bound the whole corpus's run, not a span's); ``pending`` holds the
+    gathered (key, delta) int64 rows its next launch adds to the table,
+    ``dlist`` the rank's delta list of a pass; ``listed`` and
+    ``exchanged`` count the rows listed and gathered over the run."""
+
+    def __init__(self, corpus: CorpusState, table_n: int | None = None):
         t, wid, wc = corpus
         if any(x.dtype != torch.int32 or x.dim() != 1 or len(x) != len(t)
                or x.device != t.device for x in corpus):
@@ -210,7 +220,8 @@ class FlatState:
         word = torch.cumsum(first, 0) - 1
         self.pres = presence_index(t, word, len(starts), max(256, top))
         self.sig = word_signatures(t, word, len(starts))
-        self.cap = 1 << max(10, (6 * max(n, 1) - 1).bit_length())
+        keys_n = n if table_n is None else table_n
+        self.cap = 1 << max(10, (6 * max(keys_n, 1) - 1).bit_length())
         self.tkey = torch.full((self.cap,), -1, dtype=torch.int64,
                                device=dev)
         self.cnt = torch.zeros(self.cap, **i32)
@@ -224,6 +235,8 @@ class FlatState:
         # what the passes and picks did (F1's st): chunks visited, words
         # whose signature holds the pair, segment maxima recomputed
         self.visited = self.candidates = self.refreshed = 0
+        self.pending = self.dlist = None     # S1's, over several ranks
+        self.listed = self.exchanged = 0
 
     def reserve(self, rows: int) -> None:
         """Grow the presence index to ``rows`` ids (new rows empty)."""

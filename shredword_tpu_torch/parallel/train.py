@@ -3,27 +3,34 @@
 the sharded route for words longer than the table engines' layout.
 
 The flat stream (``ops/bpe_ops.py``) is cut at word boundaries into one
-span per rank (:func:`shard_corpus`).  Every merge, on every rank:
+span per rank (:func:`shard_corpus`); words never span ranks, so a merge
+needs no halo.  :func:`sharded_train` drives
+``_kernels.flat_sharded_train`` in calls of ``max_steps_per_call``
+merges, as the JAX package dispatches its loop:
 
-  1. LOCAL   the distinct pairs of this rank's span and their counts
-             (``bpe_ops.pair_counts``: int64 keys (a << 32) | b, so one
-             key orders (a, b) at any vocab -- the JAX package packs
-             int32 keys below PACK_LIMIT and sorts two keys above it)
-  2. GATHER  one ``all_reduce(MAX)`` of their number, then one
-             ``all_gather`` of the lists padded to it
-  3. REDUCE  the same sum by key and argmax on every rank (the first
-             maximum in (a, b) order), so the pick needs no broadcast
-  4. APPLY   ``bpe_ops.apply_merge`` on the own span (no halo: words never
-             span ranks)
+  - on a CUDA device S1: a rank alone (world 1) is F1's persistent launch
+    on its span (``csrc/flat.cu``), one launch a call; over more ranks
+    every rank keeps a hash table of the whole corpus's pair counts, so
+    every rank picks the same pair with no broadcast (the JAX loop's
+    replicated reduce, kept as exact deltas rather than recounted): the
+    ranks' pair counts start it (:func:`initial_deltas`), and after each
+    merge every rank's net deltas are gathered (:func:`gather_padded`)
+    and added by every rank (``csrc/flat_sharded.cu``);
+  - its plain version, on the CPU: per merge the distinct pairs of the
+    own span (``bpe_ops.pair_counts``: int64 keys (a << 32) | b, so one
+    key orders (a, b) at any vocab -- the JAX package packs int32 keys
+    below PACK_LIMIT and sorts two keys above it), one ``all_reduce(MAX)``
+    of their number and one ``all_gather`` of the lists padded to it
+    (:func:`gather_pairs`), the same sum by key and argmax on every rank
+    (:func:`global_best_pair`: the first maximum in (a, b) order), then
+    ``bpe_ops.apply_merge`` on the own span.
 
 Counts are integers, so the result is the single-device flat engine's
-whatever the ranks.  It is PyTorch ops over collectives, with no kernel
-of its own, as the JAX package's is XLA.
+whatever the ranks.
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -31,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import resolve_device
-from ..ops import bpe_ops
+from ..ops import _kernels, bpe_ops
 from . import mesh as _mesh
 
 
@@ -82,22 +89,44 @@ def local_state(sc: ShardedCorpus, rank: int,
                               sc.wcount[rank, :m], device)
 
 
+def gather_padded(rows: torch.Tensor, n: int, group) -> torch.Tensor:
+    """Every rank's first ``n`` rows of ``rows`` (int64 [>= n, 2], (key >=
+    0, value)) over ``group``, in rank order, each rank's padded with
+    (-1, 0) to the longest: one ``all_reduce(MAX)`` of n, one
+    ``all_gather``.  Returns int64 [world * longest, 2]."""
+    m = torch.tensor([n], dtype=torch.int64, device=rows.device)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    send = rows.new_zeros((max(int(m), 1), 2))
+    send[:, 0] = -1
+    send[:n] = rows[:n]
+    out = send.new_empty((group.size() * len(send), 2))
+    dist.all_gather(list(out.chunk(group.size())), send, group=group)
+    return out
+
+
 def gather_pairs(keys: torch.Tensor, counts: torch.Tensor,
                  group) -> tuple[torch.Tensor, torch.Tensor]:
     """Every rank's (int64 pair key >= 0, count) list over ``group``, in
-    rank order: one ``all_reduce(MAX)`` of their lengths, one
-    ``all_gather`` of the lists padded to it with key -1, pads dropped.
-    The counts come back int64."""
-    n = torch.tensor([len(keys)], dtype=torch.int64, device=keys.device)
-    dist.all_reduce(n, op=dist.ReduceOp.MAX, group=group)
-    pad = int(n) - len(keys)
-    both = torch.stack([torch.cat([keys, keys.new_full((pad,), -1)]),
-                        torch.cat([counts.long(), keys.new_zeros(pad)])])
-    out = [torch.empty_like(both) for _ in range(group.size())]
-    dist.all_gather(out, both, group=group)
-    both = torch.cat(out, 1)
-    live = both[0] >= 0
-    return both[0][live], both[1][live]
+    rank order (:func:`gather_padded`), pads dropped.  The counts come
+    back int64."""
+    both = gather_padded(torch.stack([keys, counts.long()], 1), len(keys),
+                         group)
+    live = both[:, 0] >= 0
+    return both[live, 0], both[live, 1]
+
+
+def initial_deltas(state: bpe_ops.CorpusState, unk_id: int,
+                   group) -> tuple[int, torch.Tensor]:
+    """S1's start over several ranks: (the whole stream's length, the
+    whole corpus's pair counts as (key, count) int64 rows, ascending by
+    key), from each rank's own span: its pair counts, gathered
+    (:func:`gather_pairs`) and summed by key."""
+    n = torch.tensor([len(state.tokens)], dtype=torch.int64,
+                     device=state.tokens.device)
+    dist.all_reduce(n, group=group)
+    keys, counts = bpe_ops.sum_by_key(*gather_pairs(
+        *bpe_ops.pair_counts(state, unk_id), group))
+    return int(n), torch.stack([keys, counts], 1)
 
 
 def global_best_pair(state: bpe_ops.CorpusState, unk_id: int,
@@ -114,24 +143,31 @@ def global_best_pair(state: bpe_ops.CorpusState, unk_id: int,
 def sharded_train(tokens: np.ndarray, word_id: np.ndarray,
                   wcount: np.ndarray, *, mesh, target_merges: int,
                   unk_id: int = -1, min_pair_freq: int = 2,
-                  n_prev_merges: int = 0,
+                  max_steps_per_call: int = 256, n_prev_merges: int = 0,
                   device="cuda") -> tuple[np.ndarray, np.ndarray]:
     """Sharded flat training, called by every rank of ``mesh`` (a 1-D
     DeviceMesh or a ProcessGroup) with the same corpus; wcount is per
     position, as the flat engine takes it.  Returns (merges [M, 2], freqs
     [M]), the same on every rank.
 
-    Checkpoint resume: the caller replays the first ``n_prev_merges``
-    merges into ``tokens``; new ids continue at 256 + n_prev.  Only new
-    merges are returned.  Runs on ``device``, the card by default."""
+    Each call of ``_kernels.flat_sharded_train`` makes up to
+    ``max_steps_per_call`` merges (S1 on a CUDA device, its plain version
+    on the CPU).  Checkpoint resume: the caller replays the first
+    ``n_prev_merges`` merges into ``tokens``; new ids continue at 256 +
+    n_prev.  Only new merges are returned.  Runs on ``device``, the card
+    by default."""
     device = resolve_device(device)
     group = _mesh.process_group(mesh)
     sc = shard_corpus(tokens, word_id, wcount, group.size())
     ts = bpe_ops.train_init(local_state(sc, group.rank(), device),
                             target_merges, n_prev_merges)
-    ts = bpe_ops.train_loop(ts, unk_id, min_pair_freq,
-                            target_merges=target_merges,
-                            max_steps=target_merges,
-                            pick=partial(global_best_pair, group=group))
+    while True:
+        n_before = ts.n_merges
+        ts = _kernels.flat_sharded_train(
+            ts, unk_id, min_pair_freq, target_merges=target_merges,
+            max_steps=max_steps_per_call, group=group)
+        if ts.done or ts.n_merges >= target_merges \
+                or ts.n_merges == n_before:
+            break
     return (ts.merges[n_prev_merges:ts.n_merges],
             ts.merge_freqs[n_prev_merges:ts.n_merges])

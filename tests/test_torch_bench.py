@@ -166,7 +166,7 @@ def test_measure_big_vocab_reports_the_giant_route(tmp_path, monkeypatch):
     assert got["engine"] == "giant" and got["chunk_width"] == 1024
     assert got["layout"]["cw"] == 1024 and got["layout"]["L"] == 16
     assert len(got["times"]) == 2 and got["seconds"] == min(got["times"])
-    assert got["launches"] == {"K3": 0, "G1": 0, "F1": 0}
+    assert got["launches"] == {"K3": 0, "G1": 0, "F1": 0, "S1": 0}
     assert got["peak_bytes"] == 0
     _, n = bench.train_once(path, "cpu", vocab=4608, engine="flat",
                             **bench.BIG)
@@ -198,38 +198,50 @@ def one_thread():
 
 # name: (vocab, config, over a one-rank gloo group, the route): config 5
 # at vocab 768 with the table engines' single-device limits cut to 512,
-# so that auto declines them as it declines them above 32768
+# so that auto declines them as it declines them above 32768, and for
+# the sharded flat route the row-sharded giant engine's too, as it
+# declines above 65536
 BIG_VOCAB_ROUTES = {"config2": (4608, "BIG", False, "giant"),
                     "config5_auto": (768, "BIG5", False, "flat"),
-                    "config5_gloo1": (768, "BIG5", True, "sharded giant")}
+                    "config5_gloo1": (768, "BIG5", True, "sharded giant"),
+                    "config5_gloo1_flat": (768, "BIG5", True,
+                                           "sharded flat")}
 
 
 @pytest.mark.parametrize("case", sorted(BIG_VOCAB_ROUTES))
 def test_measure_big_vocab_reports_its_route(case, heaps_400kb, tmp_path,
                                              monkeypatch, one_thread):
     """measure_big_vocab on the CPU (no launch counted) reports the
-    engine each configuration takes, with the flat engine's merges;
-    over a one-rank gloo group the row-sharded giant engine (G1's plain
-    version) trains."""
+    engine each configuration takes, with the flat engine's merges and
+    (its last run saved) bytes; over a one-rank gloo group the
+    row-sharded giant engine (G1's plain version) trains, or, past its
+    limit, the sharded flat engine (S1's)."""
     from shredword_tpu_torch.ops import bpe_giant, bpe_hist
+    from shredword_tpu_torch.parallel import giant as par_giant
 
     vocab, name, group, route = BIG_VOCAB_ROUTES[case]
     cfg = getattr(bench, name)
     if name == "BIG5":
         monkeypatch.setattr(bpe_hist, "MAX_V", 512)
         monkeypatch.setattr(bpe_giant, "MAX_V", 512)
+    if route == "sharded flat":
+        monkeypatch.setattr(par_giant, "MAX_V", 512)
     monkeypatch.setattr(bench, "BIG_RUNS", 1)
     with contextlib.ExitStack() as stack:
         mesh = (stack.enter_context(one_rank_gloo(str(tmp_path / "store")))
                 if group else None)
-        got = bench.measure_big_vocab(heaps_400kb, "cpu", vocab, cfg, mesh)
+        got = bench.measure_big_vocab(heaps_400kb, "cpu", vocab, cfg, mesh,
+                                      save_to=str(tmp_path / "got"))
     assert got["engine"] == route
     assert (got["layout"] is not None) == (route == "giant")
-    assert got["launches"] == {"K3": 0, "G1": 0, "F1": 0}
+    assert got["launches"] == {"K3": 0, "G1": 0, "F1": 0, "S1": 0}
     assert len(got["times"]) == 1 and got["seconds"] == got["times"][0]
     _, n = bench.train_once(heaps_400kb, "cpu", vocab=vocab, engine="flat",
-                            **cfg)
+                            save_to=str(tmp_path / "flat"), **cfg)
     assert got["merges"] == n > 0
+    for ext in (".model", ".vocab"):
+        assert (tmp_path / ("got" + ext)).read_bytes() \
+            == (tmp_path / ("flat" + ext)).read_bytes()
 
 
 def test_config5_merges_extend_those_of_a_smaller_vocab(zipf_corpus_file,

@@ -843,3 +843,138 @@ def test_flat_trainer_on_cuda_matches_cpu(cuda, tmp_path):
         t.save(str(mp), str(vp))
         out[str(dev)] = (mp.read_bytes(), vp.read_bytes())
     assert out["cpu"] == out[str(cuda)]
+
+
+# ---------------------------------------------------------------------
+# the sharded flat loop S1 (csrc/flat_sharded.cu at world > 1, F1 alone)
+# ---------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["none", "nccl1"])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_sharded_world1_call_by_call(case, group, cuda, request):
+    """S1 of a rank alone (no group, and a one-rank NCCL group) against
+    its plain version after every call of 64 merges: records, the merge
+    count, done and the compacted stream identical; one launch (F1's) a
+    call with merges to make, none past the end; bpe_ops.pair_counts
+    never called on the card."""
+    g = (request.getfixturevalue("nccl_world1").group.WORLD
+         if group == "nccl1" else None)
+    corpus_kw, target, n_prev, unk, minf = FLAT_CASES[case]
+    arrays = flat_corpus(**corpus_kw)
+    want, got = (bpe_ops.train_init(bpe_ops.make_state(*arrays, device=d),
+                                    target, n_prev_merges=n_prev)
+                 for d in ("cpu", cuda))
+    counted = []
+    pair_counts = bpe_ops.pair_counts
+    kw = dict(target_merges=target, max_steps=64)
+    n0, calls = _kernels.flat_sharded_train.launches, 0
+    while not want.done and want.n_merges < target:
+        want = _kernels.flat_sharded_train(want, unk, minf, group=g, **kw)
+        bpe_ops.pair_counts = lambda *a: counted.append(a)
+        try:
+            got = _kernels.flat_sharded_train(got, unk, minf, group=g, **kw)
+        finally:
+            bpe_ops.pair_counts = pair_counts
+        calls += 1
+        assert (got.n_merges, got.done) == (want.n_merges, want.done)
+        np.testing.assert_array_equal(got.merges, want.merges)
+        np.testing.assert_array_equal(got.merge_freqs, want.merge_freqs)
+        for x, y in zip(bpe_ops.final_corpus(got.corpus), want.corpus):
+            assert torch.equal(x.cpu(), y)
+    assert _kernels.flat_sharded_train.launches - n0 == calls > 0
+    assert not counted
+    _kernels.flat_sharded_train(got, unk, minf, group=g, **kw)
+    assert _kernels.flat_sharded_train.launches - n0 == calls
+
+
+@pytest.mark.cuda
+def test_flat_sharded_chain_two_gloo_ranks(cuda, tmp_path):
+    """S1's chain (launch A, launch M, the exchange) in 2 gloo ranks on
+    one card against its plain version, call by call on every stream of
+    tests/torch_flat_cases.py (torch_dist_workers.s1_calls): records,
+    merge count, done and the span's compacted stream identical after
+    every call on each rank, the same merges on both ranks (every
+    rank picks the same pair), two launches a merge (and two for the
+    merge that finds none), none past the end, and bpe_ops.pair_counts
+    called once a run (the start), never per merge, also through
+    parallel.train.sharded_train."""
+    import torch_dist_workers as workers
+
+    ranks = workers.run_ranks(workers.s1_calls, 2, str(tmp_path),
+                              str(cuda), 64, timeout=900)
+    for case in [*FLAT_CASES, "sharded_train"]:
+        r0, r1 = ranks[0][case], ranks[1][case]
+        for r in (r0, r1):
+            assert r["same"], case
+            n = len(r["merges"])
+            assert n > 0 and r["calls"] > 0
+            assert 2 * n <= r["launches"] <= 2 * n + 2 * r["done"], case
+            assert r["past_end"] == 0 and r["pair_counts"] == 1, case
+        np.testing.assert_array_equal(r0["merges"], r1["merges"])
+
+
+@pytest.mark.cuda
+def test_flat_sharded_trainer_nccl1_matches_cpu(cuda, nccl_world1, tmp_path):
+    """BPETrainer(mesh=<one-rank NCCL group>) on long words (the sharded
+    flat route: words over 64 tokens) gives the bytes of the trainer on
+    the CPU, with one S1 launch a call of max_steps_per_call (256)
+    merges and no bpe_ops.pair_counts on the card."""
+    from shredword_tpu_torch.parallel import multihost
+
+    path = str(tmp_path / "long.txt")
+    make_long_corpus(path, raw_mb=0.05)
+    out = {}
+    pair_counts = bpe_ops.pair_counts
+    for dev in ("cpu", cuda):
+        counted = []
+        n0 = _kernels.flat_sharded_train.launches
+        mesh = multihost.global_mesh() if dev == cuda else None
+        t = BPETrainer(640, 0, 0.995, 2, device=dev, mesh=mesh)
+        t.load_corpus(path)
+        if dev == cuda:
+            bpe_ops.pair_counts = lambda *a: counted.append(a)
+        try:
+            assert t.train() == 384
+        finally:
+            bpe_ops.pair_counts = pair_counts
+        launches = _kernels.flat_sharded_train.launches - n0
+        assert launches == (2 if dev == cuda else 0)
+        assert not counted
+        mp, vp = tmp_path / "m", tmp_path / "v"
+        t.save(str(mp), str(vp))
+        out[str(dev)] = (mp.read_bytes(), vp.read_bytes())
+    assert out["cpu"] == out[str(cuda)]
+
+
+class _FailingLib:
+    """A kernel library whose launches fail."""
+
+    def __getattr__(self, name):
+        if name == "shred_cuda_error_string":
+            return lambda rc: b"refused"
+        return lambda *args: 98            # cudaErrorInvalidDeviceFunction
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_flat_sharded_failure_raises(fault, cuda, monkeypatch):
+    """A build or launch failure of S1 raises; nothing falls back to the
+    plain version (no merge made, no launch counted)."""
+    def no_build(*args, **kw):
+        raise RuntimeError("CUDA kernel build failed: refused")
+
+    if fault == "build":
+        monkeypatch.setattr(_kernels, "_lib", None)
+        monkeypatch.setattr(_kernels, "build", no_build)
+    else:
+        monkeypatch.setattr(_kernels, "lib", lambda: _FailingLib())
+    ckw, target, n_prev, unk, minf = FLAT_CASES["long_words"]
+    ts = bpe_ops.train_init(bpe_ops.make_state(*flat_corpus(**ckw),
+                                               device=cuda), target)
+    n0 = _kernels.flat_sharded_train.launches
+    with pytest.raises(RuntimeError, match="refused"):
+        _kernels.flat_sharded_train(ts, unk, minf, target_merges=target,
+                                    max_steps=64)
+    assert _kernels.flat_sharded_train.launches == n0
+    assert ts.n_merges == 0

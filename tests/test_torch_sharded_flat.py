@@ -1,15 +1,22 @@
-"""The sharded flat engine of the port (parallel/train.py) in two gloo CPU
+"""The sharded flat engine of the port (parallel/train.py) in gloo CPU
 ranks (tests/torch_dist_workers.py) against the JAX package's
 sharded_train on the CPU virtual mesh and the port's single-device flat
-engine: its stream layout, merges and frequencies, resume, and the
-routes of BPETrainer(shards=N) that reach it."""
+engine: its stream layout, merges and frequencies, resume, the routes of
+BPETrainer(shards=N) that reach it, the calls of its wrapper
+(_kernels.flat_sharded_train, S1 on a card) over 1, 2 and 3 ranks, and
+the host glue of S1's delta exchange."""
+
+import contextlib
 
 import numpy as np
 import pytest
+import torch
+from torch_flat_cases import SHARDED_CASES, flat_corpus
 
 import torch_dist_workers as workers
 from shredword_tpu.models.bpe import BPETrainer as JaxTrainer
 from shredword_tpu.parallel import make_mesh, shard_corpus, sharded_train
+from shredword_tpu_torch.ops import _kernels, bpe_ops
 from shredword_tpu_torch.parallel import train
 
 
@@ -108,3 +115,102 @@ def test_long_words_reach_sharded_flat(ranks, tmp_path):
         np.testing.assert_array_equal(freqs, single[1])
         np.testing.assert_array_equal(tf, single[2])
         assert (model, vocab) == single[3:]
+
+
+@pytest.fixture(scope="module", params=[1, 2, 3])
+def calls(request, tmp_path_factory):
+    """(world, every rank's workers.sharded_flat_calls) over 1, 2 and 3
+    gloo ranks."""
+    tmp = tmp_path_factory.mktemp(f"flat_calls{request.param}")
+    return request.param, workers.run_ranks(
+        workers.sharded_flat_calls, request.param, str(tmp), timeout=300)
+
+
+@pytest.fixture(scope="module")
+def jax_sharded():
+    """The JAX package's sharded_train on a 2-device mesh, per case of
+    SHARDED_CASES: (merges, freqs)."""
+    out = {}
+    for case, (ckw, target, n_prev, unk, minf) in SHARDED_CASES.items():
+        out[case] = sharded_train(*flat_corpus(**ckw), mesh=make_mesh(2),
+                                  target_merges=target, unk_id=unk,
+                                  min_pair_freq=minf, n_prev_merges=n_prev)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_sharded_flat_calls_match_jax(case, calls, jax_sharded):
+    """sharded_train over 1, 2 and 3 ranks, in calls of 1, 7 and 256
+    merges (max_steps_per_call), == the JAX sharded_train (merges and
+    freqs): words over 64 tokens with an unk byte; past PACK_LIMIT (the
+    JAX 2-key path) to a min_pair_freq stop; resumed at merge 16300."""
+    world, ranks = calls
+    jm, jf = jax_sharded[case]
+    ckw, target, n_prev, _, _ = SHARDED_CASES[case]
+    assert 0 < len(jm) < target - n_prev if case == "two_key_stop" \
+        else len(jm) == target - n_prev
+    if case == "long_words_unk":
+        assert np.bincount(flat_corpus(**ckw)[1]).max() > 64
+    else:
+        assert 256 + target > 2**14
+    for r in ranks:
+        for steps in workers.SHARDED_STEPS:
+            m, f = r[case, steps]
+            np.testing.assert_array_equal(m, jm, f"{world} ranks, {steps}")
+            np.testing.assert_array_equal(f, jf, f"{world} ranks, {steps}")
+
+
+def test_delta_exchange_builds_the_whole_table(calls):
+    """S1's host glue alone: on every rank the table it builds from the
+    gathered lists (train.initial_deltas, then each rank's net deltas of
+    each plain merge through train.gather_padded) == bpe_ops.pair_counts
+    of the whole corpus, after the start and after each merge; the
+    whole stream's length is summed over the ranks."""
+    world, ranks = calls
+    ckw, _, _, unk, _ = SHARDED_CASES["long_words_unk"]
+    arrays = flat_corpus(**ckw)
+    whole = bpe_ops.make_state(*arrays, device="cpu")
+    want = [bpe_ops.pair_counts(whole, unk)]
+    for i, ((a, b), _) in enumerate(ranks[0]["glue"][1:]):
+        whole = bpe_ops.apply_merge(whole, a, b, 256 + i)
+        want.append(bpe_ops.pair_counts(whole, unk))
+    assert len(want) == workers.GLUE_MERGES + 1
+    for r in ranks:
+        glue = r["glue"]
+        assert glue[0][0] == len(arrays[0])
+        assert [g[0] for g in glue[1:]] == [g[0] for g in ranks[0]["glue"][1:]]
+        for (_, (keys, counts)), (wk, wc) in zip(glue, want):
+            np.testing.assert_array_equal(keys, wk.numpy())
+            np.testing.assert_array_equal(counts, wc.numpy())
+
+
+@pytest.mark.parametrize("group", ["none", "gloo1"])
+def test_flat_sharded_train_on_cpu_is_plain(group, tmp_path, monkeypatch):
+    """The S1 wrapper on CPU tensors runs its plain version
+    (bpe_ops.train_loop) with no group and over a one-rank gloo group:
+    the same records call by call as train_loop, the kernel library
+    never loaded and no launch counted."""
+    def no_lib():
+        raise AssertionError("the CPU path loaded the kernel library")
+
+    monkeypatch.setattr(_kernels, "lib", no_lib)
+    ckw, target, n_prev, unk, minf = SHARDED_CASES["long_words_unk"]
+    arrays = flat_corpus(**ckw)
+    want, got = (bpe_ops.train_init(bpe_ops.make_state(*arrays, "cpu"),
+                                    target, n_prev) for _ in range(2))
+    n0 = _kernels.flat_sharded_train.launches
+    with (workers.one_rank_gloo(str(tmp_path / "store")) if group == "gloo1"
+          else contextlib.nullcontext()) as g:
+        while not want.done and want.n_merges < target:
+            want = bpe_ops.train_loop(want, unk, minf, target_merges=target,
+                                      max_steps=7)
+            got = _kernels.flat_sharded_train(got, unk, minf,
+                                              target_merges=target,
+                                              max_steps=7, group=g)
+            assert (got.n_merges, got.done) == (want.n_merges, want.done)
+            np.testing.assert_array_equal(got.merges, want.merges)
+            np.testing.assert_array_equal(got.merge_freqs, want.merge_freqs)
+            for x, y in zip(got.corpus, want.corpus):
+                assert torch.equal(x, y)
+    assert _kernels.flat_sharded_train.launches == n0
+    assert want.n_merges == target

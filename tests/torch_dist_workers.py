@@ -363,3 +363,144 @@ def sharded_flat_scenarios(corpus: str, tmp_dir: str) -> dict:
         long_corpus, tmp_dir, "long", shards=2, target_vocab_size=300,
         character_coverage=0.9999, min_pair_freq=2))
     return out
+
+
+SHARDED_STEPS = (1, 7, 256)     # max_steps_per_call of sharded_flat_calls
+GLUE_MERGES = 6                 # plain merges of exchange_tables
+
+
+def sharded_flat_calls() -> dict:
+    """sharded_train (its plain version, on the CPU) on every case of
+    torch_flat_cases.SHARDED_CASES in calls of each of SHARDED_STEPS
+    merges: {(case, steps): (merges, freqs)}; under "glue" the delta
+    exchange's host glue on the first case (exchange_tables)."""
+    from torch_flat_cases import SHARDED_CASES, flat_corpus
+
+    from shredword_tpu_torch.parallel import train
+
+    out = {}
+    for case, (ckw, target, n_prev, unk, minf) in SHARDED_CASES.items():
+        arrays = flat_corpus(**ckw)
+        for steps in SHARDED_STEPS:
+            out[case, steps] = train.sharded_train(
+                *arrays, mesh=dist.group.WORLD, target_merges=target,
+                unk_id=unk, min_pair_freq=minf, max_steps_per_call=steps,
+                n_prev_merges=n_prev, device="cpu")
+    ckw, _, _, unk, _ = SHARDED_CASES["long_words_unk"]
+    out["glue"] = exchange_tables(flat_corpus(**ckw), unk, GLUE_MERGES)
+    return out
+
+
+def _table(rows) -> tuple[np.ndarray, np.ndarray]:
+    """(keys, counts) of a table's int64 (key, count) rows, zeros
+    dropped."""
+    live = rows[:, 1] != 0
+    return rows[live, 0].numpy(), rows[live, 1].numpy()
+
+
+def exchange_tables(arrays, unk: int, merges: int) -> list:
+    """The host glue of S1's delta exchange on this rank's span, with the
+    table added up on the host: the whole corpus's pair counts from
+    train.initial_deltas, then after each of `merges` plain merges
+    (picked by train.global_best_pair, min_pair_freq 1) with every
+    rank's net deltas (its span's pair counts after the merge less those
+    before) gathered by train.gather_padded and added.  Returns [(the
+    whole stream's length, table), ((a, b), table), ...]."""
+    from shredword_tpu_torch.ops import bpe_ops
+    from shredword_tpu_torch.parallel import train
+
+    group = dist.group.WORLD
+    sc = train.shard_corpus(*arrays, group.size())
+    st = train.local_state(sc, group.rank(), "cpu")
+    n_all, table = train.initial_deltas(st, unk, group)
+    out = [(n_all, _table(table))]
+    for i in range(merges):
+        a, b, _ = train.global_best_pair(st, unk, 1, group)
+        kb, cb = bpe_ops.pair_counts(st, unk)
+        st = bpe_ops.apply_merge(st, a, b, 256 + i)
+        ka, ca = bpe_ops.pair_counts(st, unk)
+        keys, delta = bpe_ops.sum_by_key(torch.cat([kb, ka]),
+                                         torch.cat([-cb, ca]))
+        rows = torch.stack([keys, delta], 1)[delta != 0]
+        got = train.gather_padded(rows, len(rows), group)
+        got = got[got[:, 0] >= 0]
+        keys, counts = bpe_ops.sum_by_key(torch.cat([table[:, 0], got[:, 0]]),
+                                          torch.cat([table[:, 1], got[:, 1]]))
+        table = torch.stack([keys, counts], 1)
+        out.append(((a, b), _table(table)))
+    return out
+
+
+def s1_calls(dev: str, steps: int, cases=None) -> dict:
+    """S1 (_kernels.flat_sharded_train on `dev`, a card) against its
+    plain version (the same wrapper on CPU tensors), call by call in
+    calls of `steps` merges, on this rank's span of every stream of
+    torch_flat_cases.FLAT_CASES (or of those named in `cases`), then one
+    call past the end; per case
+    whether every call's records, merge count, done and the span's
+    compacted stream were identical,
+    the kernel's new merges, its launches and calls, and the calls of
+    bpe_ops.pair_counts the kernel's runs made; under "sharded_train"
+    the same for parallel.train.sharded_train on the card on the
+    long_words stream (its merges == the calls' there)."""
+    from torch_flat_cases import FLAT_CASES, flat_corpus
+
+    from shredword_tpu_torch.ops import _kernels, bpe_ops
+    from shredword_tpu_torch.parallel import train
+
+    torch.cuda.set_device(torch.device(dev).index or 0)
+    group = dist.group.WORLD
+    counted = []
+    pair_counts = bpe_ops.pair_counts
+
+    def spied(*args):
+        counted.append(1)
+        return pair_counts(*args)
+
+    bpe_ops.pair_counts = spied
+    out = {}
+    try:
+        for case in sorted(FLAT_CASES if cases is None else cases):
+            ckw, target, n_prev, unk, minf = FLAT_CASES[case]
+            sc = train.shard_corpus(*flat_corpus(**ckw), group.size())
+            want, got = (bpe_ops.train_init(
+                train.local_state(sc, group.rank(), d), target, n_prev)
+                for d in ("cpu", dev))
+            kw = dict(target_merges=target, max_steps=steps, group=group)
+            n0, calls, spied_n, same = (_kernels.flat_sharded_train.launches,
+                                        0, 0, True)
+            while not want.done and want.n_merges < target:
+                want = _kernels.flat_sharded_train(want, unk, minf, **kw)
+                c0 = len(counted)
+                got = _kernels.flat_sharded_train(got, unk, minf, **kw)
+                spied_n += len(counted) - c0
+                calls += 1
+                same &= ((got.n_merges, got.done) == (want.n_merges,
+                                                      want.done)
+                         and np.array_equal(got.merges, want.merges)
+                         and np.array_equal(got.merge_freqs,
+                                            want.merge_freqs)
+                         and all(torch.equal(x.cpu(), y) for x, y in zip(
+                             bpe_ops.final_corpus(got.corpus),
+                             want.corpus)))
+            launches = _kernels.flat_sharded_train.launches - n0
+            again = _kernels.flat_sharded_train(got, unk, minf, **kw)
+            same &= (again.n_merges, again.done) == (got.n_merges, got.done)
+            out[case] = dict(
+                same=same, merges=got.merges[n_prev:got.n_merges].copy(),
+                done=got.done, launches=launches, calls=calls,
+                past_end=_kernels.flat_sharded_train.launches - n0
+                - launches, pair_counts=spied_n)
+        ckw, target, _, unk, minf = FLAT_CASES["long_words"]
+        n0, c0 = _kernels.flat_sharded_train.launches, len(counted)
+        merges, _ = train.sharded_train(
+            *flat_corpus(**ckw), mesh=group, target_merges=target,
+            unk_id=unk, min_pair_freq=minf, device=dev)
+        out["sharded_train"] = dict(
+            same=np.array_equal(merges, out["long_words"]["merges"]),
+            merges=merges, done=len(merges) < target,
+            launches=_kernels.flat_sharded_train.launches - n0, calls=1,
+            past_end=0, pair_counts=len(counted) - c0)
+    finally:
+        bpe_ops.pair_counts = pair_counts
+    return out

@@ -80,3 +80,17 @@ FLAT_CASES = {
     "reserve_131328_rows": (dict(seed=70, n_words=400, max_len=60,
                                  high=65270), 131072, 65270, -1, 60),
 }
+
+# The sharded flat engine's cases (S1 and its plain version against the
+# JAX package's sharded_train), the same fields as FLAT_CASES: words over
+# 64 tokens and an unk byte; a vocab past the JAX package's PACK_LIMIT
+# (2^14: its 2-key path) with a min_pair_freq stop after 70 merges; a
+# resume at merge 16300 whose stream holds ids past 16383
+SHARDED_CASES = {
+    "long_words_unk": (dict(seed=80, n_words=90, max_len=150, unk=98,
+                            alpha=4), 120, 0, 98, 2),
+    "two_key_stop": (dict(seed=81, n_words=120, max_len=90, alpha=4),
+                     16300, 0, -1, 200),
+    "two_key_resumed": (dict(seed=82, n_words=120, max_len=80,
+                             high=16300), 16420, 16300, -1, 2),
+}
