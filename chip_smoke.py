@@ -177,7 +177,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      gpt_starts_device's MB/s and layers beside the native scanner's on
      the same bytes
  17. (runs after phase 14) the CLI, python -m shredword_tpu_torch, in
-     subprocesses on the card: the wall-clock seconds of python alone,
+     subprocesses on the card, five chains of them side by side and
+     phase 18 beside them: the wall-clock seconds of python alone,
      import torch, and info (the package's import), and, in a fresh
      process, of the CUDA context and the kernel and host libraries'
      loads; train at the headline (vocab 768, min_pair_freq 50,
@@ -190,7 +191,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      --vocab-size 1024 --seed-size 10000 == phase 14's pieces; the
      daemon is stopped at the end, also on failure
 
- 18. (runs before phase 22) the port's bench, python -m
+ 18. (runs beside phase 17) the port's bench, python -m
      shredword_tpu_torch.bench --corpus <this corpus>, in a fresh process
      on the card: exit 0, the last line bench.py's four keys (metric
      train_mb_s, value and vs_baseline above 0), the hist == giant == flat
@@ -260,7 +261,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      main path on the corpus's first 4,000,000 characters with both
      models (ids == the CPU backend's, decode round-trips); the phase's
      seconds.  Phases 20 and 21 load the gigabyte once (`one_load`)
- 22. (runs after phase 18) BASELINE configs 3 and 4 with phase 20's
+ 22. (runs after phase 15) BASELINE configs 3 and 4 with phase 20's
      merges (v 16,028, the hash table): bench.measure_big_encode once:
      run A, Tokenizer(merges).encode_array over the whole gigabyte, in
      the windows of encode_ops.STREAM_WINDOW_BYTES, and run B, its
@@ -307,24 +308,31 @@ Phases (any failure exits non-zero, and no result line is printed):
      load_corpus -> train -> save on the long-word corpus: bytes ==
      phase 19's single-device output, one launch a call, train() s and ms
      a merge beside phase 19's (within 1.5x); then 2 gloo ranks on the
-     card (spawned), S1's chain (launch A, launch M, the exchange): the
-     seeded streams of S1_GLOO_CASES against the plain version call by call
-     (torch_dist_workers.s1_calls: two launches a merge, one
-     bpe_ops.pair_counts a run), the headline (vocab 768) through
-     BPETrainer(shards=2) with the table engines declined: bytes == the
-     JAX golden digest; on the long-word corpus the first 1,024
-     merges == single-device F1's with every rank's merges gathered and
-     equal, the first 128 merges in one call timed against the plain
-     version's, with the bound of F1's bytes plus the rows an exchange of
-     exact deltas must carry (each rank's distinct changed pairs, written
-     once and read by the other rank: s1_exchange_rows), and the next 64
-     merges under torch.profiler: launch A's and launch M's device µs and
-     the exchange's host ms per merge; each rank's seconds per part (the
-     kernels line's "2 gloo ranks" row: launches, times and bound of
-     rank 0's long-word run)
+     card (spawned), S1's chain (launch A, launch M, the fixed-size
+     exchange): the seeded streams of S1_GLOO_CASES against the plain
+     version call by call (torch_dist_workers.s1_calls: the launches the
+     calls plan, two a merge and two for each merge a fallback runs
+     again; one bpe_ops.pair_counts a run), the headline (vocab 768)
+     through BPETrainer(shards=2) with the table engines declined: bytes
+     == the JAX golden digest, the launches its calls plan; on the
+     long-word corpus the first 128 merges with the exchange's rows
+     started from one (timed; merges == those from S1's default rows),
+     the first 1,024 merges == single-device F1's with every rank's
+     merges gathered and equal, the first 128 merges in one call timed
+     against the plain version's, the rows each rank sent == its span's
+     distinct changed pairs, with the bound of F1's bytes plus those rows
+     and the start's (written once and read by the other rank:
+     s1_exchange_rows), the rows gathered and added, the rows a list and
+     the merges that fell back and the exchange's host ms per merge, and
+     the next 64 merges with CUDA events around each launch behind a
+     spin: launch A's and launch M's device µs; each rank's seconds per
+     part (the kernels line's "2 gloo ranks" row: launches, times and
+     bound of rank 0's long-word run)
 
 The long-word corpus is generated here too (make_long_corpus), and the
-1 GB corpus (make_big_corpus, on every core).
+1 GB corpus (make_big_corpus, on every core).  The gloo ranks of
+phases 11, 15 and 24 fork from a server started first with torch
+imported.
 The corpus is generated here (shredword_tpu_torch.bench.make_corpus, the
 JAX bench's generator) and checked against its known digest.  The last lines of standard output are
 the card's name and power limit, the kernels' JSON record and
@@ -858,8 +866,9 @@ def phase_giant_vs_plain(device: torch.device, bench_layout) -> dict:
 # phases 8 and 9
 # ---------------------------------------------------------------------
 
-SPIN_CYCLES = {"sparse": 2_000_000,     # ~1 ms: one launch to enqueue
-               "step": 60_000_000}      # ~30 ms: 130 launches, 128 reduces
+SPIN_CYCLES = {"sparse": 8_000_000,     # ~4 ms: one launch to enqueue
+               "step": 240_000_000}     # ~120 ms: 130 launches, 128 reduces
+                                        # (up to 30 ms on a slow host)
 
 
 def step_kernels(sparse: bool):
@@ -977,7 +986,8 @@ def phase_step_vs_plain(device, bench_layout, *, sparse: bool) -> dict:
         ms_k, enq = td.ms() / n, td.enqueue_ms[0]
         spin_ms = elapsed_ms(lambda: torch.cuda._sleep(SPIN_CYCLES[name]),
                              device)
-        check(enq < spin_ms, f"{name}: the spin outlasts the enqueue")
+        check(enq < spin_ms, f"{name}: the spin outlasts the enqueue "
+              f"({enq:.3f} ms, the spin {spin_ms:.3f})")
         cost = step_cost(bench_layout, v, device, sparse=sparse, merges=n)
         extra_txt = f", {cost['matched']:.1f} columns matched"
         if sparse:
@@ -1210,8 +1220,28 @@ def sharded_rank(rank, world, store, corpus, vocab, out_dir, result, dev):
                        vocab=hashlib.sha256(vocab_b).hexdigest()), f)
 
 
+RANK_PRELOAD = ["torch", "numpy", "shredword_tpu_torch.bench"]
+
+
+def rank_context():
+    """The multiprocessing context of the gloo ranks: a fork server, which
+    main() starts first with RANK_PRELOAD imported, so that each rank
+    forks from it instead of importing torch again (about 10 s a rank on
+    the card's host).  The server never touches CUDA."""
+    return multiprocessing.get_context("forkserver")
+
+
+def start_rank_server() -> None:
+    """Start rank_context()'s server now; its imports run beside the
+    build."""
+    from multiprocessing import forkserver
+
+    rank_context().set_forkserver_preload(RANK_PRELOAD)
+    forkserver.ensure_running()
+
+
 def run_gloo_ranks(corpus, out_dir, vocab, device, world=2) -> list[dict]:
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     store = os.path.join(out_dir, f"store_{vocab}")
     results = [os.path.join(out_dir, f"rank{r}_{vocab}.json")
                for r in range(world)]
@@ -2411,7 +2441,7 @@ def phase_g1_vs_plain(device, out_dir) -> int:
               f"G1 {form} == plain across the int16 boundary")
         worst = max(worst, err)
     v, world = 1024, 2
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     store = os.path.join(out_dir, "store_g1")
     results = [os.path.join(out_dir, f"g1_rank{r}.json")
                for r in range(world)]
@@ -2539,7 +2569,8 @@ def phase_g1_timed(device, arrays) -> dict:
            n_done=0, init_done=0, allowed=n, steps=n, **kw)
         launches = kernel.launches - n0
         ms_k, enq = td.ms() / n, td.enqueue_ms[0]
-        check(enq < spin_ms, f"G1 {form}: the spin outlasts the enqueue")
+        check(enq < spin_ms, f"G1 {form}: the spin outlasts the enqueue "
+              f"({enq:.3f} ms, the spin {spin_ms:.3f})")
         check(launches == (1 if form == "alone" else 2 * n + 1),
               f"G1 {form}: launches per call")
         print(f"[g1] {form}: bench layout {(L, W)} "
@@ -3170,9 +3201,21 @@ def stop_daemon(sock: str) -> None:
                   f"killed")
 
 
+def side_by_side(*chains):
+    """Run each chain (a function of no argument) in a thread of its own,
+    all at once; their results in order.  A chain that raises fails the
+    phase once every chain has ended."""
+    with concurrent.futures.ThreadPoolExecutor(len(chains)) as pool:
+        futures = [pool.submit(c) for c in chains]
+        return [f.result() for f in futures]
+
+
 def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
               device) -> None:
-    """python -m shredword_tpu_torch in subprocesses on the card."""
+    """python -m shredword_tpu_torch in subprocesses on the card, five
+    chains of fresh processes side by side (and phase 18's bench beside
+    them): the start-up's parts; cold train, info, encode, decode; the
+    traced train; the daemon's calls; train-unigram."""
     from shredword_tpu_torch import Tokenizer, UnigramTrainer
 
     d = os.path.join(out_dir, "cli")
@@ -3193,52 +3236,18 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
               and out.startswith(f"trained {golden['merges']} merges"),
               f"CLI train ({tag}) == the JAX golden digest")
 
-    torch.cuda.empty_cache()
-    python_s, _ = wall_s("pass")
-    torch_s, _ = wall_s("import torch")
-    _, split = wall_s(
-        "import time, torch\n"
-        "t0 = time.perf_counter(); torch.zeros(1, device='cuda')\n"
-        "t1 = time.perf_counter()\n"
-        "from shredword_tpu_torch.ops import _kernels; _kernels.lib()\n"
-        "t2 = time.perf_counter()\n"
-        "from shredword_tpu_torch.runtime import native; native.lib()\n"
-        "print(t1 - t0, t2 - t1, time.perf_counter() - t2)")
-    ctx_s, klib_s, hlib_s = map(float, split.split())
-    cold_s, out = cli_run(train_args("cold"))
-    check_golden("cold", out)
-    info_s, info = cli_run(["info", os.path.join(d, "cold.model")])
-    check(f"merges:   {golden['merges']}" in info, "CLI info")
-    trace_dir = os.path.join(d, "trace")
-    traced_s, out = cli_run(train_args("traced"),
-                            env=dict(os.environ, SHREDWORD_TRACE=trace_dir))
-    check_golden("traced", out)
-    k1 = trace_kernels(trace_dir, K1_KERNEL)
-    check(k1 > 0, "CLI train launched K1 (hist_fused.cu)")
-    print(f"[cli] wall s: python alone {python_s:.3f}, import torch "
-          f"{torch_s:.3f}, info (the package's import) {info_s:.3f}; in a "
-          f"fresh process the CUDA context {ctx_s:.3f}, the kernel library "
-          f"(cached build) {klib_s:.3f}, the host library {hlib_s:.3f}")
-    print(f"[cli] train vocab 768 on the 16 MB corpus, fresh process: "
-          f"{cold_s:.3f} s; under SHREDWORD_TRACE {traced_s:.3f} s, "
-          f"{k1} {K1_KERNEL} launches in its trace; .model/.vocab == the "
-          f"JAX golden digest")
-
-    sock = os.path.join(d, "d.sock")
-    env_d = dict(os.environ, SHREDWORD_TORCH_DAEMON="1",
-                 SHREDWORD_TORCH_DAEMON_SOCKET=sock)
-    try:
-        first_s, out = cli_run(train_args("daemon1"), env=env_d)
-        check_golden("daemon1", out)
-        warm_s, out = cli_run(train_args("daemon2"), env=env_d)
-        check_golden("daemon2", out)
-        _, status = cli_run(["daemon", "status", "--socket", sock])
-        check(status.strip() == "daemon running", "the daemon still runs")
-    finally:
-        stop_daemon(sock)
-    print(f"[cli] train through the daemon (SHREDWORD_TORCH_DAEMON=1): "
-          f"first call (starts it) {first_s:.3f} s, a warm call "
-          f"{warm_s:.3f} s; == golden")
+    def start_up():
+        python_s, _ = wall_s("pass")
+        torch_s, _ = wall_s("import torch")
+        _, split = wall_s(
+            "import time, torch\n"
+            "t0 = time.perf_counter(); torch.zeros(1, device='cuda')\n"
+            "t1 = time.perf_counter()\n"
+            "from shredword_tpu_torch.ops import _kernels; _kernels.lib()\n"
+            "t2 = time.perf_counter()\n"
+            "from shredword_tpu_torch.runtime import native; native.lib()\n"
+            "print(t1 - t0, t2 - t1, time.perf_counter() - t2)")
+        return (python_s, torch_s, *map(float, split.split()))
 
     text = enc_text[:UNI_ENCODE_CHARS]
     src, ids_path, back = (os.path.join(d, f) for f in
@@ -3246,21 +3255,77 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
     with open(src, "w", encoding="utf-8") as f:
         f.write(text)
     model = os.path.join(d, "cold.model")
-    enc_s, _ = cli_run(["encode", "--model", model, "--input", src,
-                        "--output", ids_path])
+
+    def cold():
+        cold_s, out = cli_run(train_args("cold"))
+        check_golden("cold", out)
+        info_s, info = cli_run(["info", model])
+        check(f"merges:   {golden['merges']}" in info, "CLI info")
+        enc_s, _ = cli_run(["encode", "--model", model, "--input", src,
+                            "--output", ids_path])
+        dec_s, _ = cli_run(["decode", "--model", model, "--input",
+                            ids_path, "--output", back])
+        return cold_s, info_s, enc_s, dec_s
+
+    trace_dir = os.path.join(d, "trace")
+
+    def traced():
+        traced_s, out = cli_run(train_args("traced"), env=dict(
+            os.environ, SHREDWORD_TRACE=trace_dir))
+        check_golden("traced", out)
+        return traced_s
+
+    sock = os.path.join(d, "d.sock")
+    env_d = dict(os.environ, SHREDWORD_TORCH_DAEMON="1",
+                 SHREDWORD_TORCH_DAEMON_SOCKET=sock)
+
+    def daemon():
+        try:
+            first_s, out = cli_run(train_args("daemon1"), env=env_d)
+            check_golden("daemon1", out)
+            warm_s, out = cli_run(train_args("daemon2"), env=env_d)
+            check_golden("daemon2", out)
+            _, status = cli_run(["daemon", "status", "--socket", sock])
+            check(status.strip() == "daemon running", "the daemon still runs")
+        finally:
+            stop_daemon(sock)
+        return first_s, warm_s
+
+    uni = os.path.join(d, "u.model")
+
+    def unigram():
+        uni_s, _ = cli_run(["train-unigram", "--corpus", corpus, "--model",
+                            uni, "--vocab-size", "1024", "--seed-size",
+                            "10000"])
+        return uni_s
+
+    torch.cuda.empty_cache()
+    ((python_s, torch_s, ctx_s, klib_s, hlib_s),
+     (cold_s, info_s, enc_s, dec_s), traced_s, (first_s, warm_s),
+     uni_s) = side_by_side(start_up, cold, traced, daemon, unigram)
+    k1 = trace_kernels(trace_dir, K1_KERNEL)
+    check(k1 > 0, "CLI train launched K1 (hist_fused.cu)")
+    print(f"[cli] wall s (five chains of fresh processes side by side, "
+          f"beside phase 18's bench): python alone {python_s:.3f}, import "
+          f"torch {torch_s:.3f}, info (the package's import) {info_s:.3f}; "
+          f"in a fresh process the CUDA context {ctx_s:.3f}, the kernel "
+          f"library (cached build) {klib_s:.3f}, the host library "
+          f"{hlib_s:.3f}")
+    print(f"[cli] train vocab 768 on the 16 MB corpus, fresh process: "
+          f"{cold_s:.3f} s; under SHREDWORD_TRACE {traced_s:.3f} s, "
+          f"{k1} {K1_KERNEL} launches in its trace; .model/.vocab == the "
+          f"JAX golden digest")
+    print(f"[cli] train through the daemon (SHREDWORD_TORCH_DAEMON=1): "
+          f"first call (starts it) {first_s:.3f} s, a warm call "
+          f"{warm_s:.3f} s; == golden")
+
     with open(ids_path) as f:
         ids = [int(x) for x in f.read().split()]
     want = Tokenizer.load(model, device=device).encode(
         text, allowed_special="all")
     check(ids == want, "CLI encode == the Tokenizer's ids on the card")
-    dec_s, _ = cli_run(["decode", "--model", model, "--input", ids_path,
-                        "--output", back])
     with open(back, encoding="utf-8") as f:
         check(f.read() == text, "CLI decode round-trips")
-    uni = os.path.join(d, "u.model")
-    uni_s, out = cli_run(["train-unigram", "--corpus", corpus, "--model",
-                          uni, "--vocab-size", "1024", "--seed-size",
-                          "10000"])
     check(UnigramTrainer.load_model(uni)[0] == uni_pieces,
           "CLI train-unigram == phase 14's 1,024 pieces")
     print(f"[cli] encode {len(text)} characters -> {len(ids)} ids "
@@ -3514,8 +3579,10 @@ def phase_flat(device, out_dir, corpus, arrays) -> tuple[int, dict, dict]:
 # ---------------------------------------------------------------------
 
 S1_MERGES = 1024     # the long-word corpus's merges in 2 gloo ranks
-S1_PROFILED = 64     # the profiled call's merges, after the timed 128
+S1_EVENTED = 64     # the merges whose launches are timed, after 128
 S1_KERNELS = ("flat_apply_pick_kernel", "flat_merge_kernel")  # A, M
+S1_SPIN_CYCLES = 2_000_000   # ~1 ms: one launch to enqueue behind it (over
+                             # 0.2 ms on a slow host)
 # the seeded streams of the gloo ranks, for the script's time: the ids
 # past 65535, long words, a min_pair_freq stop, words merged to one token
 # and unk -1, 769 merges at 3-5 ms each there (the card tests run all)
@@ -3528,20 +3595,20 @@ def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
     """One gloo rank of phase 24 (spawned): S1's chain against its plain
     version on the seeded streams (torch_dist_workers.s1_calls), the
     headline through BPETrainer(shards=world) with the table engines patched
-    to decline (its seconds, S1's launches, the bytes' digests), then on the
-    rank's span of the long-word corpus the first 128 merges in one call,
-    timed (CUDA events around it), against the plain version's (timed alike;
-    records and the span's compacted stream), the next S1_PROFILED merges
-    under torch.profiler (launch A's and launch M's device µs) with the
-    exchange on the host clock, then on to S1_MERGES merges in calls of 256
-    (S1's launches over this run); every rank's merges gathered and
-    compared. Writes the results."""
+    to decline (its seconds, S1's launches and those its calls plan, the
+    bytes' digests), then on the rank's span of the long-word corpus the
+    first 128 merges in one call, timed (CUDA events around it; the rows
+    the rank sent, gathered and added), against the plain version's (timed
+    alike; records and the span's compacted stream; the exchange on the
+    host clock), the next S1_EVENTED merges with CUDA events around each
+    launch behind a spin (launch A's and launch M's device µs), then on
+    to S1_MERGES merges in calls of 256 (S1's launches over this run and
+    those its calls plan, the merges that fell back, the rows a list);
+    every rank's merges gathered and compared. Writes the results."""
     import torch.distributed as dist
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import torch_dist_workers as workers
-    from shredword_tpu_torch.bench import HostClock
+    from shredword_tpu_torch.bench import HostClock, Timed
     from shredword_tpu_torch.ops import _kernels, bpe_ops
     from shredword_tpu_torch.parallel import giant as par_giant
     from shredword_tpu_torch.parallel import hist as par_hist
@@ -3567,7 +3634,8 @@ def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
                    par_giant.sharded_giant_train)
         par_hist.sharded_hist_train = par_giant.sharded_giant_train = \
             lambda *a, **k: None
-        l0 = _kernels.flat_sharded_train.launches
+        counter = workers.ChainCounter(_kernels.flat_sharded_train)
+        _kernels.flat_sharded_train = counter
         try:
             n, train_s, _, _, model, vocab_b = train_and_save(
                 headline, out_dir, 768, device, tag=f"_s1r{rank}",
@@ -3575,9 +3643,10 @@ def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
         finally:
             par_hist.sharded_hist_train, par_giant.sharded_giant_train = \
                 engines
+            _kernels.flat_sharded_train = counter.fn
         lap("headline")
-        head = dict(n=n, secs=train_s,
-                    launches=_kernels.flat_sharded_train.launches - l0,
+        head = dict(n=n, secs=train_s, launches=counter.launches,
+                    planned=counter.expected,
                     model=hashlib.sha256(model).hexdigest(),
                     vocab=hashlib.sha256(vocab_b).hexdigest())
         with np.load(arrays_path) as z:
@@ -3586,22 +3655,53 @@ def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
         unk, minf = GIANT["unk_id"], GIANT["min_pair_freq"]
         target = GIANT_VOCAB - 256
 
+        planned = [0]
+
         def call(ts, steps, fn=_kernels.flat_sharded_train):
-            return fn(ts, unk, minf, target_merges=target, max_steps=steps,
-                      group=group)
+            if fn is _kernels.flat_sharded_train_plain:
+                return fn(ts, unk, minf, target_merges=target,
+                          max_steps=steps, group=group)
+            ts, want = workers.chain_call(fn, ts, unk, minf,
+                                          target_merges=target,
+                                          max_steps=steps, group=group)
+            planned[0] += want
+            return ts
 
         def fresh():
             return bpe_ops.train_init(
                 par_train.local_state(sc, rank, device), target)
 
+        # the first 128 merges with the exchange's rows started from one:
+        # the first merge's fallback sets them from its longest list
         out = {}
+        small = fresh()
+        dist.barrier()
+        small_ms = elapsed_ms(lambda: out.__setitem__(
+            "s", _kernels.flat_sharded_train(
+                small, unk, minf, target_merges=target,
+                max_steps=TIMED_MERGES, group=group, rows=1)), device)
+        small = out.pop("s")
+        one_row = dict(ms=small_ms / TIMED_MERGES, rows=small.corpus.rows,
+                       fallbacks=small.corpus.fallbacks,
+                       exchanged=small.corpus.exchanged)
+        lap("first 128 from one row")
         ts = fresh()
+        clock = HostClock(device)
+        exchange = par_train.exchange_rows
+        par_train.exchange_rows = clock.wrap("exchange", exchange)
         dist.barrier()
         run0 = _kernels.flat_sharded_train.launches
-        ms = elapsed_ms(lambda: out.__setitem__(
-            "k", call(ts, TIMED_MERGES)), device)
+        try:
+            ms = elapsed_ms(lambda: out.__setitem__(
+                "k", call(ts, TIMED_MERGES)), device)
+        finally:
+            par_train.exchange_rows = exchange
         ts = out["k"]
-        listed, exchanged = ts.corpus.listed, ts.corpus.exchanged
+        fs = ts.corpus
+        listed, exchanged, added = fs.listed, fs.exchanged, fs.added
+        one_row["same"] = (small.n_merges == ts.n_merges
+                           and np.array_equal(small.merges, ts.merges))
+        del small
         lap("long words' first 128")
         p = fresh()
         dist.barrier()
@@ -3610,27 +3710,32 @@ def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
         err = flat_diff(ts, out.pop("p"))
         del p
         lap("plain, first 128")
-        clock = HostClock(device)
-        gather = par_train.gather_padded
-        par_train.gather_padded = clock.wrap("exchange", gather)
+        # launch A and launch M alone: CUDA events around each launch,
+        # enqueued while a spin holds the card (the profiler would cost
+        # this fresh process a fixed 10 s)
+        lib = _kernels.lib()
+        step = lib.shred_flat_sharded_step
+        timers = [Timed(step, lead=S1_SPIN_CYCLES) for _ in S1_KERNELS]
+        lib.shred_flat_sharded_step = lambda *a: timers[a[-3]](*a)
         n0, l0 = ts.n_merges, _kernels.flat_sharded_train.launches
+        p0 = planned[0]
         try:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                ts = call(ts, S1_PROFILED)
-                torch.cuda.synchronize(device)
+            ts = call(ts, S1_EVENTED)
         finally:
-            par_train.gather_padded = gather
-        n_prof = ts.n_merges - n0
-        prof_launches = _kernels.flat_sharded_train.launches - l0
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        us = {k: sum(e.time_range.elapsed_us() for e in events
-                     if k in e.name) / n_prof for k in S1_KERNELS}
-        traced = {k: sum(k in e.name for e in events) for k in S1_KERNELS}
-        lap("profiled")
+            lib.shred_flat_sharded_step = step
+        n_ev = ts.n_merges - n0
+        ev_launches = _kernels.flat_sharded_train.launches - l0
+        ev_planned = planned[0] - p0
+        us = {k: t.ms() * 1e3 / n_ev for k, t in zip(S1_KERNELS, timers)}
+        traced = {k: len(t.events) for k, t in zip(S1_KERNELS, timers)}
+        enqueue_ms = max(max(t.enqueue_ms) for t in timers)
+        spin_ms = elapsed_ms(lambda: torch.cuda._sleep(S1_SPIN_CYCLES),
+                             device)
+        lap("launches timed")
         while not ts.done and ts.n_merges < S1_MERGES:
             ts = call(ts, min(256, S1_MERGES - ts.n_merges))
         run_launches = _kernels.flat_sharded_train.launches - run0
+        run_planned = planned[0]
         mine = torch.tensor(ts.merges[:ts.n_merges], device=device)
         every = [torch.empty_like(mine) for _ in range(world)]
         dist.all_gather(every, mine, group=group)
@@ -3645,10 +3750,13 @@ def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
             merges=ts.merges[:ts.n_merges].tolist(),
             freqs=ts.merge_freqs[:ts.n_merges].tolist(), same=same,
             err=err, ms=ms / TIMED_MERGES, plain_ms=plain_ms / TIMED_MERGES,
-            listed=listed, exchanged=exchanged, us=us, traced=traced,
-            prof_merges=n_prof, prof_launches=prof_launches,
-            run_launches=run_launches,
-            exchange_ms=clock.secs["exchange"] * 1e3 / n_prof,
+            listed=listed, exchanged=exchanged, added=added, us=us,
+            traced=traced, ev_merges=n_ev, ev_launches=ev_launches,
+            ev_planned=ev_planned, run_launches=run_launches,
+            run_planned=run_planned, fallbacks=ts.corpus.fallbacks,
+            rows=ts.corpus.rows, one_row=one_row,
+            enqueue_ms=enqueue_ms, spin_ms=spin_ms,
+            exchange_ms=clock.secs["exchange"] * 1e3 / TIMED_MERGES,
             exchange_calls=clock.calls["exchange"], secs=secs), f)
 
 
@@ -3657,7 +3765,7 @@ def run_s1_ranks(arrays, headline, out_dir, device,
     """s1_gloo_rank in `world` spawned gloo ranks on `device`."""
     path = os.path.join(out_dir, "s1_long.npz")
     np.savez(path, tokens=arrays[0], word_id=arrays[1], wcount=arrays[2])
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     store = os.path.join(out_dir, "store_s1")
     results = [os.path.join(out_dir, f"s1_rank{r}.json")
                for r in range(world)]
@@ -3683,24 +3791,27 @@ def run_s1_ranks(arrays, headline, out_dir, device,
     return out
 
 
-def s1_exchange_rows(arrays, device, merges, world: int) -> list[int]:
+def s1_exchange_rows(arrays, device, merges,
+                     world: int) -> tuple[list[int], list[int]]:
     """Per rank of `world` (parallel.train.shard_corpus's spans of the
     arrays), the (key, delta) rows an exchange of exact deltas must carry
-    over `merges`: the span's distinct pairs once (the start), then after
-    each merge every distinct pair of the span whose count it changed,
-    but (a, b), whose count every rank sets to 0 itself.  The merges are
-    applied by the plain version (bpe_ops.apply_merge), so the rows do
-    not depend on S1's warp-summed lists or their padding."""
+    over `merges`: the span's distinct pairs once (the start; the first
+    list), then after each merge every distinct pair of the span whose
+    count it changed, but (a, b), whose count every rank sets to 0
+    itself (the second).  The merges are applied by the plain version
+    (bpe_ops.apply_merge), so the rows do not depend on S1's lists or
+    their padding."""
     from shredword_tpu_torch.ops import bpe_ops
     from shredword_tpu_torch.parallel import train as par_train
 
     unk = GIANT["unk_id"]
     sc = par_train.shard_corpus(*arrays, world)
-    rows = []
+    starts, changed = [], []
     for r in range(world):
         st = par_train.local_state(sc, r, device)
         keys, counts = bpe_ops.pair_counts(st, unk)
-        n = len(keys)
+        starts.append(len(keys))
+        n = 0
         for i, (a, b) in enumerate(merges):
             st = bpe_ops.apply_merge(st, int(a), int(b), 256 + i)
             k2, c2 = bpe_ops.pair_counts(st, unk)
@@ -3708,8 +3819,8 @@ def s1_exchange_rows(arrays, device, merges, world: int) -> list[int]:
                                           torch.cat([-counts, c2]))
             n += int(((diff != 0) & (uk != (int(a) << 32 | int(b)))).sum())
             keys, counts = k2, c2
-        rows.append(n)
-    return rows
+        changed.append(n)
+    return starts, changed
 
 
 def phase_s1(device, out_dir, corpus, arrays, f1_slice, headline,
@@ -3807,9 +3918,9 @@ def phase_s1(device, out_dir, corpus, arrays, f1_slice, headline,
         check(head["model"] == golden["model_sha256"]
               and head["vocab"] == golden["vocab_sha256"]
               and head["n"] == golden["merges"]
-              and 2 * head["n"] <= head["launches"] <= 2 * head["n"] + 2,
+              and head["launches"] == head["planned"] >= 2 * head["n"],
               f"gloo rank {r}: the sharded flat route at the headline == "
-              f"the JAX golden digest, two S1 launches a merge")
+              f"the JAX golden digest, the S1 launches its calls plan")
         print(f"[s1] gloo rank {r}/2 on {device}, the headline (vocab 768, "
               f"table engines declined): {head['n']} merges, train "
               f"{head['secs']:.4f} s ({head['secs'] / head['n'] * 1e3:.4f} "
@@ -3818,19 +3929,40 @@ def phase_s1(device, out_dir, corpus, arrays, f1_slice, headline,
         for case, c in res["cases"].items():
             check(c["same"] and c["merges"] > 0 and c["past_end"] == 0
                   and c["pair_counts"] == 1
-                  and 2 * c["merges"] <= c["launches"]
-                  <= 2 * c["merges"] + 2 * c["done"],
-                  f"gloo rank {r}: S1 == plain on {case}, two launches a "
-                  f"merge, one pair count a run")
+                  and c["launches"] == c["expected"] >= 2 * c["merges"],
+                  f"gloo rank {r}: S1 == plain on {case}, the launches "
+                  f"its calls plan, one pair count a run")
         check(res["same"], f"gloo rank {r}: every rank picked the same "
               f"pairs")
         check(len(res["merges"]) == S1_MERGES
               and np.array_equal(np.asarray(res["merges"]), want),
               f"gloo rank {r}: the first {S1_MERGES} merges == F1's")
         check(res["err"] == 0, f"gloo rank {r}: S1 == plain, first 128")
-        check(res["prof_launches"] == 2 * res["prof_merges"]
-              and res["run_launches"] == 2 * S1_MERGES,
-              f"gloo rank {r}: two S1 launches a merge")
+        check(res["ev_launches"] == res["ev_planned"]
+              >= 2 * res["ev_merges"]
+              and res["run_launches"] == res["run_planned"]
+              and (res["fallbacks"] or res["run_planned"] == 2 * S1_MERGES),
+              f"gloo rank {r}: two S1 launches a merge, and two for each "
+              f"merge a fallback runs again")
+        check(res["enqueue_ms"] < res["spin_ms"],
+              f"gloo rank {r}: every launch was enqueued within its spin, "
+              f"so its events time the launch alone (the longest "
+              f"{res['enqueue_ms']:.3f} ms, the spin {res['spin_ms']:.3f})")
+        check(res["fallbacks"] == ranks[0]["fallbacks"]
+              and res["rows"] == ranks[0]["rows"]
+              and res["one_row"]["same"]
+              and res["one_row"]["fallbacks"]
+              == ranks[0]["one_row"]["fallbacks"],
+              f"gloo rank {r}: the same fallbacks as rank 0; the first "
+              f"{TIMED_MERGES} merges from one row == from "
+              f"{_kernels.S1_ROWS}")
+        one = res["one_row"]
+        print(f"[s1] gloo rank {r}/2: the first {TIMED_MERGES} merges "
+              f"with the exchange's rows started from 1: {one['ms']:.6f} "
+              f"ms per merge, {one['rows']} rows a list after fallbacks "
+              f"at merges {one['fallbacks']}, "
+              f"{one['exchanged'] / TIMED_MERGES:.1f} rows gathered per "
+              f"merge; from {_kernels.S1_ROWS}: {res['ms']:.6f} ({CARD})")
         err = max(err, res["err"])
         us = res["us"]
         print(f"[s1] gloo rank {r}/2 on {device}: the seeded streams == "
@@ -3840,16 +3972,33 @@ def phase_s1(device, out_dir, corpus, arrays, f1_slice, headline,
               f"{TIMED_MERGES}: {res['ms']:.6f} ms per merge (CUDA events "
               f"around the call, the host's exchange included), plain "
               f"{res['plain_ms']:.4f}, max |S1 - plain| = {res['err']}, "
-              f"{res['listed'] / TIMED_MERGES:.1f} deltas listed and "
-              f"{res['exchanged'] / TIMED_MERGES:.1f} rows gathered (pads "
-              f"included) per merge; the next {res['prof_merges']} merges "
-              f"(profiled, {res['prof_launches']} launches): launch A "
+              f"{res['listed'] / TIMED_MERGES:.1f} rows sent, "
+              f"{res['exchanged'] / TIMED_MERGES:.1f} gathered (headers "
+              f"and pads included) and {res['added'] / TIMED_MERGES:.1f} "
+              f"live ones added per merge (the start's included); "
+              f"{res['rows']} rows a list, fallbacks at merges "
+              f"{res['fallbacks']}; the exchange {res['exchange_ms']:.4f} "
+              f"ms per merge on the host clock ({res['exchange_calls']} "
+              f"calls); the next {res['ev_merges']} merges "
+              f"({res['ev_launches']} launches): launch A "
               f"{us[S1_KERNELS[0]]:.3f} µs, launch M {us[S1_KERNELS[1]]:.3f}"
-              f" µs per merge on the card ({res['traced']} traced), the "
-              f"exchange {res['exchange_ms']:.4f} ms per merge on the host "
-              f"clock ({res['exchange_calls']} calls); the rank's seconds: "
+              f" µs per merge on the card ({res['traced']} timed, CUDA "
+              f"events around each behind a {res['spin_ms']:.3f} ms spin, "
+              f"enqueued in at most {res['enqueue_ms']:.3f} ms); the "
+              f"rank's seconds: "
               + ", ".join(f"{k} {v:.1f}" for k, v in res["secs"].items()))
-    rows = s1_exchange_rows(arrays, device, want[:TIMED_MERGES], 2)
+    starts, changed = s1_exchange_rows(arrays, device, want[:TIMED_MERGES],
+                                       2)
+    for r, res in enumerate(ranks):
+        check(res["listed"] == changed[r],
+              f"gloo rank {r}: the rows sent over the first {TIMED_MERGES} "
+              f"merges ({res['listed']}) == the span's distinct changed "
+              f"pairs ({changed[r]})")
+    print(f"[s1] rows sent over the first {TIMED_MERGES} merges == each "
+          f"span's distinct changed pairs: " + ", ".join(
+              f"rank {r} {n / TIMED_MERGES:.1f} a merge"
+              for r, n in enumerate(changed)))
+    rows = [a + b for a, b in zip(starts, changed)]
     nbytes, ops = f1_slice["work"]
     # each rank's rows written once and read by the other rank
     per_merge = 16 * 2 * sum(rows) / TIMED_MERGES
@@ -4866,32 +5015,52 @@ BENCH_TIMEOUT = 900
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}     # bench.py's
 
 
-def phase_bench(corpus) -> None:
-    """python -m shredword_tpu_torch.bench on this corpus, in a fresh
-    process on the card: exit 0, bench.py's four keys last with a value
-    and vs_baseline above 0, and the engines' cross-check on its
-    standard error, which is echoed."""
+def bench_start(corpus, out_dir) -> tuple:
+    """Start python -m shredword_tpu_torch.bench on this corpus in a
+    fresh process on the card, its output to files; phase 17's processes
+    run beside it.  Returns what phase_bench waits on."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "shredword_tpu_torch.bench",
-                        "--corpus", corpus], capture_output=True, text=True,
-                       timeout=BENCH_TIMEOUT, cwd=ROOT)
+    out, err = (open(os.path.join(out_dir, f"bench.{k}"), "w+")
+                for k in ("out", "err"))
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "shredword_tpu_torch.bench", "--corpus",
+                             corpus], stdout=out, stderr=err, text=True,
+                            cwd=ROOT)
+    return proc, out, err, time.perf_counter()
+
+
+def phase_bench(started) -> None:
+    """Wait for bench_start's process: exit 0, bench.py's four keys last
+    with a value and vs_baseline above 0, and the engines' cross-check
+    on its standard error, which is echoed."""
+    proc, out, err, t0 = started
+    try:
+        proc.wait(max(1.0, BENCH_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
     secs = time.perf_counter() - t0
-    for line in r.stderr.splitlines():
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    for line in stderr.splitlines():
         print(line if line.startswith("[bench]") else f"[bench] {line}")
-    check(r.returncode == 0, f"the bench exited {r.returncode}")
-    lines = r.stdout.strip().splitlines()
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}")
+    lines = stdout.strip().splitlines()
     check(bool(lines), "the bench printed its line")
-    out = json.loads(lines[-1])
+    line = json.loads(lines[-1])
     print(f"[bench] its line: {lines[-1]}")
-    check(set(out) == BENCH_KEYS and out["metric"] == "train_mb_s"
-          and out["unit"] == "MB/s", "the bench's line has bench.py's keys")
-    check(out["value"] > 0 and out["vs_baseline"] > 0,
+    check(set(line) == BENCH_KEYS and line["metric"] == "train_mb_s"
+          and line["unit"] == "MB/s", "the bench's line has bench.py's keys")
+    check(line["value"] > 0 and line["vs_baseline"] > 0,
           "the bench's value and vs_baseline are above 0")
-    check("device engine cross-check: hist == giant == flat" in r.stderr,
+    check("device engine cross-check: hist == giant == flat" in stderr,
           "the bench's cross-check held")
     print(f"[bench] phase 18: python -m shredword_tpu_torch.bench in "
-          f"{secs:.1f} s ({CARD})")
+          f"{secs:.1f} s, beside phase 17's processes ({CARD})")
 
 
 def main() -> int:
@@ -4909,6 +5078,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     lap = Laps()
+    start_rank_server()
     card, clocked = phase_env()
     lap("phase 1")
     with open(os.path.join(ROOT, "tests", "golden", "bench_v768.json")) as f:
@@ -4995,8 +5165,17 @@ def main() -> int:
         uni_card = phase_uni_1024(device, corpus)
         phase_uni_sharded(device, corpus, uni_card)
         lap("phase 14")
-        phase_cli(corpus, tmp, golden, enc_text, uni_card.pieces, device)
+        bench = bench_start(corpus, tmp)     # phase 18, beside phase 17
+        try:
+            phase_cli(corpus, tmp, golden, enc_text, uni_card.pieces,
+                      device)
+        except BaseException:
+            bench[0].kill()
+            bench[0].wait(30)
+            raise
         lap("phase 17")
+        phase_bench(bench)
+        lap("phase 18")
         # phase 15: the row-sharded giant engine (G1) and sharded flat
         multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
                              rank=0)
@@ -5013,8 +5192,6 @@ def main() -> int:
                                                   (model_giant, vocab_giant))
         phase_sharded_giant_gloo(corpus, tmp, device)
         lap("phase 15")
-        phase_bench(corpus)
-        lap("phase 18")
         # last: their host-heavy runs would precede the profiled phases
         config3 = phase_config3(device, big_corpus_path(), c2_merges,
                                 plain_slice)

@@ -15,12 +15,13 @@
 //   - the word pass: a warp for each unit of UNIT_WORDS words, each word
 //     merged in place by a lane group by its live length, its net deltas
 //     gathered in the warp's buffer in shared memory.  A full buffer is
-//     summed by key and either added to the table (F1) or, with LIST,
-//     appended to the rank's delta list in device memory (S1 at world >
-//     1, whose ranks add every rank's list to their tables).
-// Data written by other blocks of the same launch (the table, the
-// segment maxima, the presence index, the state, the block results and
-// the delta list) is read through L2 (__ldcg and atomics).
+//     summed by key and added to the pair table (F1) or, with DELTA, to
+//     the rank's delta table of the pass (S1 at world > 1: the same
+//     probes on a second, smaller table, whose used slots are listed so
+//     that the pass's end compacts and clears only those).
+// Data written by other blocks of the same launch (the tables, the
+// segment maxima, the presence index, the state and the block results)
+// is read through L2 (__ldcg and atomics).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -45,9 +46,16 @@ constexpr int UNITS = CHUNK_WORDS / UNIT_WORDS;  // units per chunk
 constexpr int SEG_SHIFT = 8;     // SEG = 256 slots per kept maximum
 constexpr int SEG = 1 << SEG_SHIFT;
 
-// st[]; ST_LISTED is S1's: the entries of this pass's delta list
+// st[] (ST_WORDS ints); from ST_LISTED on S1's, over several ranks:
+// the rows its passes listed, the chain's halt (HALT_*), the delta
+// table's used slots, the gathered rows launch A added, launch M's
+// ticket of finished blocks
 enum { ST_OVERFLOW = 0, ST_MERGED, ST_STEPS, ST_DONE, ST_VISITED,
-       ST_CANDIDATES, ST_REFRESHED, ST_LISTED };
+       ST_CANDIDATES, ST_REFRESHED, ST_LISTED, ST_HALT, ST_USED, ST_ADDED,
+       ST_TICKET, ST_WORDS = 16 };
+// why launch A stopped S1's chain: a rank's list did not fit the
+// exchange (the fallback), or a rank's table or list overflowed
+enum { HALT_FALLBACK = 1, HALT_OVERFLOW = 2 };
 
 // the phases of the clocked build (csrc/phase_clock.cuh); a barrier phase
 // is the wait in the grid barrier that ends the phase before it
@@ -72,10 +80,17 @@ struct FlatArgs {
   int W, nc, ncw;
   unsigned mask;  // cap - 1
   int steps, unk, min_freq, n_done, init;
-  // S1 at world > 1: the pass's net deltas, (key, delta) int64 pairs, at
-  // most lcap of them (null in F1)
-  long long* dlist;
-  int lcap;
+  // S1 at world > 1 (null in F1): the rank's delta table of a pass,
+  // dkey uint64 [dmask + 1] (EMPTY when clean) with dval int32, the
+  // slots it used (dused int32 [dmask + 1], st[ST_USED] of them), and
+  // the compact list send int64 [1 + scap, 2]: a header (the count, the
+  // rank's overflow flag), then (key, delta) rows
+  unsigned long long* dkey;
+  int* dval;
+  int* dused;
+  unsigned dmask;
+  long long* send;
+  int scap;
 };
 
 __device__ __forceinline__ unsigned slot_of(unsigned long long k,
@@ -92,29 +107,36 @@ __device__ __forceinline__ unsigned slot_of(unsigned long long k,
 // keys probed side by side: each round loads the slot of every key still
 // probing at once and swaps EMPTY for the key in every empty one at
 // once; then the adds into the slots, each marking its slot's segment
-// dirty.
-template <int K>
+// dirty.  DELTA adds to S1's delta table instead, with no segments, and
+// lists every slot it takes.
+template <int K, bool DELTA = false>
 __device__ __forceinline__ void add_keys(const FlatArgs& p,
                                          const unsigned long long (&key)[K],
                                          const int (&d)[K]) {
   enum { NONE, PROBING, FOUND };
+  unsigned long long* const tkey = DELTA ? p.dkey : p.tkey;
+  int* const cnt = DELTA ? p.dval : p.cnt;
+  const unsigned mask = DELTA ? p.dmask : p.mask;
   unsigned slot[K];
   int state[K];
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     state[r] = key[r] != EMPTY ? PROBING : NONE;
-    slot[r] = slot_of(key[r], p.mask);
+    slot[r] = slot_of(key[r], mask);
   }
   for (unsigned probe = 0;; ++probe) {
     unsigned long long t[K];
 #pragma unroll
     for (int r = 0; r < K; ++r)
-      t[r] = state[r] == PROBING ? __ldcg(p.tkey + slot[r]) : 0;
+      t[r] = state[r] == PROBING ? __ldcg(tkey + slot[r]) : 0;
 #pragma unroll
     for (int r = 0; r < K; ++r)
       if (state[r] == PROBING && t[r] == EMPTY) {
-        t[r] = atomicCAS(p.tkey + slot[r], EMPTY, key[r]);
-        if (t[r] == EMPTY) state[r] = FOUND;  // this thread inserted it
+        t[r] = atomicCAS(tkey + slot[r], EMPTY, key[r]);
+        if (t[r] == EMPTY) {  // this thread inserted it
+          state[r] = FOUND;
+          if (DELTA) p.dused[atomicAdd(p.st + ST_USED, 1)] = (int)slot[r];
+        }
       }
     bool probing = false;
 #pragma unroll
@@ -123,12 +145,12 @@ __device__ __forceinline__ void add_keys(const FlatArgs& p,
       if (t[r] == key[r]) {
         state[r] = FOUND;
       } else {
-        slot[r] = (slot[r] + 1) & p.mask;
+        slot[r] = (slot[r] + 1) & mask;
         probing = true;
       }
     }
     if (!probing) break;
-    if (probe == p.mask) {  // every slot probed: the table is full
+    if (probe == mask) {  // every slot probed: the table is full
       atomicExch(p.st + ST_OVERFLOW, 1);
       break;
     }
@@ -136,8 +158,8 @@ __device__ __forceinline__ void add_keys(const FlatArgs& p,
 #pragma unroll
   for (int r = 0; r < K; ++r)
     if (state[r] == FOUND) {
-      atomicAdd(p.cnt + slot[r], d[r]);
-      p.dirty[slot[r] >> SEG_SHIFT] = 1;
+      atomicAdd(cnt + slot[r], d[r]);
+      if (!DELTA) p.dirty[slot[r] >> SEG_SHIFT] = 1;
     }
 }
 
@@ -162,9 +184,9 @@ struct Deltas {
 // Applies the n deltas of a warp's buffer (every lane of the warp calls
 // it): the deltas of equal keys in each window of 32 are summed
 // (__match_any_sync) and compacted in place, then lane l adds the sums l,
-// l + 32, ..., side by side (add_keys), or, with LIST, the sums are
-// appended to the delta list.
-template <bool LIST = false>
+// l + 32, ..., side by side (add_keys) to the pair table or, with DELTA,
+// to the delta table.
+template <bool DELTA = false>
 static __device__ void flush(const FlatArgs& p, unsigned long long* keys,
                              int* ds, int n) {
   const int lane = threadIdx.x & 31;
@@ -187,21 +209,6 @@ static __device__ void flush(const FlatArgs& p, unsigned long long* keys,
     m += __popc(leads);
     __syncwarp();
   }
-  if (LIST) {
-    int at = 0;
-    if (lane == 0 && m) at = atomicAdd(p.st + ST_LISTED, m);
-    at = __shfl_sync(FULL, at, 0);
-    if (at + m > p.lcap) {  // cannot happen: a pass has at most 2N deltas
-      if (lane == 0) atomicExch(p.st + ST_OVERFLOW, 1);
-    } else {
-      for (int i = lane; i < m; i += 32) {
-        p.dlist[2 * (size_t)(at + i)] = (long long)keys[i];
-        p.dlist[2 * (size_t)(at + i) + 1] = ds[i];
-      }
-    }
-    __syncwarp();  // the buffer is written again after this
-    return;
-  }
   constexpr int K = BUF / 32;
   unsigned long long key[K];
   int d[K];
@@ -211,19 +218,19 @@ static __device__ void flush(const FlatArgs& p, unsigned long long* keys,
     key[r] = i < m ? keys[i] : EMPTY;
     d[r] = i < m ? ds[i] : 0;
   }
-  add_keys<K>(p, key, d);
+  add_keys<K, DELTA>(p, key, d);
   __syncwarp();  // the buffer is written again after this
 }
 
 // Adds one delta per lane to the warp's buffer (key EMPTY: none); every
 // lane of the warp calls it.  A full buffer is applied first.
-template <bool LIST>
+template <bool DELTA>
 __device__ __forceinline__ void push(const FlatArgs& p, Deltas& q,
                                      unsigned long long key, int d) {
   const unsigned v = __ballot_sync(FULL, key != EMPTY);
   if (!v) return;
   if (q.n + 32 > BUF) {
-    flush<LIST>(p, q.key, q.d, q.n);
+    flush<DELTA>(p, q.key, q.d, q.n);
     q.n = 0;
   }
   if (key != EMPTY) {
@@ -271,7 +278,7 @@ __device__ __forceinline__ void sig_set(uint4& s, unsigned bit) {
 // the word's (a, b) merge into nw in place with the table's deltas.
 // Returns the occurrences merged; *new_len gets the live length and, when
 // a merge happened, *sig the signature of the live ids.
-template <int G, bool COUNT, bool LIST>
+template <int G, bool COUNT, bool DELTA>
 __device__ __forceinline__ int merge_word(const FlatArgs& p, Deltas& q,
                                           int* t, int n, int wc, int segs,
                                           int a, int b, int nw,
@@ -290,7 +297,7 @@ __device__ __forceinline__ int merge_word(const FlatArgs& p, Deltas& q,
     int x1 = __shfl_down_sync(FULL, x0, 1, G);
     if (l + 1 >= G && j + 1 < n) x1 = t[j + 1];
     if (COUNT) {
-      push<LIST>(p, q, j + 1 < n ? pair_key(p, x0, x1, EMPTY) : EMPTY, wc);
+      push<DELTA>(p, q, j + 1 < n ? pair_key(p, x0, x1, EMPTY) : EMPTY, wc);
       continue;
     }
     // the positions past the segment are not written before the next one
@@ -330,10 +337,10 @@ __device__ __forceinline__ int merge_word(const FlatArgs& p, Deltas& q,
           k3 = pair_key(p, nw, x2, ab);
         }
       }
-      push<LIST>(p, q, k0, -wc);
-      push<LIST>(p, q, k1, wc);
-      push<LIST>(p, q, k2, -wc);
-      push<LIST>(p, q, k3, wc);
+      push<DELTA>(p, q, k0, -wc);
+      push<DELTA>(p, q, k1, wc);
+      push<DELTA>(p, q, k2, -wc);
+      push<DELTA>(p, q, k3, wc);
     }
     csel2 = (S >> (G - 2)) & 1;
     csel = (S >> (G - 1)) & 1;
@@ -356,7 +363,7 @@ __device__ __forceinline__ int merge_word(const FlatArgs& p, Deltas& q,
 // lane's own word's length, offset and count; lanes is the warp's 32 ints
 // of shared memory.  Returns the occurrences merged (on each group's lane
 // 0).
-template <int G, bool COUNT, bool LIST>
+template <int G, bool COUNT, bool DELTA>
 __device__ __forceinline__ int word_class(const FlatArgs& p, Deltas& q,
                                           unsigned cls, int w0, int n_l,
                                           int o_l, int wc_l, int a, int b,
@@ -379,9 +386,9 @@ __device__ __forceinline__ int word_class(const FlatArgs& p, Deltas& q,
     const int segs = G == 32 ? (n + G - 1) / G : 1;
     int new_len;
     uint4 sig;
-    const int m = merge_word<G, COUNT, LIST>(p, q, p.tokens + o, n, wc,
-                                             segs, a, b, nw, ab, &new_len,
-                                             &sig);
+    const int m = merge_word<G, COUNT, DELTA>(p, q, p.tokens + o, n, wc,
+                                              segs, a, b, nw, ab, &new_len,
+                                              &sig);
     if (m && l == 0) {
       p.len[w0 + src] = new_len;
       p.sig[w0 + src] = sig;
@@ -395,7 +402,7 @@ __device__ __forceinline__ int word_class(const FlatArgs& p, Deltas& q,
 // Merges (COUNT: counts) the UNIT_WORDS words from w0 on the calling
 // warp, each by a lane group by its live length, their deltas into q;
 // returns the occurrences merged, on every lane.
-template <bool COUNT, bool LIST = false>
+template <bool COUNT, bool DELTA = false>
 static __device__ int unit_pass(const FlatArgs& p, Deltas& q, int w0, int a,
                                 int b, int nw, unsigned long long ab,
                                 int* lanes, int& candidates) {
@@ -419,16 +426,17 @@ static __device__ int unit_pass(const FlatArgs& p, Deltas& q, int w0, int a,
   end = __shfl_sync(FULL, end, UNIT_WORDS);
   const int start = __shfl_sync(FULL, o, 0);
   if (!COUNT) candidates += __popc(__ballot_sync(FULL, n >= 2));
-  int m = word_class<4, COUNT, LIST>(
+  int m = word_class<4, COUNT, DELTA>(
       p, q, __ballot_sync(FULL, n >= 2 && n <= 4), w0, n, o, wc, a, b, nw,
       ab, lanes);
-  m += word_class<8, COUNT, LIST>(p, q, __ballot_sync(FULL, n > 4 && n <= 8),
-                                  w0, n, o, wc, a, b, nw, ab, lanes);
-  m += word_class<16, COUNT, LIST>(
+  m += word_class<8, COUNT, DELTA>(
+      p, q, __ballot_sync(FULL, n > 4 && n <= 8), w0, n, o, wc, a, b, nw,
+      ab, lanes);
+  m += word_class<16, COUNT, DELTA>(
       p, q, __ballot_sync(FULL, n > 8 && n <= 16), w0, n, o, wc, a, b, nw,
       ab, lanes);
-  m += word_class<32, COUNT, LIST>(p, q, __ballot_sync(FULL, n > 16), w0, n,
-                                   o, wc, a, b, nw, ab, lanes);
+  m += word_class<32, COUNT, DELTA>(p, q, __ballot_sync(FULL, n > 16), w0,
+                                    n, o, wc, a, b, nw, ab, lanes);
   return (int)__reduce_add_sync(FULL, (unsigned)m);
 }
 
@@ -436,7 +444,7 @@ static __device__ int unit_pass(const FlatArgs& p, Deltas& q, int w0, int a,
 // b, a warp for each UNIT_WORDS of their words (unit u on warp u mod
 // nwarps, in every merge of a launch); a chunk where a merge happened
 // gets nw's presence bit.  The deltas stay in q (the caller flushes it).
-template <bool LIST>
+template <bool DELTA>
 __device__ __forceinline__ void pair_pass(const FlatArgs& p, Deltas& q,
                                           int gwarp, int nwarps, int a,
                                           int b, int nw, int* lanes,
@@ -453,8 +461,8 @@ __device__ __forceinline__ void pair_pass(const FlatArgs& p, Deltas& q,
     const unsigned bit = 1u << (ch & 31);
     if (!(__ldcg(ra + (ch >> 5)) & __ldcg(rb + (ch >> 5)) & bit)) continue;
     visited += u % UNITS == 0;
-    const int m = unit_pass<false, LIST>(p, q, u * UNIT_WORDS, a, b, nw, ab,
-                                         lanes, candidates);
+    const int m = unit_pass<false, DELTA>(p, q, u * UNIT_WORDS, a, b, nw,
+                                          ab, lanes, candidates);
     if (m) {
       merged += m;
       if (lane == 0) atomicOr(rn + (ch >> 5), bit);

@@ -150,7 +150,7 @@ def bind(path: str) -> ctypes.CDLL:
     L.shred_gpt_status_ints.restype = i
     L.shred_flat_train.argtypes = [p] * 14 + [i] * 9 + [p]
     L.shred_flat_train.restype = i
-    L.shred_flat_sharded_step.argtypes = [p] * 16 + [i] * 12 + [p]
+    L.shred_flat_sharded_step.argtypes = [p] * 19 + [i] * 14 + [p]
     L.shred_flat_sharded_step.restype = i
     L.shred_cuda_error_string.argtypes = [i]
     L.shred_cuda_error_string.restype = ctypes.c_char_p
@@ -933,7 +933,9 @@ def hist_merge_step_sparse_plain(tw, wcount, presT, scal, *,
 FLAT_MAX_BLOCKS = 1024     # block results the wrapper makes room for
 FLAT_ST_OVERFLOW, FLAT_ST_MERGED, FLAT_ST_STEPS, FLAT_ST_DONE, \
     FLAT_ST_VISITED, FLAT_ST_CANDIDATES, FLAT_ST_REFRESHED, \
-    FLAT_ST_LISTED = range(8)           # csrc/flat_table.cuh's st[]
+    FLAT_ST_LISTED, FLAT_ST_HALT, FLAT_ST_USED, FLAT_ST_ADDED, \
+    FLAT_ST_TICKET = range(12)          # csrc/flat_table.cuh's st[]
+FLAT_HALT_FALLBACK = 1                  # csrc/flat_table.cuh HALT_FALLBACK
 
 
 def flat_train(ts: bpe_ops.TrainState, unk_id: int, min_pair_freq: int, *,
@@ -1049,7 +1051,8 @@ def _flat_call(ts, unk_id, min_pair_freq, *, target_merges, max_steps):
     _check(rc)
     fs.counted = True
     out = torch.cat([fs.st, records.view(-1)]).cpu().numpy()
-    st, rec = out[:8], out[8:].reshape(steps, 3)
+    w = bpe_ops.ST_WORDS
+    st, rec = out[:w], out[w:].reshape(steps, 3)
     return _flat_finish(ts, fs, st, rec, n, int(st[FLAT_ST_STEPS]),
                         bool(st[FLAT_ST_DONE])), 1
 
@@ -1058,9 +1061,13 @@ def _flat_call(ts, unk_id, min_pair_freq, *, target_merges, max_steps):
 # the sharded flat engine's merge loop (S1)
 # ---------------------------------------------------------------------
 
+S1_ROWS = 4096    # the rows a rank's list takes in an exchange, at first
+
+
 def flat_sharded_train(ts: bpe_ops.TrainState, unk_id: int,
                        min_pair_freq: int, *, target_merges: int,
-                       max_steps: int, group=None) -> bpe_ops.TrainState:
+                       max_steps: int, group=None,
+                       rows: int | None = None) -> bpe_ops.TrainState:
     """:func:`flat_train` over the ranks of a torch.distributed ``group``,
     each holding its own span of the stream (words never span ranks):
     every rank makes the same merges, those of the whole corpus, with the
@@ -1077,16 +1084,26 @@ def flat_sharded_train(ts: bpe_ops.TrainState, unk_id: int,
       - world > 1: the chain of ``csrc/flat_sharded.cu``.  The first call
         makes ``ts.corpus`` a ``bpe_ops.FlatState`` whose table is sized
         on the whole stream and is to hold the whole corpus's pair
-        counts: the ranks' pair counts (``bpe_ops.pair_counts`` of the span,
-        once), gathered (``parallel.train.gather_pairs``) and summed by key,
-        are its first deltas. Then per merge launch A (add the gathered
-        deltas to the table, the pick, the record) and launch M (F1's pass
-        over the span, its net deltas into the rank's delta list), the
-        list's length read back, and ``parallel.train.gather_padded`` of the
-        lists: the deltas the next merge's launch A adds
-        (``FlatState.pending``; over the run ``FlatState.listed`` rows
-        listed, ``.exchanged`` gathered). Two launches a merge; a merge that
-        finds no pair is the last.
+        counts: the ranks' pair counts (``bpe_ops.pair_counts`` of the
+        span, once), gathered (``parallel.train.gather_pairs``) and summed
+        by key, are its first rows.  Then per merge launch A (add every
+        rank's gathered rows to the table, the pick, the record), launch M
+        (F1's pass over the span, its net deltas summed by key in a delta
+        table on the card, compacted into the rank's list) and
+        ``parallel.train.exchange_rows``: every rank's list at a fixed
+        size of ``FlatState.rows`` rows (``rows`` when the run starts,
+        else :data:`S1_ROWS`), which the next launch A reads.  Two
+        launches a merge a call plans, and no read on the host between
+        them: the records, the state and the gathered headers come back
+        once a call.  A merge that finds no pair is the last; the
+        launches after it in the call do nothing.  When a list was longer
+        than the rows, launch A halts the chain on every rank alike (the
+        launches after it do nothing), and at the call's end every rank
+        exchanges again with the rows grown (``parallel.train.next_rows``;
+        never shrunk in a run), notes the merge in
+        ``FlatState.fallbacks`` and runs the call's remaining merges with
+        two launches each.  A rank's overflow travels in its header, so
+        every rank raises the same ``RuntimeError``.
 
     A call after ``done`` or at ``target_merges`` changes nothing and
     launches nothing.  Every launch counts.  A build or launch failure
@@ -1110,41 +1127,73 @@ def flat_sharded_train(ts: bpe_ops.TrainState, unk_id: int,
     if not isinstance(fs, bpe_ops.FlatState):
         n_all, first = par_train.initial_deltas(fs, unk_id, group)
         fs = bpe_ops.FlatState(fs, table_n=n_all)
-        fs.counted, fs.pending = True, first
-        fs.dlist = torch.empty((max(2 * fs.n, 1), 2), dtype=torch.int64,
-                               device=dev)
+        fs.counted = True
+        fs.recv = par_train.pack_rows(first)[None]     # one list: the start
     fs.reserve(256 + target_merges)
+    _s1_room(fs, rows)
     i32 = dict(dtype=torch.int32, device=dev)
     records = torch.empty((steps, 3), **i32)
     bbest = torch.empty(2 * FLAT_MAX_BLOCKS, dtype=torch.int64, device=dev)
-    ptrs = _flat_args(fs, bbest, records)
+    ptrs = _flat_args(fs, bbest, records) + [
+        x.data_ptr() for x in (fs.dkey, fs.dval, fs.dused, fs.send)]
     minf = min(min_pair_freq, 2**31 - 1)
-    k, done = 0, False
+    fs.st[FLAT_ST_STEPS] = 0
+    w, k = bpe_ops.ST_WORDS, 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for i in range(steps):
-            for phase in (0, 1):            # launch A, then launch M
-                _check(lib().shred_flat_sharded_step(
-                    *ptrs, fs.dlist.data_ptr(), fs.pending.data_ptr(),
-                    fs.n_words, fs.pres.shape[1], fs.cap, steps, unk_id,
-                    minf, n, len(fs.dlist), len(fs.pending), i, phase,
-                    FLAT_MAX_BLOCKS, stream))
-                flat_sharded_train.launches += 1
-            st = fs.st.cpu().numpy()        # waits for launch M
-            if st[FLAT_ST_OVERFLOW] or st[FLAT_ST_DONE]:
-                done = bool(st[FLAT_ST_DONE])
-                fs.pending = fs.pending[:0]     # launch A added it
+        while True:
+            for i in range(k, steps):
+                for phase in (0, 1):            # launch A, then launch M
+                    _check(lib().shred_flat_sharded_step(
+                        *ptrs, fs.recv.data_ptr(), fs.n_words,
+                        fs.pres.shape[1], fs.cap, len(fs.dkey),
+                        len(fs.send) - 1, steps, unk_id, minf, n,
+                        fs.recv.shape[0], fs.recv.shape[1] - 1, i, phase,
+                        FLAT_MAX_BLOCKS, stream))
+                    flat_sharded_train.launches += 1
+                fs.recv = par_train.exchange_rows(fs.send, fs.rows, group,
+                                                  out=fs.recv)
+                fs.exchanged += fs.recv.shape[0] * fs.recv.shape[1]
+            out = torch.cat([fs.st.long(), records.view(-1).long(),
+                             fs.recv[:, 0].reshape(-1)]).cpu().numpy()
+            st, rec = out[:w], out[w:w + 3 * steps].reshape(steps, 3)
+            # an overflow flag raises here, on every rank alike
+            grown = par_train.next_rows(out[w + 3 * steps:].reshape(-1, 2),
+                                        fs.rows)
+            k = int(st[FLAT_ST_STEPS])
+            if st[FLAT_ST_HALT] != FLAT_HALT_FALLBACK:
                 break
-            fs.listed += int(st[FLAT_ST_LISTED])
-            fs.pending = par_train.gather_padded(
-                fs.dlist, int(st[FLAT_ST_LISTED]), group)
-            fs.exchanged += len(fs.pending)
-            k = i + 1
-    rec = records[:k].cpu().numpy()
-    return _flat_finish(ts, fs, st, rec, n, k, done)
+            fs.fallbacks.append(n + k)
+            fs.rows = grown
+            fs.recv = par_train.exchange_rows(fs.send, fs.rows, group)
+            fs.exchanged += fs.recv.shape[0] * fs.recv.shape[1]
+            fs.st[FLAT_ST_HALT] = 0
+    fs.listed, fs.added = int(st[FLAT_ST_LISTED]), int(st[FLAT_ST_ADDED])
+    return _flat_finish(ts, fs, st, rec, n, k, bool(st[FLAT_ST_DONE]))
 
 
 flat_sharded_train.launches = 0
+
+
+def _s1_room(fs: bpe_ops.FlatState, rows: int | None) -> None:
+    """S1's buffers on a rank above world 1, the same shapes on every
+    rank: the delta table, a power of two of at least twice the most
+    distinct pairs a merge can change (at most 2N of the whole stream,
+    and at most four an id, every changed pair holding a, b or the new
+    id beside one other id), with its used slots; the compact list, with
+    room for half the table; and, at the run's start, the rows of the
+    exchange: ``rows``, else :data:`S1_ROWS`, at most the list's room."""
+    most = min(2 * fs.table_n, 4 * fs.pres.shape[0] + 4)
+    dcap = 1 << max(10, (2 * most - 1).bit_length())
+    dev = fs.tokens.device
+    if fs.dkey is None or len(fs.dkey) < dcap:
+        fs.dkey = torch.full((dcap,), -1, dtype=torch.int64, device=dev)
+        fs.dval = torch.zeros(dcap, dtype=torch.int32, device=dev)
+        fs.dused = torch.empty(dcap, dtype=torch.int32, device=dev)
+        fs.send = torch.zeros((1 + dcap // 2, 2), dtype=torch.int64,
+                              device=dev)
+    if fs.rows is None:
+        fs.rows = min(S1_ROWS if rows is None else rows, dcap // 2)
 
 
 def flat_sharded_train_plain(ts, unk_id, min_pair_freq, *, target_merges,
@@ -1153,7 +1202,8 @@ def flat_sharded_train_plain(ts, unk_id, min_pair_freq, *, target_merges,
     ``bpe_ops.train_loop`` on the span, each merge picked by
     ``parallel.train.global_best_pair`` over ``group`` (every rank's
     pairs counted again, gathered and summed by key) when it has more
-    than one rank."""
+    than one rank.  The plain version of the chain's exchange, its
+    headers and its fallback is ``parallel.train.exchange_deltas``."""
     pick = bpe_ops.best_pair
     if group is not None and group.size() > 1:
         from ..parallel.train import global_best_pair

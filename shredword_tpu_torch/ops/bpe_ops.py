@@ -123,6 +123,7 @@ def apply_merge(state: CorpusState, a: int, b: int,
 
 CHUNK_WORDS = 32     # words per presence bit of F1's index (csrc/flat.cu)
 SEG_SLOTS = 256    # slots per kept segment maximum (csrc/flat.cu SEG)
+ST_WORDS = 16      # F1's and S1's state words (csrc/flat_table.cuh)
 
 
 def _as_uint32_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -189,10 +190,15 @@ class FlatState:
     S1 (``_kernels.flat_sharded_train`` over several ranks) keeps one per
     rank, of the rank's span, whose table holds the whole corpus's
     counts: N is then ``table_n``, the whole stream's length (3N keys
-    bound the whole corpus's run, not a span's); ``pending`` holds the
-    gathered (key, delta) int64 rows its next launch adds to the table,
-    ``dlist`` the rank's delta list of a pass; ``listed`` and
-    ``exchanged`` count the rows listed and gathered over the run."""
+    bound the whole corpus's run, not a span's).  Its chain's buffers:
+    ``recv``, every rank's compact list as gathered (int64 [ranks, 1 +
+    rows, 2], each a header (count, flags) and its rows), which its next
+    launch adds to the table; the delta table of a pass (``dkey``,
+    ``dval``, ``dused``); ``send``, the rank's compact list; ``rows``, the
+    rows a list may take in an exchange; ``fallbacks``, the merges at
+    which a list was longer and every rank exchanged again with more
+    rows; ``listed``, ``added`` and ``exchanged``, the rows the rank sent,
+    the live rows it added and the rows it gathered over the run."""
 
     def __init__(self, corpus: CorpusState, table_n: int | None = None):
         t, wid, wc = corpus
@@ -220,8 +226,8 @@ class FlatState:
         word = torch.cumsum(first, 0) - 1
         self.pres = presence_index(t, word, len(starts), max(256, top))
         self.sig = word_signatures(t, word, len(starts))
-        keys_n = n if table_n is None else table_n
-        self.cap = 1 << max(10, (6 * max(keys_n, 1) - 1).bit_length())
+        self.table_n = n if table_n is None else table_n
+        self.cap = 1 << max(10, (6 * max(self.table_n, 1) - 1).bit_length())
         self.tkey = torch.full((self.cap,), -1, dtype=torch.int64,
                                device=dev)
         self.cnt = torch.zeros(self.cap, **i32)
@@ -229,14 +235,16 @@ class FlatState:
         self.skey = torch.full((nseg,), -1, dtype=torch.int64, device=dev)
         self.sce = torch.zeros(nseg, dtype=torch.int64, device=dev)
         self.dirty = torch.zeros(nseg, **i32)
-        self.st = torch.zeros(8, **i32)
+        self.st = torch.zeros(ST_WORDS, **i32)
         self.counted = False      # the first call counts the stream
         self.n, self.merged = n, 0
         # what the passes and picks did (F1's st): chunks visited, words
         # whose signature holds the pair, segment maxima recomputed
         self.visited = self.candidates = self.refreshed = 0
-        self.pending = self.dlist = None     # S1's, over several ranks
-        self.listed = self.exchanged = 0
+        # S1's, over several ranks
+        self.recv = self.send = self.dkey = self.dval = self.dused = None
+        self.rows, self.fallbacks = None, []
+        self.listed = self.added = self.exchanged = 0
 
     def reserve(self, rows: int) -> None:
         """Grow the presence index to ``rows`` ids (new rows empty)."""

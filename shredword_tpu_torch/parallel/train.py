@@ -14,8 +14,13 @@ merges, as the JAX package dispatches its loop:
     every rank picks the same pair with no broadcast (the JAX loop's
     replicated reduce, kept as exact deltas rather than recounted): the
     ranks' pair counts start it (:func:`initial_deltas`), and after each
-    merge every rank's net deltas are gathered (:func:`gather_padded`)
-    and added by every rank (``csrc/flat_sharded.cu``);
+    merge every rank's compact list of net deltas, summed by key on the
+    card, is gathered at a fixed size (:func:`exchange_rows`) and added
+    by every rank (``csrc/flat_sharded.cu``); the gathered headers say,
+    alike on every rank, when a list did not fit and every rank
+    exchanges again with more rows, or when a rank overflowed and every
+    rank raises (:func:`next_rows`; :func:`exchange_deltas` is the plain
+    version of that exchange);
   - its plain version, on the CPU: per merge the distinct pairs of the
     own span (``bpe_ops.pair_counts``: int64 keys (a << 32) | b, so one
     key orders (a, b) at any vocab -- the JAX package packs int32 keys
@@ -102,6 +107,66 @@ def gather_padded(rows: torch.Tensor, n: int, group) -> torch.Tensor:
     out = send.new_empty((group.size() * len(send), 2))
     dist.all_gather(list(out.chunk(group.size())), send, group=group)
     return out
+
+
+def pack_rows(rows: torch.Tensor, flags: int = 0) -> torch.Tensor:
+    """A rank's compact list as S1 lays it out: int64 [1 + n, 2], the
+    header (n, flags) and then the n (key, value) rows of ``rows``."""
+    head = rows.new_tensor([[len(rows), flags]], dtype=torch.int64)
+    return torch.cat([head, rows.long()])
+
+
+def exchange_rows(send: torch.Tensor, rows: int, group,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """Every rank's header and first ``rows`` rows of its compact list
+    ``send`` (int64 [>= 1, 2], :func:`pack_rows`'s layout; a shorter list
+    is padded with zeros) over ``group``, in rank order: one
+    ``all_gather`` of a fixed size and no read on the host.  Returns int64
+    [world, 1 + rows, 2], into ``out`` when it has that shape."""
+    buf = send[:1 + rows]
+    if len(buf) < 1 + rows:
+        buf = torch.cat([buf, buf.new_zeros((1 + rows - len(buf), 2))])
+    shape = (group.size(), 1 + rows, 2)
+    if out is None or out.shape != shape:
+        out = buf.new_empty(shape)
+    dist.all_gather(list(out.unbind(0)), buf.contiguous(), group=group)
+    return out
+
+
+def next_rows(heads, rows: int) -> int:
+    """What every rank does after an exchange of ``rows`` rows a list,
+    from the gathered headers (int64 [world, 2]: each rank's count and
+    flags), the same on every rank: raise when a rank flagged an
+    overflow of its table or list; else the rows the exchange needs,
+    ``rows`` when every list fit, or the next power of two at or above
+    the longest (the fallback: every rank exchanges again with it)."""
+    heads = torch.as_tensor(heads)
+    if bool((heads[:, 1] != 0).any()):
+        raise RuntimeError("S1: a rank's pair table, delta table or list "
+                           "overflowed, so the counts are no longer exact")
+    longest = int(heads[:, 0].max())
+    return rows if longest <= rows else 1 << (longest - 1).bit_length()
+
+
+def live_rows(recv: torch.Tensor) -> torch.Tensor:
+    """The live rows of gathered lists (:func:`exchange_rows`), in rank
+    order, headers and pads dropped: what launch A of S1 adds."""
+    return torch.cat([lst[1:1 + int(lst[0, 0])] for lst in recv])
+
+
+def exchange_deltas(send: torch.Tensor, rows: int,
+                    group) -> tuple[torch.Tensor, int]:
+    """The plain version of one merge's exchange in S1's chain above
+    world 1 (PyTorch ops, any device): the compact lists gathered at
+    ``rows`` rows (:func:`exchange_rows`), the headers read
+    (:func:`next_rows`: an overflow flag raises on every rank), and when
+    a list was longer, the same exchange again with the rows grown.
+    Returns (every rank's live rows, the rows from now on)."""
+    recv = exchange_rows(send, rows, group)
+    grown = next_rows(recv[:, 0], rows)
+    if grown != rows:
+        recv = exchange_rows(send, grown, group)
+    return live_rows(recv), grown
 
 
 def gather_pairs(keys: torch.Tensor, counts: torch.Tensor,

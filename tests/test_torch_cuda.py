@@ -852,14 +852,22 @@ def test_flat_trainer_on_cuda_matches_cpu(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", ["none", "nccl1"])
 @pytest.mark.parametrize("case", sorted(FLAT_CASES))
-def test_flat_sharded_world1_call_by_call(case, group, cuda, request):
+def test_flat_sharded_world1_call_by_call(case, group, cuda, request,
+                                          monkeypatch):
     """S1 of a rank alone (no group, and a one-rank NCCL group) against
     its plain version after every call of 64 merges: records, the merge
     count, done and the compacted stream identical; one launch (F1's) a
     call with merges to make, none past the end; bpe_ops.pair_counts
-    never called on the card."""
+    never called on the card, nor any collective (the state is built
+    through F1's call alone)."""
+    import torch.distributed as dist
+
     g = (request.getfixturevalue("nccl_world1").group.WORLD
          if group == "nccl1" else None)
+    collectives = []
+    for name in ("all_reduce", "all_gather", "broadcast", "barrier"):
+        monkeypatch.setattr(dist, name, lambda *a, _n=name, **k:
+                            collectives.append(_n))
     corpus_kw, target, n_prev, unk, minf = FLAT_CASES[case]
     arrays = flat_corpus(**corpus_kw)
     want, got = (bpe_ops.train_init(bpe_ops.make_state(*arrays, device=d),
@@ -883,35 +891,86 @@ def test_flat_sharded_world1_call_by_call(case, group, cuda, request):
         for x, y in zip(bpe_ops.final_corpus(got.corpus), want.corpus):
             assert torch.equal(x.cpu(), y)
     assert _kernels.flat_sharded_train.launches - n0 == calls > 0
-    assert not counted
+    assert not counted and not collectives
     _kernels.flat_sharded_train(got, unk, minf, group=g, **kw)
     assert _kernels.flat_sharded_train.launches - n0 == calls
+
+
+S1_TEST_ROWS = 16     # the chain test's rows a list: the fallback fires
 
 
 @pytest.mark.cuda
 def test_flat_sharded_chain_two_gloo_ranks(cuda, tmp_path):
     """S1's chain (launch A, launch M, the exchange) in 2 gloo ranks on
     one card against its plain version, call by call on every stream of
-    tests/torch_flat_cases.py (torch_dist_workers.s1_calls): records,
-    merge count, done and the span's compacted stream identical after
-    every call on each rank, the same merges on both ranks (every
-    rank picks the same pair), two launches a merge (and two for the
-    merge that finds none), none past the end, and bpe_ops.pair_counts
-    called once a run (the start), never per merge, also through
-    parallel.train.sharded_train."""
+    tests/torch_flat_cases.py (torch_dist_workers.s1_calls), with 16 rows
+    a list in the exchange, so that longer lists take the fallback:
+    records, merge count, done and the span's compacted stream identical
+    after every call on each rank, the same merges and the same
+    fallbacks on both ranks (every rank picks the same pair and halts
+    alike), the fallback taken, the launches exactly those the calls
+    plan, two a merge, and two for each merge a fallback runs again
+    (torch_dist_workers.chain_launches), none past the end, and
+    bpe_ops.pair_counts called once a run (the start), never per merge,
+    also through parallel.train.sharded_train (its default rows)."""
     import torch_dist_workers as workers
 
     ranks = workers.run_ranks(workers.s1_calls, 2, str(tmp_path),
-                              str(cuda), 64, timeout=900)
+                              str(cuda), 64, None, S1_TEST_ROWS,
+                              timeout=900)
+    fell_back = 0
     for case in [*FLAT_CASES, "sharded_train"]:
         r0, r1 = ranks[0][case], ranks[1][case]
         for r in (r0, r1):
             assert r["same"], case
             n = len(r["merges"])
             assert n > 0 and r["calls"] > 0
-            assert 2 * n <= r["launches"] <= 2 * n + 2 * r["done"], case
+            assert r["launches"] == r["expected"] >= 2 * n, case
             assert r["past_end"] == 0 and r["pair_counts"] == 1, case
         np.testing.assert_array_equal(r0["merges"], r1["merges"])
+        if case != "sharded_train":
+            assert r0["fallbacks"] == r1["fallbacks"], case
+            assert r0["rows"] == r1["rows"] >= S1_TEST_ROWS, case
+            fell_back += len(r0["fallbacks"])
+    assert fell_back > 0
+
+
+@pytest.mark.cuda
+def test_flat_sharded_compact_lists_are_exact(cuda, tmp_path):
+    """Launch M's compact list in 2 gloo ranks on one card, merge by
+    merge on every stream of tests/torch_flat_cases.py
+    (torch_dist_workers.s1_lists): its header and rows == bpe_ops
+    .sum_by_key of the span's pair counts before and after the merge
+    (zeros and (a, b) left out), the rows listed over the run == those,
+    and the records == the plain version's."""
+    import torch_dist_workers as workers
+
+    ranks = workers.run_ranks(workers.s1_lists, 2, str(tmp_path),
+                              str(cuda), timeout=900)
+    for case in FLAT_CASES:
+        for r in (ranks[0][case], ranks[1][case]):
+            assert r["same"] and r["merges"] > 0, case
+            assert r["wrong"] == [], case
+            assert r["listed"] == r["exact"], case
+
+
+@pytest.mark.cuda
+def test_flat_sharded_start_builds(cuda, tmp_path):
+    """The reproducer of a device-side index assert once seen in
+    bpe_ops.FlatState's build on S1's path (every -k flat_sharded test
+    and chip_smoke.py's phase 24 failed in two fresh processes; it did
+    not recur in later fresh processes): in 2 gloo ranks sharing the
+    card, three times on every stream of tests/torch_flat_cases.py,
+    each rank's span read back and checked, train.initial_deltas over
+    the group, then the FlatState, each step synchronised; every build
+    == the one on the CPU (torch_dist_workers.s1_builds)."""
+    import torch_dist_workers as workers
+
+    ranks = workers.run_ranks(workers.s1_builds, 2, str(tmp_path),
+                              str(cuda), 3, timeout=600)
+    for case in FLAT_CASES:
+        for r in ranks:
+            assert r[case]["builds"] == 3 and r[case]["wrong"] == [], case
 
 
 @pytest.mark.cuda

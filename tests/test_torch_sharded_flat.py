@@ -4,14 +4,16 @@ sharded_train on the CPU virtual mesh and the port's single-device flat
 engine: its stream layout, merges and frequencies, resume, the routes of
 BPETrainer(shards=N) that reach it, the calls of its wrapper
 (_kernels.flat_sharded_train, S1 on a card) over 1, 2 and 3 ranks, and
-the host glue of S1's delta exchange."""
+the host glue of S1's delta exchange: its start, and the plain version
+of its fixed-size exchange with the fallback and the overflow that
+every rank sees alike."""
 
 import contextlib
 
 import numpy as np
 import pytest
 import torch
-from torch_flat_cases import SHARDED_CASES, flat_corpus
+from torch_flat_cases import FLAT_CASES, SHARDED_CASES, flat_corpus
 
 import torch_dist_workers as workers
 from shredword_tpu.models.bpe import BPETrainer as JaxTrainer
@@ -182,6 +184,140 @@ def test_delta_exchange_builds_the_whole_table(calls):
         for (_, (keys, counts)), (wk, wc) in zip(glue, want):
             np.testing.assert_array_equal(keys, wk.numpy())
             np.testing.assert_array_equal(counts, wc.numpy())
+
+
+def _whole_run(arrays, unk, merges):
+    """The plain version on the whole stream, min_pair_freq 1: the
+    merges and the pair counts (bpe_ops.pair_counts) at the start and
+    after each merge."""
+    whole = bpe_ops.make_state(*arrays, device="cpu")
+    picked, tables = [], [bpe_ops.pair_counts(whole, unk)]
+    for i in range(merges):
+        a, b, _ = bpe_ops.best_pair(whole, unk, 1)
+        whole = bpe_ops.apply_merge(whole, a, b, 256 + i)
+        picked.append((a, b))
+        tables.append(bpe_ops.pair_counts(whole, unk))
+    return picked, tables
+
+
+@pytest.mark.parametrize("rows", workers.FIXED_ROWS)
+def test_fixed_exchange_builds_the_whole_table(rows, calls):
+    """The plain version of S1's fixed-size exchange
+    (train.exchange_deltas of train.pack_rows lists, at S1's first rows
+    and at 4, where lists are longer), each merge picked from the table
+    it builds: on every rank the table == bpe_ops.pair_counts of the
+    whole corpus after the start and after each merge, and == the table
+    of the exchange it replaced (exchange_tables, train.gather_padded)
+    over that one's merges; the merges == the plain version's on the
+    whole stream."""
+    world, ranks = calls
+    ckw, _, _, unk, _ = SHARDED_CASES["long_words_unk"]
+    arrays = flat_corpus(**ckw)
+    picked, want = _whole_run(arrays, unk, workers.FIXED_MERGES)
+    for r in ranks:
+        fixed = r["fixed", rows]
+        assert fixed["n_all"] == len(arrays[0])
+        assert fixed["raised"] is None
+        assert fixed["merges"] == picked
+        assert len(fixed["tables"]) == workers.FIXED_MERGES + 1
+        for (keys, counts), (wk, wc) in zip(fixed["tables"], want):
+            np.testing.assert_array_equal(keys, wk.numpy())
+            np.testing.assert_array_equal(counts, wc.numpy())
+        for (keys, counts), (_, (gk, gc)) in zip(fixed["tables"], r["glue"]):
+            np.testing.assert_array_equal(keys, gk)
+            np.testing.assert_array_equal(counts, gc)
+
+
+def test_fixed_exchange_falls_back_alike(calls):
+    """At 4 rows a list the first lists are longer: every rank falls back
+    at the same merges to the same rows (the next power of two at or
+    above the longest list, never shrunk), and makes S1's merges at its
+    first rows."""
+    world, ranks = calls
+    small, big = workers.FIXED_ROWS[1], workers.FIXED_ROWS[0]
+    grown = ranks[0]["fixed", small]["rows"]
+    assert grown[0] > small and grown == sorted(grown)
+    assert all(g & (g - 1) == 0 for g in grown)
+    for r in ranks:
+        assert r["fixed", small]["rows"] == grown
+        assert r["fixed", small]["merges"] == r["fixed", big]["merges"]
+        assert r["fixed", big]["rows"] == [big] * workers.FIXED_MERGES
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_overflow_flag_raises_on_every_rank(world, tmp_path):
+    """One rank's overflow flag in its header (the last rank's, at merge
+    OVERFLOW_MERGE): every rank raises the same RuntimeError at that
+    merge, and none hangs (the ranks have 120 s, then the test fails)."""
+    ranks = workers.run_ranks(workers.overflow_raises, world,
+                              str(tmp_path), timeout=120)
+    raised = {r["raised"] for r in ranks}
+    assert len(raised) == 1
+    merge, message = raised.pop()
+    assert merge == workers.OVERFLOW_MERGE and "overflowed" in message
+    assert all(len(r["merges"]) == workers.OVERFLOW_MERGE for r in ranks)
+
+
+def _span_reference(tokens, word_id, rows):
+    """F1's presence index and word signatures of a span, by numpy: for
+    each id >= 0 the chunks of 32 words that hold it, and for each word
+    bit sig_bit(x) of every id x in it."""
+    first = np.r_[True, word_id[1:] != word_id[:-1]][:len(word_id)]
+    word = np.cumsum(first) - 1
+    n_words = int(first.sum())
+    nc = -(-n_words // 32)
+    pres = np.zeros((rows, -(-nc // 32)), np.uint32)
+    sig = np.zeros((n_words, 4), np.uint32)
+    for x, w in zip(tokens.tolist(), word.tolist()):
+        if x >= 0:
+            pres[x, w // 32 // 32] |= np.uint32(1 << (w // 32 % 32))
+        bit = ((x & 0xFFFFFFFF) * 0x9E3779B1 & 0xFFFFFFFF) >> 25
+        sig[w, bit // 32] |= np.uint32(1 << (bit % 32))
+    return pres, sig
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_state_of_each_span(case, world):
+    """The state S1's first call builds on each rank, on the CPU:
+    bpe_ops.FlatState of every span of shard_corpus, sized on the whole
+    stream, has the span's words, counts, presence index (a row for
+    every id up to the span's largest, at least 256) and signatures, by
+    numpy; its table is the whole stream's."""
+    ckw, _, _, _, _ = FLAT_CASES[case]
+    arrays = flat_corpus(**ckw)
+    sc = train.shard_corpus(*arrays, world)
+    for r in range(world):
+        m = int(sc.lengths[r])
+        tokens, word_id, wcount = (x[r, :m] for x in sc[:3])
+        fs = bpe_ops.FlatState(train.local_state(sc, r, "cpu"),
+                               table_n=len(arrays[0]))
+        rows = max(256, int(tokens.max()) + 1)
+        pres, sig = _span_reference(tokens, word_id, rows)
+        np.testing.assert_array_equal(fs.pres.numpy().view(np.uint32), pres)
+        np.testing.assert_array_equal(fs.sig.numpy().view(np.uint32), sig)
+        starts = fs.off[:-1].numpy()
+        np.testing.assert_array_equal(fs.wcnt.numpy(), wcount[starts])
+        assert fs.off[-1] == m and (fs.len > 0).all()
+        assert fs.cap == bpe_ops.FlatState(bpe_ops.make_state(
+            *arrays, device="cpu")).cap
+
+
+def test_flat_state_of_an_empty_span():
+    """A rank whose span is empty (more ranks than words): its FlatState
+    has no word, no chunk and 256 empty rows (no modulo by zero words),
+    and compacts to nothing."""
+    tokens = np.array([97, 98, 97], np.int32)
+    word_id = np.array([0, 0, 1], np.int32)
+    sc = train.shard_corpus(tokens, word_id, np.ones(3, np.int32), 4)
+    assert 0 in sc.lengths
+    for r in range(4):
+        fs = bpe_ops.FlatState(train.local_state(sc, r, "cpu"), table_n=3)
+        m = int(sc.lengths[r])
+        assert fs.n_words == len(np.unique(sc.word_id[r, :m]))
+        assert fs.pres.shape[0] == 256
+        assert fs.pres.shape[1] == (1 if m else 0)
+        assert all(len(x) == m for x in fs.compact())
 
 
 @pytest.mark.parametrize("group", ["none", "gloo1"])

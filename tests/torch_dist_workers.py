@@ -367,6 +367,8 @@ def sharded_flat_scenarios(corpus: str, tmp_dir: str) -> dict:
 
 SHARDED_STEPS = (1, 7, 256)     # max_steps_per_call of sharded_flat_calls
 GLUE_MERGES = 6                 # plain merges of exchange_tables
+FIXED_MERGES = 16               # merges of fixed_exchange_tables
+FIXED_ROWS = (4096, 4)          # its rows a list: S1's first, a fallback's
 
 
 def sharded_flat_calls() -> dict:
@@ -388,6 +390,9 @@ def sharded_flat_calls() -> dict:
                 n_prev_merges=n_prev, device="cpu")
     ckw, _, _, unk, _ = SHARDED_CASES["long_words_unk"]
     out["glue"] = exchange_tables(flat_corpus(**ckw), unk, GLUE_MERGES)
+    for rows in FIXED_ROWS:
+        out["fixed", rows] = fixed_exchange_tables(flat_corpus(**ckw), unk,
+                                                   FIXED_MERGES, rows)
     return out
 
 
@@ -431,18 +436,123 @@ def exchange_tables(arrays, unk: int, merges: int) -> list:
     return out
 
 
-def s1_calls(dev: str, steps: int, cases=None) -> dict:
+def fixed_exchange_tables(arrays, unk: int, merges: int, rows: int,
+                          flag=None) -> dict:
+    """The host glue of S1's fixed-size exchange on this rank's span, in
+    its plain version, with the table added up on the host: the whole
+    corpus's pair counts from train.initial_deltas, then `merges` merges,
+    each picked from that table (bpe_ops.best_of, min_pair_freq 1) and
+    applied by the plain version, after which every rank's compact list
+    (train.pack_rows of its span's net deltas, summed by key, zeros and
+    (a, b) left out) goes through train.exchange_deltas at `rows` rows a
+    list, and the gathered rows are added to the table with (a, b)'s
+    count set to 0.  flag=(rank, merge): that rank flags an overflow in
+    that merge's header.  Returns the whole stream's length, the table
+    after the start and after each merge, the merges, the rows after
+    each exchange and, when the exchange raised, (the merge, the
+    message)."""
+    from shredword_tpu_torch.ops import bpe_ops
+    from shredword_tpu_torch.parallel import train
+
+    group = dist.group.WORLD
+    sc = train.shard_corpus(*arrays, group.size())
+    st = train.local_state(sc, group.rank(), "cpu")
+    n_all, table = train.initial_deltas(st, unk, group)
+    out = dict(n_all=n_all, tables=[_table(table)], merges=[], rows=[],
+               raised=None)
+    for i in range(merges):
+        a, b, c = bpe_ops.best_of(table[:, 0], table[:, 1], 1)
+        assert c > 0
+        ab = a << 32 | b
+        kb, cb = bpe_ops.pair_counts(st, unk)
+        st = bpe_ops.apply_merge(st, a, b, 256 + i)
+        ka, ca = bpe_ops.pair_counts(st, unk)
+        keys, delta = bpe_ops.sum_by_key(torch.cat([kb, ka]),
+                                         torch.cat([-cb, ca]))
+        keep = (delta != 0) & (keys != ab)
+        send = train.pack_rows(torch.stack([keys, delta], 1)[keep],
+                               int(flag == (group.rank(), i)))
+        try:
+            got, rows = train.exchange_deltas(send, rows, group)
+        except RuntimeError as e:
+            out["raised"] = (i, str(e))
+            break
+        table[table[:, 0] == ab, 1] = 0
+        keys, counts = bpe_ops.sum_by_key(torch.cat([table[:, 0], got[:, 0]]),
+                                          torch.cat([table[:, 1], got[:, 1]]))
+        table = torch.stack([keys, counts], 1)
+        out["tables"].append(_table(table))
+        out["merges"].append((a, b))
+        out["rows"].append(rows)
+    return out
+
+
+OVERFLOW_MERGE = 2      # the merge whose header overflow_raises flags
+
+
+def overflow_raises() -> dict:
+    """fixed_exchange_tables with the last rank flagging an overflow in
+    merge OVERFLOW_MERGE's header."""
+    from torch_flat_cases import SHARDED_CASES, flat_corpus
+
+    ckw, _, _, unk, _ = SHARDED_CASES["long_words_unk"]
+    return fixed_exchange_tables(
+        flat_corpus(**ckw), unk, FIXED_MERGES, FIXED_ROWS[0],
+        flag=(dist.get_world_size() - 1, OVERFLOW_MERGE))
+
+
+def chain_launches(n: int, done: bool, steps: int, target: int,
+                   fallbacks) -> int:
+    """The launches one call of S1's chain above world 1 makes, from
+    merge n (done: none), in calls of `steps`: two for each merge it
+    plans, and two for each merge it runs again after each fallback
+    (the merges at which the call's fallbacks halted the chain)."""
+    planned = 0 if done else min(steps, target - n)
+    return 2 * planned + sum(2 * (n + planned - g) for g in fallbacks)
+
+
+def chain_call(fn, ts, unk, minf, **kw):
+    """(fn(ts, ...), the launches chain_launches expects of that call of
+    S1's chain): fn is _kernels.flat_sharded_train."""
+    from shredword_tpu_torch.ops import bpe_ops
+
+    fs = ts.corpus
+    seen = len(fs.fallbacks) if isinstance(fs, bpe_ops.FlatState) else 0
+    n, done = ts.n_merges, ts.done
+    ts = fn(ts, unk, minf, **kw)
+    return ts, chain_launches(
+        n, done, kw["max_steps"], kw["target_merges"],
+        ts.corpus.fallbacks[seen:])
+
+
+class ChainCounter:
+    """Stands in for _kernels.flat_sharded_train (the wrapper then counts
+    its launches here) while a run above world 1 calls it: the launches
+    chain_launches expects of every call, summed in `expected`."""
+
+    def __init__(self, fn):
+        self.fn, self.launches, self.expected = fn, 0, 0
+
+    def __call__(self, ts, unk, minf, **kw):
+        ts, want = chain_call(self.fn, ts, unk, minf, **kw)
+        self.expected += want
+        return ts
+
+
+def s1_calls(dev: str, steps: int, cases=None, rows=None) -> dict:
     """S1 (_kernels.flat_sharded_train on `dev`, a card) against its
     plain version (the same wrapper on CPU tensors), call by call in
-    calls of `steps` merges, on this rank's span of every stream of
+    calls of `steps` merges with `rows` rows a list in the exchange
+    (S1's default when None), on this rank's span of every stream of
     torch_flat_cases.FLAT_CASES (or of those named in `cases`), then one
-    call past the end; per case
-    whether every call's records, merge count, done and the span's
-    compacted stream were identical,
-    the kernel's new merges, its launches and calls, and the calls of
-    bpe_ops.pair_counts the kernel's runs made; under "sharded_train"
-    the same for parallel.train.sharded_train on the card on the
-    long_words stream (its merges == the calls' there)."""
+    call past the end; per case whether every call's records, merge
+    count, done and the span's compacted stream were identical, the
+    kernel's new merges, its launches, the launches chain_launches
+    expects of its calls, its calls, the merges at which it fell back and
+    the rows of its last exchange, and the calls of bpe_ops.pair_counts
+    the kernel's runs made; under "sharded_train" the same for
+    parallel.train.sharded_train on the card on the long_words stream
+    (its merges == the calls' there)."""
     from torch_flat_cases import FLAT_CASES, flat_corpus
 
     from shredword_tpu_torch.ops import _kernels, bpe_ops
@@ -469,10 +579,13 @@ def s1_calls(dev: str, steps: int, cases=None) -> dict:
             kw = dict(target_merges=target, max_steps=steps, group=group)
             n0, calls, spied_n, same = (_kernels.flat_sharded_train.launches,
                                         0, 0, True)
+            expected = 0
             while not want.done and want.n_merges < target:
                 want = _kernels.flat_sharded_train(want, unk, minf, **kw)
                 c0 = len(counted)
-                got = _kernels.flat_sharded_train(got, unk, minf, **kw)
+                got, e = chain_call(_kernels.flat_sharded_train, got, unk,
+                                    minf, rows=rows, **kw)
+                expected += e
                 spied_n += len(counted) - c0
                 calls += 1
                 same &= ((got.n_merges, got.done) == (want.n_merges,
@@ -488,19 +601,132 @@ def s1_calls(dev: str, steps: int, cases=None) -> dict:
             same &= (again.n_merges, again.done) == (got.n_merges, got.done)
             out[case] = dict(
                 same=same, merges=got.merges[n_prev:got.n_merges].copy(),
-                done=got.done, launches=launches, calls=calls,
+                done=got.done, launches=launches, expected=expected,
+                calls=calls, fallbacks=list(got.corpus.fallbacks),
+                rows=got.corpus.rows,
                 past_end=_kernels.flat_sharded_train.launches - n0
                 - launches, pair_counts=spied_n)
         ckw, target, _, unk, minf = FLAT_CASES["long_words"]
-        n0, c0 = _kernels.flat_sharded_train.launches, len(counted)
-        merges, _ = train.sharded_train(
-            *flat_corpus(**ckw), mesh=group, target_merges=target,
-            unk_id=unk, min_pair_freq=minf, device=dev)
+        c0 = len(counted)
+        counter = ChainCounter(_kernels.flat_sharded_train)
+        _kernels.flat_sharded_train = counter
+        try:
+            merges, _ = train.sharded_train(
+                *flat_corpus(**ckw), mesh=group, target_merges=target,
+                unk_id=unk, min_pair_freq=minf, device=dev)
+        finally:
+            _kernels.flat_sharded_train = counter.fn
         out["sharded_train"] = dict(
             same=np.array_equal(merges, out["long_words"]["merges"]),
             merges=merges, done=len(merges) < target,
-            launches=_kernels.flat_sharded_train.launches - n0, calls=1,
+            launches=counter.launches, expected=counter.expected, calls=1,
             past_end=0, pair_counts=len(counted) - c0)
     finally:
         bpe_ops.pair_counts = pair_counts
+    return out
+
+
+def s1_lists(dev: str, cases=None) -> dict:
+    """S1's compact lists on `dev` (a card) merge by merge, in calls of
+    one merge, on this rank's span of every stream of
+    torch_flat_cases.FLAT_CASES (or of those named in `cases`), against
+    bpe_ops.sum_by_key of the span's pair counts before and after the
+    merge in the plain version (zeros and (a, b) left out, as every rank
+    sets (a, b)'s count itself); per case the merges compared, those
+    whose list differed (header count, flags or rows), the rows listed
+    and those the exact rule gives over the run, and whether the records
+    equalled the plain version's."""
+    from torch_flat_cases import FLAT_CASES, flat_corpus
+
+    from shredword_tpu_torch.ops import _kernels, bpe_ops
+    from shredword_tpu_torch.parallel import train
+
+    torch.cuda.set_device(torch.device(dev).index or 0)
+    group = dist.group.WORLD
+    out = {}
+    for case in sorted(FLAT_CASES if cases is None else cases):
+        ckw, target, n_prev, unk, minf = FLAT_CASES[case]
+        sc = train.shard_corpus(*flat_corpus(**ckw), group.size())
+        want, got = (bpe_ops.train_init(
+            train.local_state(sc, group.rank(), d), target, n_prev)
+            for d in ("cpu", dev))
+        kw = dict(target_merges=target, max_steps=1, group=group)
+        merges, wrong, exact, same = 0, [], 0, True
+        while not want.done and want.n_merges < target:
+            kb, cb = bpe_ops.pair_counts(want.corpus, unk)
+            want = _kernels.flat_sharded_train(want, unk, minf, **kw)
+            got = _kernels.flat_sharded_train(got, unk, minf, **kw)
+            same &= ((got.n_merges, got.done) == (want.n_merges, want.done)
+                     and np.array_equal(got.merges, want.merges))
+            if want.done:
+                break
+            a, b = (int(x) for x in want.merges[want.n_merges - 1])
+            ka, ca = bpe_ops.pair_counts(want.corpus, unk)
+            keys, delta = bpe_ops.sum_by_key(torch.cat([kb, ka]),
+                                             torch.cat([-cb, ca]))
+            keep = (delta != 0) & (keys != (a << 32 | b))
+            rows = torch.stack([keys, delta], 1)[keep]
+            send = got.corpus.send.cpu()
+            n = int(send[0, 0])
+            lst = send[1:1 + n]
+            lst = lst[torch.argsort(lst[:, 0])]
+            if int(send[0, 1]) != 0 or not torch.equal(lst, rows):
+                wrong.append(want.n_merges - 1)
+            merges += 1
+            exact += len(rows)
+        out[case] = dict(merges=merges, wrong=wrong, same=same,
+                         listed=got.corpus.listed, exact=exact)
+    return out
+
+
+def s1_builds(dev: str, repeats: int) -> dict:
+    """The start of S1's chain on `dev` (a card), as every rank makes it
+    in its first call, `repeats` times on this rank's span of every
+    stream of torch_flat_cases.FLAT_CASES, each step synchronised so
+    that a device-side fault names it: the span's arrays read back and
+    checked (the token range, the word ids, the lengths),
+    train.initial_deltas over the group, then bpe_ops.FlatState of the
+    span with the whole stream's length, its layout, presence index and
+    signatures against a FlatState built on the CPU.  Returns per case
+    the builds made and those that differed (by name)."""
+    from torch_flat_cases import FLAT_CASES, flat_corpus
+
+    from shredword_tpu_torch.ops import bpe_ops
+    from shredword_tpu_torch.parallel import train
+
+    device = torch.device(dev)
+    torch.cuda.set_device(device.index or 0)
+    group = dist.group.WORLD
+    out = {}
+    for case in sorted(FLAT_CASES):
+        ckw, _, _, unk, _ = FLAT_CASES[case]
+        arrays = flat_corpus(**ckw)
+        sc = train.shard_corpus(*arrays, group.size())
+        cpu = train.local_state(sc, group.rank(), "cpu")
+        want = bpe_ops.FlatState(cpu, table_n=len(arrays[0]))
+        wrong = []
+        for _ in range(repeats):
+            state = train.local_state(sc, group.rank(), device)
+            torch.cuda.synchronize(device)
+            t, wid, wc = (x.cpu() for x in state)
+            m = int(sc.lengths[group.rank()])
+            if not (len(t) == len(wid) == len(wc) == m
+                    and bool(((t >= 0) | (t == unk)).all())
+                    and bool((wid >= 0).all() and (wc >= 1).all())
+                    and bool((wid[1:] >= wid[:-1]).all())):
+                wrong.append("arrays")
+            n_all, first = train.initial_deltas(state, unk, group)
+            torch.cuda.synchronize(device)
+            if n_all != len(arrays[0]) or bool((first[:, 1] < 1).any()):
+                wrong.append("initial_deltas")
+            fs = bpe_ops.FlatState(state, table_n=n_all)
+            torch.cuda.synchronize(device)
+            for name in ("off", "len", "wcnt", "pres", "sig"):
+                if not torch.equal(getattr(fs, name).cpu(),
+                                   getattr(want, name)):
+                    wrong.append(name)
+            if fs.cap != want.cap:
+                wrong.append("cap")
+            del fs, state, first
+        out[case] = dict(builds=repeats, wrong=wrong)
     return out
