@@ -126,7 +126,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      and with device="cpu": pieces identical and log_probs within 1e-5
      (a prune near-tie may flip a piece only if its loss lies within 1e-6
      relative of that prune's cutoff, printed); UnigramTrainer(mesh=...)
-     over NCCL world 1 == the single-device pieces
+     over NCCL world 1 == the single-device pieces; UnigramTrainer
+     (shards=2) in 2 gloo ranks forked on the card (U1 on each rank's
+     share of every slab, one float64 all_reduce of counts and
+     log-likelihood): the single-device pieces, max |log_probs - single
+     device| printed, U1 launched once a call on each rank
  15. the row-sharded giant engine (parallel/giant.py) and sharded flat
      (parallel/train.py): G1 (csrc/giant_sharded.cu, giant_sharded_train,
      on each rank's chunked layout with its presence index) against its
@@ -177,7 +181,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      gpt_starts_device's MB/s and layers beside the native scanner's on
      the same bytes
  17. (runs after phase 14) the CLI, python -m shredword_tpu_torch, in
-     subprocesses on the card, five chains of them side by side and
+     subprocesses on the card, six chains of them side by side and
      phase 18 beside them: the wall-clock seconds of python alone,
      import torch, and info (the package's import), and, in a fresh
      process, of the CUDA context and the kernel and host libraries'
@@ -188,8 +192,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      (SHREDWORD_TORCH_DAEMON=1): its first call (which starts it) and
      a warm call; encode of the first 1,000,000 characters == the
      Tokenizer's ids on the card, decode round-trips; train-unigram
-     --vocab-size 1024 --seed-size 10000 == phase 14's pieces; the
-     daemon is stopped at the end, also on failure
+     --vocab-size 1024 --seed-size 10000 == phase 14's pieces; train
+     --max-merges 256 --checkpoint-path c --checkpoint-every 100, then
+     --resume c in a fresh process: its output starts "resuming after
+     256 merges" and its files are the cold train's; the daemon is
+     stopped at the end, also on failure
 
  18. (runs beside phase 17) the port's bench, python -m
      shredword_tpu_torch.bench --corpus <this corpus>, in a fresh process
@@ -237,7 +244,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      K3 against its plain version for the first 128 merges on the auto
      path's layout (records, tokens, tables, presence and bounds
      identical) and F1 against its plain version for the first 128
-     merges of the same stream, each timed with its bound
+     merges of the same stream, each timed with its bound; and a
+     half-way resume on one trainer of the loaded gigabyte:
+     train(max_merges=7,886) with checkpoint_every 4096 (each write a
+     prefix of the auto path's run), save_checkpoint, load_checkpoint,
+     train() (the replay's and each train()'s seconds, K3 once a call):
+     the auto path's bytes
  21. (runs after phase 20) BASELINE config 5 on the same 1 GB corpus,
      BPETrainer(vocab, min_pair_freq 2, coverage 1.0, the other arguments
      at their defaults): run A at vocab 65536 through the auto path, which
@@ -329,9 +341,30 @@ Phases (any failure exits non-zero, and no result line is printed):
      part (the kernels line's "2 gloo ranks" row: launches, times and
      bound of rank 0's long-word run)
 
+ 25. (runs after phase 24) checkpoint and resume on the card through the
+     public API: for K1 (vocab 768, the headline), K2 (4096), K3 (32768,
+     min_pair_freq 2, coverage 1.0) and F1 (the long-word corpus at
+     32768), BPETrainer(checkpoint_path, checkpoint_every=k)
+     .train(max_merges=m) with k 100 / 1,000 / 1,000 / 100 and m 256 /
+     1,500 / 10,000 / 5,000: every checkpoint it writes, read back, is a
+     prefix of the uninterrupted run's merges and frequencies (phases
+     3, 4, 6 and 19), the last holding m; a fresh trainer then
+     load_checkpoint (== m) and train() (its own checkpoints prefixes
+     too): .model/.vocab == the uninterrupted run's (K1: the JAX golden
+     digest), the engine's kernel launched once a call (F1 on
+     engine="flat": after 5,000 merges every long word fits 64 tokens,
+     so auto resumes F1's checkpoint on K3, also checked); over a one-rank
+     NCCL group the sharded hist (K4), giant (G1) and flat (S1) engines
+     resume K1's, K3's and F1's (its first, 128 merges) checkpoints
+     (the same bytes, the kernel launched, no checkpoint written
+     mid-run), and each sharded train(max_merges=m) with save_checkpoint
+     resumes on one device (the same bytes); each run prints train()'s
+     and the replay's seconds, the launches and the checkpoint writes'
+     host ms
+
 The long-word corpus is generated here too (make_long_corpus), and the
 1 GB corpus (make_big_corpus, on every core).  The gloo ranks of
-phases 11, 15 and 24 fork from a server started first with torch
+phases 11, 14, 15 and 24 fork from a server started first with torch
 imported.
 The corpus is generated here (shredword_tpu_torch.bench.make_corpus, the
 JAX bench's generator) and checked against its known digest.  The last lines of standard output are
@@ -349,6 +382,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -636,6 +670,12 @@ def phase_kernel_vs_plain(device: torch.device, bench_layout) -> dict:
 # phases 3 and 4
 # ---------------------------------------------------------------------
 
+# every train_and_save's merges, frequencies and .model/.vocab bytes, by
+# the name of its files ("auto_768", "auto_32768_long", ...): the
+# uninterrupted runs that phase 25's checkpoints and resumes are held to
+RUNS: dict = {}
+
+
 def train_and_save(corpus, out_dir, vocab, device, engine="auto",
                    cfg=HEADLINE, tag="", **kw):
     from shredword_tpu_torch import BPETrainer
@@ -658,10 +698,13 @@ def train_and_save(corpus, out_dir, vocab, device, engine="auto",
         vp = os.path.join(out_dir, f"{engine}_{vocab}{tag}.vocab")
         t.save(mp, vp)
         raw = t._arrays.total_raw_bytes
+        learned = t.merges.copy(), t.merge_freqs.copy()
     finally:
         t.destroy()
     with open(mp, "rb") as f, open(vp, "rb") as g:
-        return n, secs, raw, peak, f.read(), g.read()
+        model, vocab_b = f.read(), g.read()
+    RUNS[f"{engine}_{vocab}{tag}"] = (*learned, model, vocab_b)
+    return n, secs, raw, peak, model, vocab_b
 
 
 def reset_counts() -> None:
@@ -1240,14 +1283,19 @@ def start_rank_server() -> None:
     forkserver.ensure_running()
 
 
-def run_gloo_ranks(corpus, out_dir, vocab, device, world=2) -> list[dict]:
+def fork_ranks(target, args: tuple, out_dir: str, tag: str, device,
+               world: int = 2) -> list[dict]:
+    """target(rank, world, store, *args, result, dev) in `world` gloo
+    ranks forked from the rank server, each writing its JSON to result;
+    the ranks' results in order.  A rank that exits non-zero, or still
+    runs after RANK_TIMEOUT s, fails the phase."""
     ctx = rank_context()
-    store = os.path.join(out_dir, f"store_{vocab}")
-    results = [os.path.join(out_dir, f"rank{r}_{vocab}.json")
+    store = os.path.join(out_dir, f"store_{tag}")
+    results = [os.path.join(out_dir, f"{tag}_rank{r}.json")
                for r in range(world)]
-    procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, store, corpus, vocab, out_dir,
-                               results[r], str(device)))
+    procs = [ctx.Process(target=target,
+                         args=(r, world, store, *args, results[r],
+                               str(device)))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -1259,12 +1307,17 @@ def run_gloo_ranks(corpus, out_dir, vocab, device, world=2) -> list[dict]:
             p.kill()
             p.join(30)
     codes = [p.exitcode for p in procs]
-    check(codes == [0] * world, f"gloo ranks exited with {codes}")
+    check(codes == [0] * world, f"{tag}: gloo ranks exited with {codes}")
     out = []
     for path in results:
         with open(path) as f:
             out.append(json.load(f))
     return out
+
+
+def run_gloo_ranks(corpus, out_dir, vocab, device, world=2) -> list[dict]:
+    return fork_ranks(sharded_rank, (corpus, vocab, out_dir), out_dir,
+                      f"sharded_{vocab}", device, world)
 
 
 def phase_sharded(corpus, out_dir, device, golden, fused_4096,
@@ -2271,9 +2324,47 @@ def phase_uni_1024(device, corpus):
     return card
 
 
-def phase_uni_sharded(device, corpus, card) -> None:
+def uni_gloo_rank(rank, world, store, corpus, result, dev):
+    """One gloo rank of UnigramTrainer(shards=world) at the 1,024-piece
+    config on device `dev` (forked): its pieces (hex), log_probs,
+    train() s and the U1 / U2 launches of its train() (every count set
+    to 0 just before it, read just after)."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.ops import unigram_ops
+
+    device = torch.device(dev)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        setup = first_collective(device)
+        fb = Timed(unigram_ops.fb_core)
+        unigram_ops.fb_core = fb
+        reset_counts()
+        try:
+            t, _, secs = train_1024(device, corpus, shards=world)
+        finally:
+            unigram_ops.fb_core = fb.fn
+        fb_launches = unigram_ops.fb_core.launches
+        vit_launches = unigram_ops.viterbi_core.launches
+    finally:
+        dist.destroy_process_group()
+    with open(result, "w") as f:
+        json.dump(dict(pieces=[p.hex() for p in t.pieces],
+                       log_probs=np.asarray(t.log_probs).tolist(),
+                       secs=secs, setup=setup, fb=fb_launches,
+                       fb_calls=len(fb.events), fb_ms=fb.ms(),
+                       viterbi=vit_launches), f)
+
+
+def phase_uni_sharded(device, corpus, card, out_dir) -> None:
     """UnigramTrainer(mesh=...) over an NCCL group of world size 1 at the
-    1,024-piece config: the single-device pieces."""
+    1,024-piece config: the single-device pieces; then
+    UnigramTrainer(shards=2) in 2 gloo ranks forked on the card, each
+    running U1 on its share of every slab's words and one float64
+    all_reduce of counts and log-likelihood: the single-device pieces,
+    and U1 launched on each rank."""
     import torch.distributed as dist
 
     from shredword_tpu_torch.parallel import multihost
@@ -2291,6 +2382,24 @@ def phase_uni_sharded(device, corpus, card) -> None:
           f"(first all_reduce {setup:.3f} s apart), max |log_probs - "
           f"single device| {err:.3e}")
     check(t.pieces == card.pieces, "sharded pieces == single device")
+    t0 = time.perf_counter()
+    ranks = fork_ranks(uni_gloo_rank, (corpus,), out_dir, "unigram", device)
+    print(f"[unigram] 2 gloo ranks forked and joined in "
+          f"{time.perf_counter() - t0:.1f} s ({CARD})")
+    for r, res in enumerate(ranks):
+        pieces = [bytes.fromhex(p) for p in res["pieces"]]
+        err = float(np.abs(np.asarray(res["log_probs"])
+                           - card.log_probs).max())
+        print(f"[unigram] gloo rank {r}/2 on {device}, shards=2, 1024 "
+              f"pieces: first all_reduce {res['setup']:.3f} s apart, train "
+              f"{res['secs']:.3f} s, U1 {res['fb']} launches in "
+              f"{res['fb_calls']} calls ({res['fb_ms']:.3f} ms on the card, "
+              f"CUDA events around each call), U2 {res['viterbi']} "
+              f"launches, max |log_probs - single device| {err:.3e}")
+        check(pieces == card.pieces,
+              f"gloo rank {r}: shards=2 pieces == single device")
+        check(res["fb"] == res["fb_calls"] > 0 and res["viterbi"] > 0,
+              f"gloo rank {r}: U1 launched once a call, U2 launched")
 
 
 # ---------------------------------------------------------------------
@@ -3133,6 +3242,8 @@ def phase_pretok(device, enc_text: str) -> tuple[dict, int]:
 # ---------------------------------------------------------------------
 
 CLI_TIMEOUT = 600
+CLI_RESUME_MERGES = 256          # --max-merges, then --resume
+CLI_CHECKPOINT_EVERY = 100
 K1_KERNEL = "hist_train_kernel"          # csrc/hist_fused.cu
 
 
@@ -3212,10 +3323,11 @@ def side_by_side(*chains):
 
 def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
               device) -> None:
-    """python -m shredword_tpu_torch in subprocesses on the card, five
+    """python -m shredword_tpu_torch in subprocesses on the card, six
     chains of fresh processes side by side (and phase 18's bench beside
     them): the start-up's parts; cold train, info, encode, decode; the
-    traced train; the daemon's calls; train-unigram."""
+    traced train; the daemon's calls; train-unigram; train --max-merges
+    with checkpoints, then --resume in a fresh process."""
     from shredword_tpu_torch import Tokenizer, UnigramTrainer
 
     d = os.path.join(out_dir, "cli")
@@ -3227,13 +3339,13 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
                 "--min-pair-freq", "50", "--coverage", "0.9999",
                 "--unk-id", "-1"]
 
-    def check_golden(tag, out):
+    def check_golden(tag, out, merges=golden["merges"]):
         with open(os.path.join(d, tag + ".model"), "rb") as f, \
                 open(os.path.join(d, tag + ".vocab"), "rb") as g:
             model, vocab = f.read(), g.read()
         check(hashlib.sha256(model).hexdigest() == golden["model_sha256"]
               and hashlib.sha256(vocab).hexdigest() == golden["vocab_sha256"]
-              and out.startswith(f"trained {golden['merges']} merges"),
+              and out.startswith(f"trained {merges} merges"),
               f"CLI train ({tag}) == the JAX golden digest")
 
     def start_up():
@@ -3299,13 +3411,30 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
                             "10000"])
         return uni_s
 
+    ck = os.path.join(d, "c.ckpt")
+    half = CLI_RESUME_MERGES
+
+    def resumed():
+        half_s, out = cli_run(train_args("half") + [
+            "--max-merges", str(half), "--checkpoint-path", ck,
+            "--checkpoint-every", str(CLI_CHECKPOINT_EVERY)])
+        check(out.startswith(f"trained {half} merges"),
+              "CLI train --max-merges with checkpoints")
+        resume_s, out = cli_run(train_args("resumed") + ["--resume", ck])
+        check(out.startswith(f"resuming after {half} merges"),
+              "CLI train --resume starts after the checkpoint's merges")
+        check_golden("resumed", out.split("\n", 1)[1],
+                     golden["merges"] - half)
+        return half_s, resume_s
+
     torch.cuda.empty_cache()
     ((python_s, torch_s, ctx_s, klib_s, hlib_s),
      (cold_s, info_s, enc_s, dec_s), traced_s, (first_s, warm_s),
-     uni_s) = side_by_side(start_up, cold, traced, daemon, unigram)
+     uni_s, (half_s, resume_s)) = side_by_side(start_up, cold, traced,
+                                               daemon, unigram, resumed)
     k1 = trace_kernels(trace_dir, K1_KERNEL)
     check(k1 > 0, "CLI train launched K1 (hist_fused.cu)")
-    print(f"[cli] wall s (five chains of fresh processes side by side, "
+    print(f"[cli] wall s (six chains of fresh processes side by side, "
           f"beside phase 18's bench): python alone {python_s:.3f}, import "
           f"torch {torch_s:.3f}, info (the package's import) {info_s:.3f}; "
           f"in a fresh process the CUDA context {ctx_s:.3f}, the kernel "
@@ -3318,6 +3447,10 @@ def phase_cli(corpus, out_dir, golden, enc_text: str, uni_pieces,
     print(f"[cli] train through the daemon (SHREDWORD_TORCH_DAEMON=1): "
           f"first call (starts it) {first_s:.3f} s, a warm call "
           f"{warm_s:.3f} s; == golden")
+    print(f"[cli] train --max-merges {half} --checkpoint-every "
+          f"{CLI_CHECKPOINT_EVERY} {half_s:.3f} s, then --resume in a fresh "
+          f"process {resume_s:.3f} s: .model/.vocab == the cold train's "
+          f"(the JAX golden digest) ({CARD})")
 
     with open(ids_path) as f:
         ids = [int(x) for x in f.read().split()]
@@ -3762,33 +3895,11 @@ def s1_gloo_rank(rank, world, store, arrays_path, headline, out_dir,
 
 def run_s1_ranks(arrays, headline, out_dir, device,
                  world=2) -> list[dict]:
-    """s1_gloo_rank in `world` spawned gloo ranks on `device`."""
+    """s1_gloo_rank in `world` gloo ranks on `device`."""
     path = os.path.join(out_dir, "s1_long.npz")
     np.savez(path, tokens=arrays[0], word_id=arrays[1], wcount=arrays[2])
-    ctx = rank_context()
-    store = os.path.join(out_dir, "store_s1")
-    results = [os.path.join(out_dir, f"s1_rank{r}.json")
-               for r in range(world)]
-    procs = [ctx.Process(target=s1_gloo_rank,
-                         args=(r, world, store, path, headline, out_dir,
-                               results[r], str(device)))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + RANK_TIMEOUT
-    for p in procs:
-        p.join(max(1.0, deadline - time.monotonic()))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(30)
-    codes = [p.exitcode for p in procs]
-    check(codes == [0] * world, f"S1's gloo ranks exited with {codes}")
-    out = []
-    for path in results:
-        with open(path) as f:
-            out.append(json.load(f))
-    return out
+    return fork_ranks(s1_gloo_rank, (path, headline, out_dir), out_dir,
+                      "s1", device, world)
 
 
 def s1_exchange_rows(arrays, device, merges,
@@ -4016,6 +4127,266 @@ def phase_s1(device, out_dir, corpus, arrays, f1_slice, headline,
 
 
 # ---------------------------------------------------------------------
+# phase 25
+# ---------------------------------------------------------------------
+
+# the single-device runs with checkpoints: engine, vocab, config, corpus,
+# kernel wrapper, checkpoint_every k, train(max_merges=m) and the
+# uninterrupted run (RUNS) whose bytes a resume must give.  K1's and
+# K2's k divide neither m nor the merges after it, so a call of each run
+# is short; K3's resumed run ends on a short call; F1's k divides none of
+# its calls of 64 merges, so it writes after the calls that cross a
+# multiple of k
+RESUME_RUNS = {
+    "K1": (768, HEADLINE, "headline", "hist_fused_train", 100, 256,
+           "auto_768"),
+    "K2": (4096, HEADLINE, "headline", "hist_fused_train", 1000, 1500,
+           "auto_4096"),
+    "K3": (GIANT_VOCAB, GIANT, "headline", "giant_train_step", 1000, 10000,
+           f"auto_{GIANT_VOCAB}"),
+    "F1": (GIANT_VOCAB, dict(GIANT, engine="flat"), "long", "flat_train",
+           100, 5000, f"auto_{GIANT_VOCAB}_long"),
+}
+# after F1's 5,000 merges every long word fits 64 tokens: auto resumes
+# that checkpoint on the giant engine, with the same bytes
+F1_AUTO_RESUME = "giant_train_step"
+# over a one-rank NCCL group: the sharded engine's kernel wrapper, the
+# single-device run whose checkpoint it resumes (S1 its first file, where
+# long words still pass 64 tokens; the others its last) and the kernel
+# that resumes the sharded run's own checkpoint on one device
+RESUME_SHARDED = {
+    "K4": ("hist_sharded_train", "K1", "last", "hist_fused_train"),
+    "G1": ("giant_sharded_train", "K3", "last", "giant_train_step"),
+    "S1": ("flat_sharded_train", "F1", "first", "flat_train"),
+}
+# the wrappers of the BPE engines' kernels; all but K4's chain launch
+# once a call
+BPE_KERNELS = ("hist_fused_train", "giant_train_step", "flat_train",
+               "hist_sharded_train", "giant_sharded_train",
+               "flat_sharded_train")
+
+
+def is_prefix(merges, freqs, of) -> bool:
+    """Whether merges and freqs are the first merges and frequencies of
+    the run `of` (its merges and freqs first)."""
+    n = len(merges)
+    return (n <= len(of[0]) and np.array_equal(merges, of[0][:n])
+            and np.array_equal(freqs, of[1][:n]))
+
+
+class CheckpointWrites:
+    """Inside the block, every checkpoint that the port writes
+    (checkpoint.save_checkpoint) is timed on the host clock, read back
+    and held against the run ``want`` (merges and freqs first): each
+    must be a prefix of it.  ``keep`` gets a copy of the first file."""
+
+    def __init__(self, want, keep: str | None = None):
+        self.want, self.keep = want, keep
+        self.held, self.ms, self.check_s = [], [], 0.0
+
+    def __enter__(self):
+        from shredword_tpu_torch import checkpoint
+
+        self.save = checkpoint.save_checkpoint
+        checkpoint.save_checkpoint = self
+        return self
+
+    def __exit__(self, *exc):
+        from shredword_tpu_torch import checkpoint
+
+        checkpoint.save_checkpoint = self.save
+
+    def __call__(self, path, **kw):
+        from shredword_tpu_torch import checkpoint
+
+        t0 = time.perf_counter()
+        self.save(path, **kw)
+        t1 = time.perf_counter()
+        _, merges, freqs = checkpoint.load_checkpoint(path)
+        check(is_prefix(merges, freqs, self.want),
+              f"the checkpoint of {len(merges)} merges is a prefix of the "
+              f"uninterrupted run")
+        if self.keep and not self.held:
+            shutil.copyfile(path, self.keep)
+        self.held.append(len(merges))
+        self.ms.append((t1 - t0) * 1e3)
+        self.check_s += time.perf_counter() - t1
+
+    def line(self) -> str:
+        if not self.held:
+            return "no checkpoint written"
+        return (f"{len(self.held)} checkpoints written (merges "
+                f"{self.held[0]}..{self.held[-1]}), each a prefix of the "
+                f"uninterrupted run, {sum(self.ms):.3f} ms on the host in "
+                f"all, the largest {max(self.ms):.3f} ms")
+
+
+def resume_train(label, corpus, out_dir, vocab, device, cfg, want, *,
+                 kernel=None, every=0, max_merges=None, ckpt=None,
+                 mesh=None, keep=None) -> dict:
+    """One trainer through the public API on the card (over ``mesh`` when
+    given): load_corpus, load_checkpoint(ckpt) when given, then
+    train(max_merges) with checkpoint_every=every, each checkpoint it
+    writes checked by CheckpointWrites against ``want`` (the
+    uninterrupted run's merges, freqs, .model and .vocab), CUDA events
+    around each call of ``kernel``, every count set to 0 just before
+    train() and read just after, the replay on the host clock; then
+    save_checkpoint and save.  Returns the checkpoint to resume from (the
+    last that train() wrote; a sharded run writes none mid-run, so the
+    one save_checkpoint wrote) and the .model/.vocab bytes."""
+    from shredword_tpu_torch import BPETrainer, checkpoint
+    from shredword_tpu_torch.ops import _kernels
+
+    running = os.path.join(out_dir, f"resume_{label}_running.ckpt")
+    saved = os.path.join(out_dir, f"resume_{label}.ckpt")
+    t = BPETrainer(target_vocab_size=vocab, backend="cuda", device=device,
+                   mesh=mesh, checkpoint_path=running,
+                   checkpoint_every=every, **cfg)
+    clock = HostClock(device)
+    timer = Timed(getattr(_kernels, kernel)) if kernel else None
+    try:
+        t.load_corpus(corpus)
+        n0 = t.load_checkpoint(ckpt) if ckpt else 0
+        t._replay_for_resume = clock.wrap("replay", t._replay_for_resume)
+        if timer:
+            setattr(_kernels, kernel, timer)
+        try:
+            with CheckpointWrites(want, keep=keep) as writes:
+                torch.cuda.synchronize(device)
+                reset_counts()
+                t0 = time.perf_counter()
+                added = t.train(max_merges)
+                torch.cuda.synchronize(device)
+                secs = time.perf_counter() - t0 - writes.check_s
+        finally:
+            if timer:
+                setattr(_kernels, kernel, timer.fn)
+        launched = {k: getattr(_kernels, k).launches for k in BPE_KERNELS
+                    if getattr(_kernels, k).launches}
+        t.save_checkpoint(saved)
+        mp, vp = (os.path.join(out_dir, f"resume_{label}.{x}")
+                  for x in ("model", "vocab"))
+        t.save(mp, vp)
+    finally:
+        t.destroy()
+    with open(mp, "rb") as f, open(vp, "rb") as g:
+        files = f.read(), g.read()
+    held = n0 + added
+    calls = f" in {len(timer.events)} calls" if timer else ""
+    print(f"[resume] {label}: "
+          + (f"load_checkpoint {n0} merges, " if ckpt else "")
+          + ("train()" if max_merges is None
+             else f"train(max_merges={max_merges})")
+          + f" added {added} in {secs:.4f} s"
+          + (f" (the replay {clock.secs['replay']:.4f} s of it)" if ckpt
+             else "")
+          + ", launches "
+          + ", ".join(f"{k} {n}" for k, n in launched.items())
+          + f"{calls}; {writes.line()} ({CARD})")
+    check(held == (len(want[0]) if max_merges is None else n0 + max_merges),
+          f"{label}: the merges the run must hold")
+    if kernel:
+        check(launched.get(kernel, 0) > 0,
+              f"{label}: train() launched {kernel}")
+        check(kernel == "hist_sharded_train"
+              or launched[kernel] == len(timer.events),
+              f"{label}: {kernel} launched once a call")
+    else:
+        check(bool(launched), f"{label}: train() launched a BPE kernel")
+    _, merges, freqs = checkpoint.load_checkpoint(saved)
+    check(len(merges) == held and is_prefix(merges, freqs, want),
+          f"{label}: save_checkpoint holds the run's merges")
+    if mesh is not None:
+        check(not writes.held, f"{label}: sharded training writes no "
+              f"checkpoint mid-run, as the JAX package's")
+    elif added:
+        check(writes.held and writes.held[-1] == held,
+              f"{label}: the last checkpoint holds every merge")
+    return dict(ckpt=running if writes.held else saved, files=files)
+
+
+def phase_resume(device, out_dir, corpora: dict, golden) -> None:
+    """Phase 25: checkpoint and resume on the card through the public
+    API.  For K1 (768), K2 (4096), K3 (32768) and F1 (the long words at
+    32768): train(max_merges=m) with checkpoint_every k (every file a
+    prefix of the uninterrupted run, the last holding m), then a fresh
+    trainer resumed from that file (load_checkpoint == m; its own
+    checkpoints prefixes too): the uninterrupted run's bytes (K1: the
+    JAX golden digest), its kernel launched once a call.  Over a
+    one-rank NCCL group, the sharded hist (K4), giant (G1) and flat (S1)
+    engines each resume a single-device checkpoint (the uninterrupted
+    bytes, the kernel launched, no checkpoint written mid-run); and each
+    sharded run's train(max_merges=m) saved with save_checkpoint resumes
+    on one device (the same bytes)."""
+    import torch.distributed as dist
+
+    from shredword_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    start = {}
+    for label, (vocab, cfg, corpus, kernel, every, m, key) in \
+            RESUME_RUNS.items():
+        want = RUNS[key]
+        first = os.path.join(out_dir, f"resume_{label}_first.ckpt")
+        half = resume_train(f"{label}_half", corpora[corpus], out_dir,
+                            vocab, device, cfg, want, kernel=kernel,
+                            every=every, max_merges=m, keep=first)
+        start[label] = dict(last=half["ckpt"], first=first)
+        out = resume_train(label, corpora[corpus], out_dir, vocab, device,
+                           cfg, want, kernel=kernel, every=every,
+                           ckpt=half["ckpt"])
+        check(out["files"] == want[2:],
+              f"{label}: the resumed bytes == the uninterrupted run's")
+        if label == "F1":
+            out = resume_train("F1_auto", corpora[corpus], out_dir, vocab,
+                               device, dict(cfg, engine="auto"), want,
+                               kernel=F1_AUTO_RESUME,
+                               every=every, ckpt=half["ckpt"])
+            check(out["files"] == want[2:], "F1's checkpoint resumed by "
+                  "auto (the giant engine) == the uninterrupted bytes")
+        if label == "K1":
+            check(hashlib.sha256(out["files"][0]).hexdigest()
+                  == golden["model_sha256"]
+                  and hashlib.sha256(out["files"][1]).hexdigest()
+                  == golden["vocab_sha256"],
+                  "K1 resumed == the JAX golden digest")
+        print(f"[resume] {label}, vocab {vocab}: checkpoint_every {every}, "
+              f"train(max_merges={m}), a fresh trainer resumed: "
+              f".model/.vocab == the uninterrupted run's"
+              + (" == the JAX golden digest" if label == "K1" else ""))
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                         rank=0)
+    try:
+        setup = first_collective(device)
+        mesh = multihost.global_mesh()
+        for label, (kernel, source, which, back) in RESUME_SHARDED.items():
+            vocab, cfg, corpus, _, every, m, key = RESUME_RUNS[source]
+            want, path = RUNS[key], corpora[corpus]
+            out = resume_train(label, path, out_dir, vocab, device, cfg,
+                               want, kernel=kernel, every=every,
+                               ckpt=start[source][which], mesh=mesh)
+            check(out["files"] == want[2:], f"{label} over NCCL world 1 "
+                  f"resumed from {source}'s checkpoint == the uninterrupted "
+                  f"run's bytes")
+            half = resume_train(f"{label}_half", path, out_dir, vocab,
+                                device, cfg, want, kernel=kernel,
+                                every=every, max_merges=m, mesh=mesh)
+            out = resume_train(f"{label}_back", path, out_dir, vocab,
+                               device, cfg, want, kernel=back, every=every,
+                               ckpt=half["ckpt"])
+            check(out["files"] == want[2:], f"{label}'s train(max_merges="
+                  f"{m}) resumed on one device == the uninterrupted run's "
+                  f"bytes")
+            print(f"[resume] {label} over NCCL world 1 (first all_reduce "
+                  f"{setup:.4f} s apart): {source}'s {which} checkpoint "
+                  f"resumed, and its own train(max_merges={m}) resumed on "
+                  f"one device: .model/.vocab == the uninterrupted run's")
+    finally:
+        dist.destroy_process_group()
+    print(f"[resume] phase 25: {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
+# ---------------------------------------------------------------------
 # phase 20
 # ---------------------------------------------------------------------
 
@@ -4134,6 +4505,7 @@ def config2_layers(corpus, out_dir, device) -> dict:
             clock.add("save", time.perf_counter() - t0)
             raw = t._arrays.total_raw_bytes
             n_words = t._arrays.n_words
+            learned = t.merges.copy(), t.merge_freqs.copy()
         finally:
             _kernels.giant_train_step = k3.fn
             for (m, name, _), fn in zip(patches, saved):
@@ -4183,7 +4555,91 @@ def config2_layers(corpus, out_dir, device) -> dict:
     with open(mp, "rb") as f, open(vp, "rb") as g:
         model, vocab_b = f.read(), g.read()
     return dict(merges=n, launches=launches, layout=lay, model=model,
-                vocab=vocab_b, arrays=seen["arrays"])
+                vocab=vocab_b, arrays=seen["arrays"], learned=learned)
+
+
+C2_EVERY = 4096     # config 2's resume: checkpoint_every, K3's call size
+
+
+def config2_resume(corpus, out_dir, device, run: dict) -> None:
+    """Phase 20's half-way resume of config 2, on one trainer of the
+    gigabyte that one_load holds: train(max_merges=half the auto path's
+    merges) with checkpoint_every C2_EVERY (each write a prefix of the
+    auto path's run), save_checkpoint, load_checkpoint (== the half) and
+    train() again, which replays the half onto the loaded arrays with
+    the native encoder and runs K3 from there: the auto path's bytes, K3
+    launched once a call in each train(); the replay's and each
+    train()'s seconds."""
+    from shredword_tpu_torch import BPETrainer
+    from shredword_tpu_torch.bench import BIG
+    from shredword_tpu_torch.ops import _kernels
+
+    want = (*run["learned"], run["model"], run["vocab"])
+    total = len(want[0])
+    half = total // 2
+    ck = os.path.join(out_dir, "big_half.ckpt")
+    t = BPETrainer(target_vocab_size=GIANT_VOCAB, backend="cuda",
+                   device=device, checkpoint_every=C2_EVERY,
+                   checkpoint_path=os.path.join(out_dir, "big_running.ckpt"),
+                   **BIG)
+    clock = HostClock(device)
+    k3 = Timed(_kernels.giant_train_step)
+    secs, runs = [], []
+    try:
+        t0 = time.perf_counter()
+        t.load_corpus(corpus)
+        load_s = time.perf_counter() - t0
+        _kernels.giant_train_step = k3
+        try:
+            for max_merges in (half, None):
+                if max_merges is None:
+                    t0 = time.perf_counter()
+                    t.save_checkpoint(ck)
+                    save_ms = (time.perf_counter() - t0) * 1e3
+                    check(t.load_checkpoint(ck) == half,
+                          "config 2: load_checkpoint holds the half")
+                    t._replay_for_resume = clock.wrap("replay",
+                                                      t._replay_for_resume)
+                calls = len(k3.events)
+                with CheckpointWrites(want) as writes:
+                    torch.cuda.synchronize(device)
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    n = t.train(max_merges)
+                    torch.cuda.synchronize(device)
+                    secs.append(time.perf_counter() - t0 - writes.check_s)
+                runs.append((n, _kernels.giant_train_step.launches,
+                             len(k3.events) - calls, writes))
+        finally:
+            _kernels.giant_train_step = k3.fn
+        mp, vp = (os.path.join(out_dir, f"big_resumed.{x}")
+                  for x in ("model", "vocab"))
+        t.save(mp, vp)
+    finally:
+        t.destroy()
+    with open(mp, "rb") as f, open(vp, "rb") as g:
+        files = f.read(), g.read()
+    print(f"[config2] resume: load_corpus {load_s:.4f} s (the gigabyte one_"
+          f"load holds: its arrays and coverage only), save_checkpoint of "
+          f"{half} merges {save_ms:.3f} ms ({CARD})")
+    for (n, launches, calls, writes), sec, what, held in zip(
+            runs, secs, (f"train(max_merges={half})",
+                         "train() after load_checkpoint"), (half, total)):
+        print(f"[config2] resume: {what}: {n} merges in {sec:.4f} s"
+              + (f" (the replay {clock.secs['replay']:.4f} s of it)"
+                 if held == total else "")
+              + f", {launches} K3 launches in {calls} calls; "
+              f"{writes.line()}")
+        check(0 < launches == calls, "config 2's resume ran K3, one launch "
+              "per call")
+        check(writes.held and writes.held[-1] == held,
+              "config 2: the last checkpoint holds every merge so far")
+    check([n for n, *_ in runs] == [half, total - half],
+          "config 2: the half, then the rest")
+    check(files == want[2:], "config 2 resumed from the half == the auto "
+          "path's .model/.vocab bytes")
+    print(f"[config2] resumed after {half} of {total} merges: .model/.vocab "
+          f"== the auto path's")
 
 
 def phase_config2(device, out_dir) -> tuple[dict, dict, np.ndarray]:
@@ -4201,6 +4657,7 @@ def phase_config2(device, out_dir) -> tuple[dict, dict, np.ndarray]:
     run = config2_layers(corpus, out_dir, device)
     lay, model, vocab_b = run.pop("layout"), run["model"], run["vocab"]
     tokens, word_id, counts = run.pop("arrays")
+    config2_resume(corpus, out_dir, device, run)
 
     # the flat engine on the same corpus
     reset_counts()
@@ -5120,6 +5577,9 @@ def main() -> int:
         plain_slice = f1_slice["plain"]
         del f1_slice
         lap("phase 24")
+        phase_resume(device, tmp, {"headline": corpus, "long": long_txt},
+                     golden)
+        lap("phase 25")
         with one_load(big_corpus_path()):
             *config2, c2_merges = phase_config2(device, tmp)
             torch.cuda.empty_cache()
@@ -5163,7 +5623,7 @@ def main() -> int:
         uni_launches = phase_uni_main(device, corpus,
                                       enc_text[:UNI_ENCODE_CHARS], tmp)
         uni_card = phase_uni_1024(device, corpus)
-        phase_uni_sharded(device, corpus, uni_card)
+        phase_uni_sharded(device, corpus, uni_card, tmp)
         lap("phase 14")
         bench = bench_start(corpus, tmp)     # phase 18, beside phase 17
         try:

@@ -10,10 +10,14 @@ there with
 import numpy as np
 import pytest
 import torch
+from golden.corpus_gen import zipf_corpus
 from torch_encode_cases import (FHUS, boundary_cases, high_id_merges,
                                 random_chunks, random_merges)
 from torch_flat_cases import FLAT_CASES, flat_corpus
 from torch_pretok_cases import all_inputs, code_points
+from torch_resume_cases import (CFG, KERNEL, MERGES, SHARDED, SHARDED_KERNEL,
+                                WRITTEN, checkpointed, is_prefix, outputs,
+                                resumed, trainer)
 from torch_unigram_cases import (LATTICES, OVERFLOW_CONFIG, OVERFLOW_TEXT,
                                  overflow_lattice, random_lattice)
 
@@ -1037,3 +1041,90 @@ def test_flat_sharded_failure_raises(fault, cuda, monkeypatch):
                                     max_steps=64)
     assert _kernels.flat_sharded_train.launches == n0
     assert ts.n_merges == 0
+
+
+# ---------------------------------------------------------------------
+# checkpoint and resume on the card (tests/torch_resume_cases.py; the
+# CPU's runs against the JAX package are tests/test_torch_resume.py)
+# ---------------------------------------------------------------------
+
+@pytest.fixture
+def resume_corpora(tmp_path):
+    zipf = tmp_path / "zipf.txt"
+    zipf.write_text(zipf_corpus())
+    long = str(tmp_path / "long.txt")
+    make_long_corpus(long, raw_mb=0.05)
+    return {"zipf": str(zipf), "long": long}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", sorted(WRITTEN))
+def test_resume_on_cuda_matches_cpu(engine, cuda, resume_corpora, tmp_path):
+    """A run on the card with checkpoint_every 100 writes the checkpoints
+    WRITTEN lists, each a prefix of the same run with device="cpu", and
+    saves its bytes; a fresh trainer on the card resumed from each saves
+    the CPU run's bytes and token frequencies, and launches the engine's
+    kernel in its train() (none after a checkpoint that holds every
+    merge).  Tolerance: exact."""
+    path, d = resume_corpora["zipf"], str(tmp_path)
+    cpu = trainer(CFG, path, engine)
+    assert cpu.train() == MERGES
+    want = outputs(cpu, d, "cpu")
+    kernel = getattr(_kernels, KERNEL[engine])
+    n0 = kernel.launches
+    t, n, files = checkpointed(CFG, path, d, engine, cuda)
+    assert n == MERGES and kernel.launches > n0
+    assert outputs(t, d, "card") == want
+    assert [m for m, _ in files] == list(WRITTEN[engine])
+    for m, ck in files:
+        assert is_prefix(ck, want[0], want[1])
+        n0 = kernel.launches
+        t, held, added = resumed(CFG, path, ck, engine, cuda)
+        assert (held, added) == (m, MERGES - m)
+        assert (kernel.launches > n0) == (m < MERGES)
+        assert outputs(t, d, f"resumed{m}") == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["to_sharded", "to_single"])
+@pytest.mark.parametrize("engine", sorted(SHARDED))
+def test_resume_sharded_nccl1_matches_cpu(engine, direction, cuda,
+                                          nccl_world1, resume_corpora,
+                                          tmp_path):
+    """Over a one-rank NCCL group on the card: a single-device checkpoint
+    written mid-run on the card (checkpoint_every 50) resumed by
+    BPETrainer(mesh=...) through the sharded hist engine (K4's chain),
+    the row-sharded giant engine (G1) and the sharded flat engine (S1),
+    each launched; and a sharded train(max_merges=150) saved with
+    save_checkpoint, resumed on one device of the card.  Either way the
+    bytes and token frequencies of the uninterrupted run with
+    device="cpu".  Tolerance: exact."""
+    from shredword_tpu_torch.parallel import multihost
+
+    cfg, corpus = SHARDED[engine]
+    path, d = resume_corpora[corpus], str(tmp_path)
+    cpu = trainer(cfg, path)
+    total = cpu.train()
+    want = outputs(cpu, d, "cpu")
+    mesh = multihost.global_mesh()
+    if direction == "to_sharded":
+        _, _, files = checkpointed(cfg, path, d, device=cuda, every=50)
+        n, ck = files[0]
+        kernel = getattr(_kernels, SHARDED_KERNEL[engine])
+        n0 = kernel.launches
+        t, held, added = resumed(cfg, path, ck, device=cuda, mesh=mesh)
+        assert held == n and kernel.launches > n0
+    else:
+        # 256 + 150 ids: the sharded hist engine at vocab 4608 too
+        took = "hist" if engine == "giant" else engine
+        kernel = getattr(_kernels, SHARDED_KERNEL[took])
+        n, n0 = 150, kernel.launches
+        half = trainer(cfg, path, device=cuda, mesh=mesh)
+        assert half.train(max_merges=n) == n and kernel.launches > n0
+        ck = str(tmp_path / "sharded.ckpt")
+        half.save_checkpoint(ck)
+        assert is_prefix(ck, want[0], want[1])
+        t, held, added = resumed(cfg, path, ck, device=cuda)
+        assert held == n
+    assert added == total - n
+    assert outputs(t, d, "resumed") == want
